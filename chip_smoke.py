@@ -5,19 +5,37 @@ Usage (from the root of a checkout, on a machine with one NVIDIA card):
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure raises and exits non-zero:
+Phases, one JSON line each (several for ``kernels`` and ``decode``); any
+failure raises and exits non-zero:
 
   build    compile every CUDA source under speech_anonymization_tpu_torch/csrc
            with nvcc (one process per source, all at once);
-  kernels  each kernel at the main path's shapes against its plain PyTorch
+  kernels  each kernel at the main paths' shapes against its plain PyTorch
            twin, with its time, its plain twin's, a PyTorch library yardstick
-           and the card's lower bound (CUDA events, after warm-up);
+           and the card's lower bound (CUDA events, after warm-up): K1 at the
+           slice's frames; K2 (beam_gather) at D1's cache, K3
+           (attention_step) at D1, K4 (attention_step_chunked) at D2, each
+           with f32 and bf16 caches, masked fresh tokens and NaN planted
+           beyond the step; the other of K3/K4 is also timed at each shape;
   slice    the anonymization path at bench.py's shape (32 utterances of
            161,120 samples = 10.07 s, T = 1008 frames), seeded random weights:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
            clean and reconstructed features). Launch counts are reset right
            before and read right after; then the path is timed;
-  parity   the same weights and two utterances on the card and on the CPU.
+  parity   the same weights and two utterances on the card and on the CPU;
+  decode   the decode path at the full published ASR width (ASRModel(), 161 M
+           parameters), beam 66, CTC 0.4, temperature 1.15, f32 caches:
+           waveforms -> fbank (K1) -> normalizer -> ConvAutoencoder ->
+           evaluate_batch with the ASR bundle (encoder similarity, beam decode
+           of reconstructed and clean features through K2 and K3/K4, WER
+           against seeded references). Two shapes: D1, 8 x 80,480 samples
+           (5.03 s, 126 encoder frames, 64 steps, U = 72: K3) and D2,
+           8 x 161,120 samples (10.07 s, 252 frames, 252 steps, U = 256: K4).
+           Launch counts are reset right before and read right after; then
+           ``_decode_test`` is timed;
+  decode_parity  two utterances, beam 4, 16 steps, the same weights on the
+           card and on the CPU: identical tokens and lengths, scores within
+           1e-3.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON object, and last ``{"ok": true, "device": {...}}``. Without CUDA the
@@ -39,12 +57,32 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
+from speech_anonymization_tpu_torch.decoding import hyps_to_lists  # noqa: E402
 from speech_anonymization_tpu_torch.eval.evaluator import FeatureClassifier  # noqa: E402
-from speech_anonymization_tpu_torch.models import ConvAutoencoder, Xvector, XvectorClassifier  # noqa: E402
+from speech_anonymization_tpu_torch.models import (  # noqa: E402
+    ASRModel,
+    ConvAutoencoder,
+    Xvector,
+    XvectorClassifier,
+)
+from speech_anonymization_tpu_torch.ops.attention_step import (  # noqa: E402
+    attention_step,
+    attention_step_chunked,
+    attention_step_plain,
+    max_u_whole_row,
+)
+from speech_anonymization_tpu_torch.ops.beam_gather import (  # noqa: E402
+    beam_gather,
+    beam_gather_faults,
+    beam_gather_plain,
+)
 from speech_anonymization_tpu_torch.ops.fbank import Fbank, frame_signal  # noqa: E402
 from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_power_plain  # noqa: E402
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe  # noqa: E402
+from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle  # noqa: E402
 from speech_anonymization_tpu_torch.utils import cuda_build  # noqa: E402
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_  # noqa: E402
 
@@ -58,6 +96,27 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 K1_RTOL = K1_ATOL = 1e-4
 PARITY_ATOL = 1e-3  # card vs CPU: cuDNN and the CPU sum in different orders
+# K3/K4 vs the plain twin on the same card: both f32 accumulations (bf16 caches
+# round the same operands the same way), summed in other orders
+ATTN_RTOL = ATTN_ATOL = 1e-5
+# The decode path: ASRModel() at its published widths, the test decode without
+# the LM (beam 66, CTC 0.4, temperature 1.15, length normalization, f32 caches)
+DECODE_HPARAMS = {"test_beam_size": 66, "ctc_weight_decode": 0.4, "temperature": 1.15,
+                  "decode_cache_dtype": "float32"}
+# name: (utterances, samples, max_decode_steps); D1 is scripts/bench_decode.py's shape
+# (T = 504 frames, 126 encoder frames), D2 bench.py's length (T = 1008, 252 frames)
+DECODE_SHAPES = {"D1": (8, 80_480, 64), "D2": (8, 161_120, None)}
+DECODE_PARITY_ATOL = 1e-3  # scores, card vs CPU: cuBLAS and the CPU sum in other orders
+KERNEL_SOURCES = {
+    "fused_fbank": ("speech_anonymization_tpu_torch/csrc/fbank.cu",
+                    "speech_anonymization_tpu/ops/pallas/fbank_kernel.py:61"),
+    "beam_gather": ("speech_anonymization_tpu_torch/csrc/beam_gather.cu",
+                    "speech_anonymization_tpu/ops/pallas/beam_gather.py:57"),
+    "attention_step": ("speech_anonymization_tpu_torch/csrc/attention_step.cu",
+                       "speech_anonymization_tpu/ops/pallas/attention_step.py:50"),
+    "attention_step_chunked": ("speech_anonymization_tpu_torch/csrc/attention_step.cu",
+                               "speech_anonymization_tpu/ops/pallas/attention_step.py:182"),
+}
 
 
 def emit(obj: dict) -> None:
@@ -92,6 +151,18 @@ def host_median_s(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def kernel_entry(name: str, max_abs_err: float, ms: float, plain_ms: float, flops: float,
+                 nbytes: float, library_ms: float | None) -> dict:
+    """One row of the kernel table; the bound is the larger of the operation
+    time at the fp32 peak and the byte time at the HBM rate."""
+    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    source, replaces = KERNEL_SOURCES[name]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": library_ms}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     report = cuda_build.build()
@@ -120,20 +191,7 @@ def phase_kernels(wavs: torch.Tensor, fbank: Fbank) -> dict:
 
     flops = 2 * rows * win * 2 * n_bins + 3 * rows * n_bins + 2 * rows * n_bins * n_mels
     nbytes = 4 * (rows * win + win * 2 * n_bins + n_bins * n_mels + rows * n_mels)
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
-    entry = {
-        "name": "fused_fbank",
-        "route": "cuda",
-        "source": "speech_anonymization_tpu_torch/csrc/fbank.cu",
-        "replaces": "speech_anonymization_tpu/ops/pallas/fbank_kernel.py:61",
-        "launches": None,
-        "max_abs_err": max_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(ops_ms, bytes_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms,
-    }
+    entry = kernel_entry("fused_fbank", max_abs, kernel_ms, plain_ms, flops, nbytes, library_ms)
     emit({"phase": "kernels", "kernel": "fused_fbank", "rows": rows, "shape": [rows, win, n_bins, n_mels],
           "max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": K1_RTOL, "atol": K1_ATOL,
           "allclose": ok, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -142,6 +200,155 @@ def phase_kernels(wavs: torch.Tensor, fbank: Fbank) -> dict:
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain twin: max abs {max_abs}, max rel {max_rel}")
     return entry
+
+
+def _decode_steps(name: str) -> int:
+    """Decode steps at shape D1 or D2: max_decode_steps, else one per encoder
+    frame (max_decode_ratio 1.0; two stride-2 convs over T frames)."""
+    _, n_samples, max_steps = DECODE_SHAPES[name]
+    return max_steps or (1 + n_samples // 160 + 3) // 4
+
+
+def _decode_cache_shape(name: str) -> tuple[int, int, int, int]:
+    """(L, N, U, M) of the decode caches at shape D1 or D2 (make_kv_cache's U rounding)."""
+    u = -(-(_decode_steps(name) + 1) // 8) * 8
+    if u > max_u_whole_row(768, 4):
+        u = -(-u // 64) * 64
+    return 6, DECODE_SHAPES[name][0] * DECODE_HPARAMS["test_beam_size"], u, 768
+
+
+def phase_k2(gen: torch.Generator) -> dict:
+    """K2 at D1's cache: f32 and bf16, steps 0, 31, 63 (K2a) and U - 1 (K2b)."""
+    layers, n, u, m = _decode_cache_shape("D1")
+    beams = DECODE_HPARAMS["test_beam_size"]
+    parents = torch.randint(0, beams, (n // beams, beams), generator=gen, device=DEVICE)
+    src = (torch.arange(n // beams, device=DEVICE)[:, None] * beams + parents).view(-1).int()
+    rows_read = int(torch.unique(src).numel())  # beams share parents: only these rows must be read
+    max_err, checks = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn(layers, n, u, m, generator=gen, device=DEVICE).to(dtype)
+        out, want = torch.empty_like(a), torch.empty_like(a)
+        for step in (0, 31, 63, u - 1):
+            out.fill_(float("nan"))
+            beam_gather(a, src, step, out)
+            beam_gather_plain(a, src, step, want)
+            torch.cuda.synchronize()
+            p = step + 1
+            same = torch.equal(out[:, :, :p], want[:, :, :p])
+            untouched = bool(out[:, :, p:].isnan().all())
+            checks.append({"dtype": str(dtype), "step": step, "equal": same, "tail_untouched": untouched})
+            if not (same and untouched):
+                raise AssertionError(f"K2 disagrees with its plain twin: {checks[-1]}")
+            max_err = max(max_err, float((out[:, :, :p].float() - want[:, :, :p].float()).abs().max()))
+        if dtype == torch.float32:
+            # K2a at the mean live step of a 64-step decode, and K2b (whole rows)
+            timed = {}
+            for step in (31, u - 1):
+                p, src_long = step + 1, src.long()
+                ms = cuda_ms(lambda: beam_gather(a, src, step, out))
+                plain_ms = cuda_ms(lambda: beam_gather_plain(a, src, step, want))
+                library_ms = cuda_ms(lambda: torch.index_select(a[:, :, :p], 1, src_long))
+                nbytes = layers * (rows_read + n) * p * m * a.element_size() + 4 * n
+                timed[step] = kernel_entry("beam_gather", 0.0, ms, plain_ms, 0, nbytes, library_ms)
+                timed[step]["achieved_gbps"] = nbytes / ms / 1e6
+        del a, out, want
+    if beam_gather_faults(DEVICE):
+        raise AssertionError("K2 met an out-of-range parent")
+    entry = timed[31]
+    entry["max_abs_err"] = max_err
+    emit({"phase": "kernels", "kernel": "beam_gather", "cache": [layers, n, u, m],
+          "distinct_parents": rows_read, "checks": checks,
+          "timed": {f"step {k}": {key: e[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                         "bound_by", "achieved_gbps")}
+                    for k, e in timed.items()}})
+    del entry["achieved_gbps"]
+    return entry
+
+
+def _attention_inputs(shape, dtype, step: int, gen: torch.Generator):
+    """Seeded operands; odd rows' fresh token masked, NaN and Inf beyond the step."""
+    layers, n, u, m = shape
+    q, kh, vh = (torch.randn(n, m, generator=gen, device=DEVICE) for _ in range(3))
+    mask = torch.rand(n, u, generator=gen, device=DEVICE) > 0.2
+    mask[:, 0] = True
+    mask[0::2, step] = True
+    mask[1::2, step] = False
+    caches = []
+    for _ in range(2):
+        c = torch.randn(layers, n, u, m, generator=gen, device=DEVICE).to(dtype)
+        c[:, :, step + 1:] = float("nan")
+        c[:, :, step + 2:, ::5] = float("inf")
+        caches.append(c)
+    return q, kh, vh, mask, *caches
+
+
+def phase_attention(kernel, shape_name: str, steps, timed_step: int, gen: torch.Generator) -> dict:
+    """K3 or K4 at a decode shape against attention_step_plain, f32 and bf16."""
+    shape = _decode_cache_shape(shape_name)
+    layers, n, u, m = shape
+    nhead, layer = 8, 3
+    max_err, checks = 0.0, []
+    for dtype in (torch.float32, torch.bfloat16):
+        for step in steps:
+            q, kh, vh, mask, ck, cv = _attention_inputs(shape, dtype, step, gen)
+            ck2, cv2 = ck.clone(), cv.clone()
+            got = kernel(q, kh, vh, mask, ck, cv, step, layer, nhead)
+            want = attention_step_plain(q, kh, vh, mask, ck2, cv2, step, layer, nhead)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = bool(torch.isfinite(got).all()) and bool(
+                torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+            writeback = all(bool(((x == y) | (x.isnan() & y.isnan())).all())
+                            for x, y in ((ck, ck2), (cv, cv2)))
+            checks.append({"dtype": str(dtype), "step": step, "max_abs_err": err, "allclose": ok,
+                           "cache_equal": writeback})
+            if not (ok and writeback):
+                raise AssertionError(f"{kernel.__name__} disagrees with its plain twin: {checks[-1]}")
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            del q, kh, vh, mask, ck, cv, ck2, cv2
+    q, kh, vh, mask, ck, cv = _attention_inputs(shape, torch.float32, timed_step, gen)
+    p, d = timed_step + 1, m // nhead
+    ms = cuda_ms(lambda: kernel(q, kh, vh, mask, ck, cv, timed_step, layer, nhead))
+    plain_ms = cuda_ms(lambda: attention_step_plain(q, kh, vh, mask, ck, cv, timed_step, layer, nhead))
+    # the other kernel on the same inputs, to see where the K3/K4 boundary should lie
+    other = attention_step_chunked if kernel is attention_step else attention_step
+    other_err = float((other(q, kh, vh, mask, ck, cv, timed_step, layer, nhead)
+                       - attention_step_plain(q, kh, vh, mask, ck, cv, timed_step, layer,
+                                              nhead)).abs().max())
+    if not other_err <= ATTN_ATOL:
+        raise AssertionError(f"{other.__name__} at {shape_name} disagrees with its twin: {other_err}")
+    other_ms = cuda_ms(lambda: other(q, kh, vh, mask, ck, cv, timed_step, layer, nhead))
+    live = [c[layer, :, :p].view(n, p, nhead, d).transpose(1, 2) for c in (ck, cv)]
+    q4, live_mask = q.view(n, nhead, 1, d), mask[:, None, None, :p]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, *live, attn_mask=live_mask))
+    # Only valid cached positions before the step are read (masked ones never
+    # are); the step's k/v come from kh/vh. Count what this run's mask needs.
+    itemsize = 4
+    valid_cached = int(mask[:, :timed_step].sum())
+    valid = valid_cached + int(mask[:, timed_step].sum())
+    flops = 4 * valid * d * nhead + n * nhead * p
+    nbytes = (4 * n * m * 4 + n * p + 2 * valid_cached * m * itemsize
+              + 2 * n * m * itemsize)
+    entry = kernel_entry(kernel.__name__, max_err, ms, plain_ms, flops, nbytes, library_ms)
+    emit({"phase": "kernels", "kernel": kernel.__name__, "shape": shape_name, "cache": list(shape),
+          "checks": checks, "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "timed_step": timed_step,
+          "valid_cached_positions": valid_cached, "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": library_ms, "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+          "achieved_gbps": nbytes / ms / 1e6, "share_of_bound": entry["bound_ms"] / ms,
+          "other_kernel": other.__name__, "other_ms": other_ms, "other_max_abs_err": other_err,
+          "other_share_of_bound": entry["bound_ms"] / other_ms})
+    return entry
+
+
+def phase_decode_kernels() -> list[dict]:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    # timed at each shape's mean live step: 31 of 0..63 (D1), 125 of 0..251 (D2)
+    entries = [phase_k2(gen),
+               phase_attention(attention_step, "D1", (0, 7, 8, 63), 31, gen),
+               phase_attention(attention_step_chunked, "D2", (0, 63, 64, 251), 125, gen)]
+    torch.cuda.empty_cache()
+    return entries
 
 
 def build_models(device: str):
@@ -239,6 +446,95 @@ def phase_parity(wavs, lens, labels, fbank, normalizer, models) -> None:
         raise AssertionError(f"card and CPU disagree beyond {PARITY_ATOL}: {bad}")
 
 
+class StubTokenizer:
+    """Token ids as words (the decode benchmark's stub; no tokenizer model is in the repo)."""
+
+    def decode_ids(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+def phase_decode(asr: ASRModel, ae: ConvAutoencoder, fbank: Fbank, normalizer: InputNormalizer,
+                 card: str):
+    """D1 and D2 through evaluate_batch with the ASR bundle; returns the phase's
+    launch counts and D1's first two clean feature rows (for decode_parity)."""
+    counters = (fused_fbank, beam_gather, attention_step, attention_step_chunked)
+    totals = dict.fromkeys((c.__name__ for c in counters), 0)
+    rng = np.random.default_rng(SEED + 10)
+    parity_feats = None
+    for name, (batch, n_samples, max_steps) in DECODE_SHAPES.items():
+        wavs = torch.from_numpy((rng.standard_normal((batch, n_samples)) * 0.1).astype(np.float32))
+        wavs = wavs.to(DEVICE)
+        lens = torch.ones(batch, device=DEVICE)
+        labels = torch.from_numpy(rng.integers(0, 2, batch)).to(DEVICE)
+        ids = [f"{name}-{i}" for i in range(batch)]
+        words = [" ".join(map(str, rng.integers(3, 5000, rng.integers(8, 20)))) for _ in ids]
+        _, norm_state = normalizer(normalizer.init_state(DEVICE), fbank(wavs), lens, 0, training=True)
+        bundle = ASRBundle(asr, StubTokenizer(), {**DECODE_HPARAMS, "max_decode_steps": max_steps})
+        metrics = recipe.EvalMetrics()
+        bundle.start_test(metrics)
+        torch.cuda.synchronize()
+
+        for c in counters:
+            c.launches = 0
+        recipe.evaluate_batch(ae, fbank, normalizer, norm_state, wavs, lens, labels, metrics,
+                              asr_bundle=bundle, ids=ids, words=words, stage="test")
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        for key, value in launches.items():
+            totals[key] += value
+
+        _, _, recon, clean = recipe.eval_step(ae, fbank, normalizer, norm_state, wavs, lens, labels)
+        t_frames = 1 + n_samples // 160
+        _finite(f"{name} recon", recon, (batch, t_frames, 80))
+        steps = _decode_steps(name)
+        toks, lengths, scores = bundle._decode_test(recon, lens)
+        _finite(f"{name} scores", scores, (batch,))
+        if tuple(toks.shape) != (batch, steps) or not bool(((lengths >= 0) & (lengths <= steps)).all()):
+            raise AssertionError(f"{name}: tokens {tuple(toks.shape)}, lengths {lengths.tolist()}")
+        distinct = len({tuple(h) for h in hyps_to_lists(toks, lengths)})
+        if distinct < 2:
+            raise AssertionError(f"{name}: every utterance decoded to the same hypothesis")
+
+        torch.cuda.reset_peak_memory_stats()
+        median_s = host_median_s(lambda: bundle._decode_test(recon, lens), iters=3, warmup=1)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        audio_s = batch * n_samples / SAMPLE_RATE
+        wer, wer_clean = metrics.wer_metric.summarize("WER"), metrics.wer_metric2.summarize("WER")
+        emit({"phase": "decode", "shape": name, "card": card, "batch": batch, "samples": n_samples,
+              "frames": t_frames, "steps": steps, "beam": DECODE_HPARAMS["test_beam_size"],
+              "cache": list(_decode_cache_shape(name)), "launches": launches,
+              "decode_median_s": median_s, "ms_per_step": 1e3 * median_s / steps,
+              "audio_s": audio_s, "audio_s_per_wall_s": audio_s / median_s,
+              "peak_mem_gib": peak_gib, "wer_recon": wer, "wer_clean": wer_clean,
+              "utility_similarity": metrics.utility_similarity.summarize(),
+              "distinct_hypotheses": distinct, "lengths": lengths.tolist(),
+              "scores": scores.tolist()})
+        if parity_feats is None:
+            parity_feats = (clean[:2], lens[:2])
+        del wavs, recon, clean, bundle
+        torch.cuda.empty_cache()
+    if beam_gather_faults(DEVICE):
+        raise AssertionError("the decode's cache reorder met an out-of-range parent")
+    missing = [key for key, value in totals.items() if value == 0]
+    if missing:
+        raise AssertionError(f"the decode path never launched {missing}")
+    return totals, parity_feats
+
+
+def phase_decode_parity(asr: ASRModel, feats: torch.Tensor, lens: torch.Tensor) -> None:
+    hp = {**DECODE_HPARAMS, "test_beam_size": 4, "max_decode_steps": 16}
+    gpu = ASRBundle(asr, StubTokenizer(), hp)._decode_test(feats, lens)
+    cpu_model = copy.deepcopy(asr).to("cpu")
+    cpu = ASRBundle(cpu_model, StubTokenizer(), hp)._decode_test(feats.cpu(), lens.cpu())
+    same_tokens = torch.equal(gpu[0].cpu(), cpu[0]) and torch.equal(gpu[1].cpu(), cpu[1])
+    gap = float((gpu[2].cpu() - cpu[2]).abs().max())
+    emit({"phase": "decode_parity", "utterances": 2, "beam": 4, "steps": 16,
+          "identical_tokens": same_tokens, "score_gap": gap, "atol": DECODE_PARITY_ATOL,
+          "hypotheses": hyps_to_lists(cpu[0], cpu[1])})
+    if not (same_tokens and gap <= DECODE_PARITY_ATOL):
+        raise AssertionError(f"card and CPU decodes disagree: tokens equal {same_tokens}, gap {gap}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -260,12 +556,20 @@ def main() -> int:
     models = build_models(DEVICE)
 
     k1 = phase_kernels(wavs, fbank)
+    decode_kernels = phase_decode_kernels()
     launches = phase_slice(wavs, lens, labels, fbank, normalizer, models, card)
     k1["launches"] = launches["fused_fbank"]
     phase_parity(wavs, lens, labels, fbank, normalizer, models)
+    del wavs
+
+    asr = seeded_init_(ASRModel(device=DEVICE), SEED + 3)
+    decode_launches, parity_feats = phase_decode(asr, models[0], fbank, normalizer, card)
+    for entry in decode_kernels:
+        entry["launches"] = decode_launches[entry["name"]]
+    phase_decode_parity(asr, *parity_feats)
 
     print(card, flush=True)
-    emit({"kernels": [k1]})
+    emit({"kernels": [k1, *decode_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

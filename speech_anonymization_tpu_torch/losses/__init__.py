@@ -1,1 +1,1 @@
-from .basic import confusion_loss, mse_loss, nll_loss
+from .basic import confusion_loss, cosine_similarity_loss, mse_loss, nll_loss

@@ -1,0 +1,382 @@
+"""Transformer ASR stack and its KV-cached beam-decode step.
+
+Counterpart of ``speech_anonymization_tpu/models/transformer.py`` (the
+non-``sb_compat`` ASR path and the physical, non-paged decode caches):
+``ConvolutionFrontEnd`` (3 conv2d blocks, 4x time subsampling), post-norm
+encoder/decoder layers (8 heads, GELU feed-forward), ``TransformerASR`` with
+``encode``, ``decode``, ``cross_kv`` and ``decode_step``, and the cache
+helpers ``make_kv_cache``, ``beam_reorder_cache`` and ``make_attends``.
+
+Layouts follow the JAX package at the public functions: heads flat as
+(N, U, H*D) in the cache, (B, T, H, D) for the cross-attention K/V. Module
+names mirror the flax tree, so ``utils/convert.py`` maps it one to one.
+Numerics follow flax: LayerNorm eps 1e-6, tanh-approximate GELU, SAME
+(asymmetric) convolution padding, masked scores set to -1e9.
+
+The decode step runs the kernels: self-attention through K3/K4
+(``ops/attention_step.py``) and the beam reorder through K2
+(``ops/beam_gather.py``). Unlike the JAX arrays, the cache is updated in
+place (the fresh k/v, the token buffer) to avoid copying it every step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention_step import cached_attention_step, max_u_whole_row
+from ..ops.beam_gather import beam_gather
+
+NEG_INF = -1e9
+LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def lengths_to_padding_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(B,) relative lengths -> (B, max_len) True = valid mask."""
+    n = torch.round(lengths * max_len)
+    return torch.arange(max_len, device=lengths.device)[None, :] < n[:, None]
+
+
+def sinusoidal_positions(max_len: int, d_model: int) -> torch.Tensor:
+    """(max_len, d_model) table: sin in even columns, cos in odd ones (f32)."""
+    pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32) * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(max_len, d_model)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def _same_padding(size: int, k: int, s: int) -> tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: (low, high), low = total // 2."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class ConvolutionFrontEnd(nn.Module):
+    """(B, T, F) -> (B, T/4, F/4 * channels[-1]): conv2d (SAME padding) ->
+    LayerNorm over channels -> SiLU, three times."""
+
+    def __init__(self, out_channels: Sequence[int] = (128, 256, 512),
+                 kernel_sizes: Sequence[int] = (3, 3, 1), strides: Sequence[int] = (2, 2, 1)):
+        super().__init__()
+        chans = [1, *out_channels]
+        self.kernel_sizes, self.strides = tuple(kernel_sizes), tuple(strides)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(chans[i], chans[i + 1], k, stride=s)
+            for i, (k, s) in enumerate(zip(kernel_sizes, strides))
+        )
+        self.norms = nn.ModuleList(nn.LayerNorm(c, eps=LN_EPS) for c in out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x[:, None]  # (B, 1, T, F)
+        for conv, norm, k, s in zip(self.convs, self.norms, self.kernel_sizes, self.strides):
+            t_lo, t_hi = _same_padding(h.shape[2], k, s)
+            f_lo, f_hi = _same_padding(h.shape[3], k, s)
+            h = conv(F.pad(h, (f_lo, f_hi, t_lo, t_hi)))
+            h = F.silu(norm(h.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
+        b, c, t, f = h.shape
+        return h.permute(0, 2, 3, 1).reshape(b, t, f * c)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, d_model: int, nhead: int):
+        super().__init__()
+        self.d_model, self.nhead, self.d_head = d_model, nhead, d_model // nhead
+        self.q = nn.Linear(d_model, d_model)
+        self.k = nn.Linear(d_model, d_model)
+        self.v = nn.Linear(d_model, d_model)
+        self.out = nn.Linear(d_model, d_model)
+
+    def heads(self, proj: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        """(..., D) -> (..., H, Dh) projected heads."""
+        return proj(x).unflatten(-1, (self.nhead, self.d_head))
+
+    def kv(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Key/value heads (B, T, H, Dh) of ``x`` (cross-attention memory caching)."""
+        return self.heads(self.k, x), self.heads(self.v, x)
+
+    def _context(self, qh, kh, vh, mask):
+        scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(self.d_head)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", weights, vh)
+
+    def attend_kv(self, q, kh, vh, mask=None):
+        """Attention with precomputed key/value heads."""
+        return self.out(self._context(self.heads(self.q, q), kh, vh, mask).flatten(-2))
+
+    def attend_kv_grouped(self, q, kh, vh, mask=None):
+        """Cross-attention with the memory K/V shared across beam groups.
+
+        q: (N, 1, D) with N = B * K beams; kh/vh: (B, T, H, Dh), not repeated
+        per beam; mask: (B, 1, 1, T).
+        """
+        b = kh.shape[0]
+        qg = self.heads(self.q, q).reshape(b, -1, self.nhead, self.d_head)  # (B, K, H, Dh)
+        out = self._context(qg, kh, vh, mask)
+        return self.out(out.reshape(q.shape[0], 1, self.d_model))
+
+    def attend_cached(self, qh, kh, vh, k_buf, v_buf, mask, step: int):
+        """Plain cached attention context, the JAX package's reference math.
+
+        qh/kh/vh: (N, 1, H, Dh) current-token heads; k_buf/v_buf: (N, U, M)
+        cache holding positions < step (position ``step`` and later may hold
+        stale bytes: the fresh kh/vh take position ``step``); mask: optional
+        (N, 1, 1, U) key mask. Returns the context (N, 1, H, Dh), f32.
+        """
+        n, u, _ = k_buf.shape
+        kb = k_buf.reshape(n, u, self.nhead, self.d_head).float()
+        vb = v_buf.reshape(n, u, self.nhead, self.d_head)
+        # positions >= step are undefined: zero them before the value product
+        pos_v = torch.arange(u, device=k_buf.device).view(1, u, 1, 1)
+        vb = torch.where(pos_v < step, vb, torch.zeros((), dtype=vb.dtype, device=vb.device))
+        qc = qh.to(k_buf.dtype).float()
+        scores = torch.einsum("bqhd,bkhd->bhqk", qc, kb) / math.sqrt(self.d_head)
+        s_new = torch.einsum("bqhd,bqhd->bhq", qh, kh)[..., None] / math.sqrt(self.d_head)
+        pos = torch.arange(u, device=k_buf.device).view(1, 1, 1, u)
+        scores = torch.where(pos == step, s_new, scores)
+        scores = torch.where(pos <= step, scores, NEG_INF)
+        if mask is not None:
+            scores = torch.where(mask, scores, NEG_INF)
+        weights = torch.softmax(scores, dim=-1)  # (N, H, 1, U)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v_buf.dtype).float(), vb.float())
+        w_step = weights[..., step:step + 1]  # (N, H, 1, 1)
+        return out + w_step.permute(0, 2, 1, 3) * vh
+
+    def forward(self, q, kv, mask=None):
+        """Full (non-incremental) attention."""
+        ctx = self._context(self.heads(self.q, q), self.heads(self.k, kv), self.heads(self.v, kv), mask)
+        return self.out(ctx.flatten(-2))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, d_model: int, d_ffn: int):
+        super().__init__()
+        self.dense0 = nn.Linear(d_model, d_ffn)
+        self.dense1 = nn.Linear(d_ffn, d_model)
+
+    def forward(self, x):
+        return self.dense1(F.gelu(self.dense0(x), approximate="tanh"))
+
+
+class EncoderLayer(nn.Module):
+    """Post-norm encoder layer."""
+
+    def __init__(self, d_model: int, nhead: int, d_ffn: int):
+        super().__init__()
+        self.attn = MultiHeadAttention(d_model, nhead)
+        self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ff = FeedForward(d_model, d_ffn)
+        self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, x, mask=None):
+        x = self.ln1(x + self.attn(x, x, mask))
+        return self.ln2(x + self.ff(x))
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, d_ffn: int):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, nhead)
+        self.cross_attn = MultiHeadAttention(d_model, nhead)
+        self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ln3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.ff = FeedForward(d_model, d_ffn)
+
+    def cross_kv(self, memory):
+        """Cross-attention K/V heads of the encoder memory, once per decode."""
+        return self.cross_attn.kv(memory)
+
+    def forward(self, x, memory, self_mask=None, cross_mask=None):
+        x = self.ln1(x + self.self_attn(x, x, self_mask))
+        x = self.ln2(x + self.cross_attn(x, memory, cross_mask))
+        return self.ln3(x + self.ff(x))
+
+    def decode_step(self, x, attend, cross_kv, cross_mask):
+        """Cached single-token step with beam-grouped cross-attention.
+
+        ``attend(qh, kh, vh) -> (N, 1, H, Dh)`` computes the self-attention
+        context against the caller's cache; cross_kv: the memory's (B, T, H, Dh)
+        heads. Returns (out, kh, vh flat (N, 1, M)) for the caller's cache write.
+        """
+        sa = self.self_attn
+        kh = sa.heads(sa.k, x)
+        vh = sa.heads(sa.v, x)
+        x = self.ln1(x + sa.out(attend(sa.heads(sa.q, x), kh, vh).flatten(-2)))
+        x = self.ln2(x + self.cross_attn.attend_kv_grouped(x, cross_kv[0], cross_kv[1], cross_mask))
+        return self.ln3(x + self.ff(x)), kh.flatten(-2), vh.flatten(-2)
+
+
+def make_kv_cache(batch: int, u_max: int, num_layers: int, nhead: int, d_head: int,
+                  dtype: torch.dtype = torch.float32, pad_index: int = 0,
+                  device: str | torch.device = "cuda") -> dict:
+    """Stacked KV + token buffers for incremental decoding (physical layout).
+
+    ``k``/``v``: (L, N, U, H*D), zeros; ``tokens``: (N, U) filled with the pad
+    index so unwritten positions are masked like the full path. U is
+    ``u_max`` rounded up to a multiple of 8, and to a multiple of 64 above
+    ``max_u_whole_row`` (the JAX rounding, so both sides pick the same
+    attention kernel). ``k_spare``/``v_spare`` are the second pair of buffers
+    the beam reorder gathers into (it cannot write in place); they come from
+    ``torch.empty`` and their contents are undefined.
+    """
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{dtype} caches are not ported (float32 and bfloat16 are)")
+    u = -(-u_max // 8) * 8
+    if u > max_u_whole_row(nhead * d_head, max(dtype.itemsize, 2)):
+        u = -(-u // 64) * 64
+    shape = (num_layers, batch, u, nhead * d_head)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k_spare": torch.empty(shape, dtype=dtype, device=device),
+        "v_spare": torch.empty(shape, dtype=dtype, device=device),
+        "tokens": torch.full((batch, u), pad_index, dtype=torch.long, device=device),
+    }
+
+
+def beam_reorder_cache(cache: dict, parent: torch.Tensor, step: int | None = None) -> dict:
+    """Reorder the cache to new beam parents, (B, K) ``parent`` within each item.
+
+    k/v rows move with the K2 gather into the spare buffers, which become the
+    live ones (the old ones become the spares): only positions <= ``step``
+    move, later positions are undefined (decode steps mask them and overwrite
+    position step + 1 before reading it). ``step=None`` moves whole rows.
+    """
+    b, k = parent.shape
+    src = (torch.arange(b, device=parent.device)[:, None] * k + parent).reshape(-1).to(torch.int32)
+    tokens = cache["tokens"]
+    n, u = tokens.shape
+    toks = torch.gather(tokens.view(b, k, u), 1, parent[:, :, None].expand(b, k, u)).view(n, u)
+    return {
+        "k": beam_gather(cache["k"], src, step, cache["k_spare"]),
+        "v": beam_gather(cache["v"], src, step, cache["v_spare"]),
+        "k_spare": cache["k"],
+        "v_spare": cache["v"],
+        "tokens": toks,
+    }
+
+
+def _use_kernel(cache: dict) -> bool:
+    """The kernel branch runs on the card, as the JAX one runs on the TPU."""
+    return cache["k"].device.type == "cuda"
+
+
+def make_attends(attns: Sequence[MultiHeadAttention], cache: dict, mask_nu: torch.Tensor,
+                 step: int, nhead: int):
+    """Per-layer ``attend(qh, kh, vh) -> (N, 1, H, Dh)`` closures for a cached
+    decode step, plus ``finalize(khs, vhs) -> cache`` entries.
+
+    On the card each layer's attention is one K3/K4 launch
+    (``ops.attention_step.cached_attention_step``), which also writes the
+    fresh k/v into the cache in place, so ``finalize`` only returns the
+    buffers. Elsewhere: ``MultiHeadAttention.attend_cached`` on per-layer
+    slices and one stacked write at ``step`` in ``finalize``.
+    """
+    n, _ = mask_nu.shape
+    m = cache["k"].shape[-1]
+    d = m // nhead
+    buffers = {key: cache[key] for key in cache if key != "tokens"}
+    if _use_kernel(cache):
+        def make(i):
+            def attend(qh, kh, vh):
+                out = cached_attention_step(qh.reshape(n, m), kh.reshape(n, m), vh.reshape(n, m),
+                                            mask_nu, cache["k"], cache["v"], step, i, nhead)
+                return out.view(n, 1, nhead, d)
+
+            return attend
+
+        return [make(i) for i in range(len(attns))], lambda khs, vhs: buffers
+
+    self_mask = mask_nu[:, None, None, :]
+
+    def make_plain(i, attn):
+        def attend(qh, kh, vh):
+            return attn.attend_cached(qh, kh, vh, cache["k"][i], cache["v"][i], self_mask, step)
+
+        return attend
+
+    def finalize_plain(khs, vhs):
+        cache["k"][:, :, step] = torch.stack(khs)[:, :, 0].to(cache["k"].dtype)
+        cache["v"][:, :, step] = torch.stack(vhs)[:, :, 0].to(cache["v"].dtype)
+        return buffers
+
+    return [make_plain(i, a) for i, a in enumerate(attns)], finalize_plain
+
+
+class TransformerASR(nn.Module):
+    """Encoder-decoder ASR transformer (post-norm, sinusoidal positions)."""
+
+    def __init__(self, input_size: int = 10240, tgt_vocab: int = 5000, d_model: int = 768,
+                 nhead: int = 8, num_encoder_layers: int = 12, num_decoder_layers: int = 6,
+                 d_ffn: int = 3072, max_len: int = 5000, pad_index: int = 0):
+        super().__init__()
+        self.d_model, self.nhead, self.pad_index = d_model, nhead, pad_index
+        self.num_decoder_layers = num_decoder_layers
+        self.input_proj = nn.Linear(input_size, d_model)
+        self.register_buffer("pe", sinusoidal_positions(max_len, d_model), persistent=False)
+        self.embed = nn.Embedding(tgt_vocab, d_model)
+        self.encoder_layers = nn.ModuleList(
+            EncoderLayer(d_model, nhead, d_ffn) for _ in range(num_encoder_layers))
+        self.decoder_layers = nn.ModuleList(
+            DecoderLayer(d_model, nhead, d_ffn) for _ in range(num_decoder_layers))
+
+    def encode(self, src, src_lengths=None):
+        t = src.shape[1]
+        x = self.input_proj(src) + self.pe[None, :t]
+        mask = None
+        if src_lengths is not None:
+            mask = lengths_to_padding_mask(src_lengths, t)[:, None, None, :]
+        for layer in self.encoder_layers:
+            x = layer(x, mask)
+        return x
+
+    def decode(self, tgt_tokens, memory, src_lengths=None):
+        u = tgt_tokens.shape[1]
+        x = self.embed(tgt_tokens) * math.sqrt(self.d_model) + self.pe[None, :u]
+        causal = torch.tril(torch.ones(u, u, dtype=torch.bool, device=x.device))[None, None]
+        self_mask = causal & (tgt_tokens != self.pad_index)[:, None, None, :]
+        cross_mask = None
+        if src_lengths is not None:
+            cross_mask = lengths_to_padding_mask(src_lengths, memory.shape[1])[:, None, None, :]
+        for layer in self.decoder_layers:
+            x = layer(x, memory, self_mask, cross_mask)
+        return x
+
+    def cross_kv(self, memory):
+        """Per-layer cross-attention K/V of the encoder memory."""
+        return [layer.cross_kv(memory) for layer in self.decoder_layers]
+
+    def decode_step(self, token, memory, cache, step: int, src_lengths=None, cross_kv=None):
+        """One decoder step with the stacked KV cache.
+
+        token: (N,) at position ``step``, N = B * beams; memory: (B, T, D), not
+        repeated per beam; cache: from :func:`make_kv_cache` (its token buffer
+        and k/v are updated in place). Returns (hidden (N, D), cache). Key
+        masking matches the full path: causal and pad keys excluded (the pad
+        index is also the CTC blank, so a committed blank is masked too, as in
+        the JAX package).
+        """
+        x = self.embed(token[:, None]) * math.sqrt(self.d_model) + self.pe[step][None, None]
+        tok_buf = cache["tokens"]
+        tok_buf[:, step] = token
+        cross_mask = None
+        if src_lengths is not None:
+            cross_mask = lengths_to_padding_mask(src_lengths, memory.shape[1])[:, None, None, :]
+        mask_nu = tok_buf != self.pad_index
+        attends, finalize = make_attends([l.self_attn for l in self.decoder_layers], cache, mask_nu,
+                                         step, self.nhead)
+        khs, vhs = [], []
+        for i, layer in enumerate(self.decoder_layers):
+            ckv = cross_kv[i] if cross_kv is not None else layer.cross_kv(memory)
+            x, kh, vh = layer.decode_step(x, attends[i], ckv, cross_mask)
+            khs.append(kh)
+            vhs.append(vh)
+        return x[:, 0], {**finalize(khs, vhs), "tokens": tok_buf}

@@ -1,0 +1,171 @@
+"""K3 and K4: one decoder layer's single-token attention against the stacked cache.
+
+Counterpart of the non-paged part of
+``speech_anonymization_tpu/ops/pallas/attention_step.py``:
+``cached_attention_step`` -> ``_attn_step_call`` -> ``_kernel`` (K3, whole
+row) or ``_kernel_chunked`` (K4, U streamed). The CUDA kernels are the two
+``__global__`` functions of ``csrc/attention_step.cu``; its header states the
+numerics, the bound and the design. :func:`attention_step` launches K3 and
+:func:`attention_step_chunked` K4 for CUDA tensors; both use
+:func:`attention_step_plain` only for tensors on the CPU.
+:func:`cached_attention_step` picks between them by the JAX rule, so the same
+shape takes the same kernel on both sides.
+
+Contract, for layer ``layer`` of an (L, N, U, M) cache and host int ``step``:
+q/kh/vh (N, M) f32 heads (flat), mask (N, U) nonzero = valid key. Returns the
+(N, M) f32 attention output over positions <= step (position ``step`` taking
+the fresh kh/vh) and writes kh/vh into the cache at ``(layer, :, step)`` in
+place. f32 caches compute in f32; bf16 caches round q/kh/vh to bf16 and
+accumulate in f32; int8 caches are refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+# The TPU kernel's VMEM budget for its k+v scratch tiles
+# (``attention_step.py:1103``). It sets where the whole-row kernel hands over
+# to the chunked one; the port keeps the rule so both sides pick the same
+# kernel, though on the card the boundary is still to be re-tuned.
+_VMEM_BUDGET = 10 * 2**20
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_VECS = 32  # 16-byte vectors of one head: one warp lane each
+
+
+def max_u_whole_row(m: int, itemsize: int) -> int:
+    """Largest U the TPU's whole-row kernel held in VMEM at its minimum row tile."""
+    return _VMEM_BUDGET // (2 * 8 * m * itemsize)
+
+
+def uses_chunked(u: int, m: int, dtype: torch.dtype) -> bool:
+    """The JAX dispatch rule (``_attn_step_call``): U beyond the whole-row bound."""
+    return u > max_u_whole_row(m, max(dtype.itemsize, 2))
+
+
+def attention_step_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
+                         cache_k: torch.Tensor, cache_v: torch.Tensor, step: int, layer: int,
+                         nhead: int) -> torch.Tensor:
+    """The kernels' function in plain PyTorch (the same numerics by dtype)."""
+    n, m = q.shape
+    d = m // nhead
+    fresh = (q, kh, vh)
+    if cache_k.dtype == torch.bfloat16:
+        fresh = tuple(x.to(torch.bfloat16).float() for x in fresh)
+    qf, khf, vhf = (x.reshape(n, 1, nhead, d) for x in fresh)
+    p = step + 1
+    pos = torch.arange(p, device=q.device).view(1, p, 1, 1)
+    valid = (mask[:, :p] != 0).view(n, p, 1, 1)
+    # stale or masked positions are replaced BEFORE any product: 0 * NaN is NaN
+    kb = cache_k[layer, :, :p].float().view(n, p, nhead, d)
+    vb = cache_v[layer, :, :p].float().view(n, p, nhead, d)
+    kb = torch.where(valid, torch.where(pos == step, khf, kb), 0.0)
+    vb = torch.where(valid, torch.where(pos == step, vhf, vb), 0.0)
+    scores = torch.einsum("nqhd,nphd->nhp", qf, kb) / math.sqrt(d)
+    scores = torch.where(valid.view(n, 1, p), scores, -1e30)
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("nhp,nphd->nhd", weights, vb).reshape(n, m)
+    cache_k[layer, :, step] = kh.to(cache_k.dtype)
+    cache_v[layer, :, step] = vh.to(cache_v.dtype)
+    return out
+
+
+def _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead) -> None:
+    if cache_k.dtype not in _DTYPE_CODES or cache_v.dtype != cache_k.dtype:
+        raise TypeError(f"attention_step takes float32 or bfloat16 caches, got "
+                        f"{cache_k.dtype}/{cache_v.dtype}")
+    if cache_k.ndim != 4 or cache_v.shape != cache_k.shape:
+        raise ValueError(f"caches must be (L, N, U, M) of one shape, got {tuple(cache_k.shape)} "
+                         f"and {tuple(cache_v.shape)}")
+    layers, n, u, m = cache_k.shape
+    for name, x in (("q", q), ("kh", kh), ("vh", vh)):
+        if x.dtype != torch.float32 or x.shape != (n, m):
+            raise ValueError(f"{name} must be ({n}, {m}) float32, got {tuple(x.shape)} {x.dtype}")
+    if mask.shape != (n, u) or mask.dtype not in (torch.bool, torch.int8, torch.uint8):
+        raise ValueError(f"mask must be ({n}, {u}) bool/int8/uint8, got {tuple(mask.shape)} "
+                         f"{mask.dtype}")
+    for name, x in (("q", q), ("kh", kh), ("vh", vh), ("mask", mask), ("cache_k", cache_k),
+                    ("cache_v", cache_v)):
+        if x.device != cache_k.device:
+            raise ValueError(f"{name} is on {x.device}, the cache on {cache_k.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x is not mask and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    vec = 16 // cache_k.element_size()
+    if nhead <= 0 or m % nhead:
+        raise ValueError(f"d_model {m} is not a multiple of {nhead} heads")
+    d = m // nhead
+    if d % vec or d // vec > _MAX_VECS:
+        raise ValueError(f"head width {d} unsupported for {cache_k.dtype} caches")
+    if not 0 <= step < u:
+        raise ValueError(f"step {step} outside the cache's {u} positions")
+    if not 0 <= layer < layers:
+        raise ValueError(f"layer {layer} outside the cache's {layers} layers")
+
+
+_fn = None  # the bound C entry point, set on first launch
+
+
+def _entry():
+    """``sa_attention_step`` with its argument types, bound once."""
+    global _fn
+    if _fn is None:
+        from ..utils import cuda_build
+
+        fn = cuda_build.load("attention_step").sa_attention_step
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead) -> torch.Tensor:
+    _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead)
+    _, n, u, m = cache_k.shape
+    out = torch.empty(n, m, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _entry()(q.data_ptr(), kh.data_ptr(), vh.data_ptr(), mask.data_ptr(), cache_k.data_ptr(),
+             cache_v.data_ptr(), out.data_ptr(), n, u, m, nhead, step, layer,
+             _DTYPE_CODES[cache_k.dtype], int(chunked), q.device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"attention_step kernel launch failed: CUDA error {err}")
+    return out
+
+
+def _dispatch(wrapper, chunked: bool, *args) -> torch.Tensor:
+    device = args[4].device  # the cache's
+    if device.type == "cpu":
+        return attention_step_plain(*args)
+    if device.type != "cuda":
+        raise ValueError(f"attention_step runs on cuda or cpu, not {device}")
+    out = _launch(chunked, *args)
+    wrapper.launches += 1
+    return out
+
+
+def attention_step(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int,
+                   nhead: int) -> torch.Tensor:
+    """K3, the whole-row kernel (counts one in ``attention_step.launches``)."""
+    return _dispatch(attention_step, False, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead)
+
+
+def attention_step_chunked(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int,
+                           nhead: int) -> torch.Tensor:
+    """K4, the streamed kernel (counts one in ``attention_step_chunked.launches``)."""
+    return _dispatch(attention_step_chunked, True, q, kh, vh, mask, cache_k, cache_v, step, layer,
+                     nhead)
+
+
+attention_step.launches = 0
+attention_step_chunked.launches = 0
+
+
+def cached_attention_step(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int,
+                          nhead: int) -> torch.Tensor:
+    """K3 or K4 by the JAX rule: chunked when U > ``max_u_whole_row(M, max(itemsize, 2))``."""
+    _, _, u, m = cache_k.shape
+    kernel = attention_step_chunked if uses_chunked(u, m, cache_k.dtype) else attention_step
+    return kernel(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead)

@@ -9,8 +9,11 @@ anonymizer.py`` (``SexAnonymizationBrain``), for the ConvAutoencoder:
   * :func:`anonymize`: fbank -> normalizer -> ``ConvAutoencoder.anonymize``,
     the composition ``bench.py`` times;
   * :func:`evaluate_batch`: ``eval_step`` plus the scores: internal sex ACC,
-    the frozen x-vector's ACC on clean and reconstructed features, and the
-    recon-vs-clean cosine similarity as the utility proxy.
+    the frozen x-vector's ACC on clean and reconstructed features, and
+    utility: with an ASR bundle (``recipes/asr_bundle.py``), the similarity
+    of the ASR encoder outputs and, at the test stage, the WER of the beam
+    decodes of both; without one, the recon-vs-clean feature cosine
+    similarity as a proxy.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..losses.basic import confusion_loss, mse_loss, nll_loss
 from ..models.autoencoders import ConvAutoencoder
 from ..ops.fbank import Fbank
 from ..ops.normalization import InputNormalizer, NormalizerState
+from .asr_bundle import ASRBundle
 
 # (recon, sex, utility, confusion): the recipe's defaults for evaluation
 DEFAULT_WEIGHTS = (1.0, 0.0, 0.0, 0.0)
@@ -78,7 +82,8 @@ def anonymize(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormalizer,
 
 
 class EvalMetrics:
-    """The recipe's per-stage aggregators (``on_stage_start`` in the JAX recipe)."""
+    """The recipe's per-stage aggregators (``on_stage_start`` in the JAX recipe);
+    an ASR bundle's ``start_test`` adds ``wer_metric`` and ``wer_metric2``."""
 
     def __init__(self):
         self.sex_acc = AccuracyStats()
@@ -100,8 +105,16 @@ def evaluate_batch(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormal
                    norm_state: NormalizerState, wavs: torch.Tensor, lens: torch.Tensor,
                    labels: torch.Tensor, metrics: EvalMetrics,
                    external_classifier: FeatureClassifier | None = None,
-                   weights: Sequence[float] = DEFAULT_WEIGHTS, epoch: int = 0) -> torch.Tensor:
-    """One evaluation batch: :func:`eval_step`, then ACC, ACC_ext and similarity."""
+                   weights: Sequence[float] = DEFAULT_WEIGHTS, epoch: int = 0,
+                   asr_bundle: ASRBundle | None = None, ids: Sequence[str] = (),
+                   words: Sequence[str] = (), stage: str = "test") -> torch.Tensor:
+    """One evaluation batch: :func:`eval_step`, then ACC, ACC_ext and utility.
+
+    With ``asr_bundle`` (whose ``start_test`` has run on ``metrics`` for the
+    test stage), utility is the bundle's: encoder similarity, and at
+    ``stage == "test"`` the WER of both decodes against ``words`` (one
+    reference string per utterance, keyed by ``ids``).
+    """
     loss, sex_lp, recon, clean = eval_step(model, fbank, normalizer, norm_state, wavs, lens,
                                            labels, weights, epoch)
     labels_np = labels.cpu().numpy()
@@ -111,5 +124,9 @@ def evaluate_batch(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormal
         metrics.sex_acc_extern_orig.append(lp_orig.cpu().numpy(), labels_np)
         lp_recon, _, _ = external_classifier.classify_feats(recon)
         metrics.sex_acc_extern.append(lp_recon.cpu().numpy(), labels_np)
-    metrics.utility_similarity.append(cosine_similarity(recon.cpu().numpy(), clean.cpu().numpy()))
+    if asr_bundle is not None:
+        asr_bundle.eval_batch(metrics, ids, words, recon, clean, lens, stage)
+    else:
+        metrics.utility_similarity.append(cosine_similarity(recon.cpu().numpy(),
+                                                            clean.cpu().numpy()))
     return loss

@@ -1,0 +1,119 @@
+"""Frozen ASR attached to the anonymizer: utility loss, encoder similarity and WER.
+
+Counterpart of ``speech_anonymization_tpu/recipes/asr_bundle.py``
+``ASRBundle`` without a language model (what the recipe runs when
+``lm_checkpoint_dir`` is unset) and with physical KV caches:
+
+  * ``utility_loss``: divergence of the frozen ASR's decoder outputs on
+    clean and reconstructed features (MSE or cosine);
+  * ``eval_batch``: cosine similarity of the two encoder outputs into the
+    utility aggregator and, at the test stage, a beam decode (beam 66, CTC
+    0.4, temperature 1.15, length normalization) of the reconstructed and the
+    clean features, scored as WER against the reference words;
+  * ``start_test`` / ``finish_test``: the two WER aggregators.
+
+The tokenizer is duck-typed: anything with ``decode_ids(list[int]) -> str``.
+The decode's hot path runs the port's kernels: K3/K4 for the cached
+self-attention and K2 for the beam reorder.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..decoding import BeamSearchConfig, beam_search, hyps_to_lists
+from ..eval.wer import ErrorRateStats
+from ..losses import cosine_similarity_loss, mse_loss
+from ..models.asr import ASRModel
+from ..models.transformer import beam_reorder_cache, make_kv_cache
+
+_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class ASRBundle:
+    def __init__(self, model: ASRModel, tokenizer, hparams: dict, utility_kind: str = "mse"):
+        self.model = model.eval()
+        self.tokenizer = tokenizer
+        self.hparams = hparams
+        self.utility_kind = utility_kind
+        self.beam_size = int(hparams.get("test_beam_size", 66))
+        # the recipe default float32 keeps the scores stable against the
+        # reference's f32 decode; 'bfloat16' halves the cache traffic
+        self.cache_dtype = _CACHE_DTYPES[hparams.get("decode_cache_dtype", "float32")]
+        self.cfg = BeamSearchConfig(
+            beam_size=self.beam_size,
+            bos_index=int(hparams.get("bos_index", 1)),
+            eos_index=int(hparams.get("eos_index", 2)),
+            blank_index=int(hparams.get("blank_index", 0)),
+            ctc_weight=float(hparams.get("ctc_weight_decode", 0.4)),
+            lm_weight=0.0,
+            temperature=float(hparams.get("temperature", 1.15)),
+            length_normalization=True,
+        )
+
+    def _forward_dec(self, feats, lens, tokens_bos):
+        enc = self.model.encode(feats, lens)
+        return enc, self.model.decode(tokens_bos, enc, lens)
+
+    def utility_loss(self, clean, recon, lens, tokens_bos):
+        """Utility term of the anonymizer's train step; gradients reach only
+        the reconstruction branch."""
+        _, dec_o = self._forward_dec(clean, lens, tokens_bos)
+        _, dec_r = self._forward_dec(recon, lens, tokens_bos)
+        dec_o = dec_o.detach()
+        if self.utility_kind == "cosine":
+            return cosine_similarity_loss(dec_r, dec_o)
+        return mse_loss(dec_r, dec_o)
+
+    @torch.no_grad()
+    def _encode(self, feats, lens):
+        return self.model.encode(feats, lens)
+
+    @torch.no_grad()
+    def _decode_test(self, feats, lens):
+        """Beam-decode normalized (B, T, F) features -> (tokens, lengths, scores[, stats])."""
+        m = self.model
+        enc = m.encode(feats, lens)
+        p_ctc = torch.log_softmax(m.heads.ctc_logits(enc), dim=-1)
+        # cross-attention memory K/V projected once per decode, at the batch
+        # level: decode steps group the B * beam query rows over it
+        cross = m.cross_kv(enc)
+        att_cached = (
+            lambda n, u_max: make_kv_cache(n, u_max, m.num_decoder_layers, m.nhead,
+                                           m.d_model // m.nhead, self.cache_dtype,
+                                           device=enc.device),
+            lambda state, prev, step: m.decode_step_cached(prev, enc, state, step, lens, cross),
+            beam_reorder_cache,
+        )
+        max_steps = self.hparams.get("max_decode_steps")
+        return beam_search(att_cached, enc, lens, p_ctc, self.cfg,
+                           max_steps=int(max_steps) if max_steps else None,
+                           return_stats=bool(self.hparams.get("decode_return_stats")))
+
+    # -- anonymizer evaluation hooks ----------------------------------------
+
+    def start_test(self, metrics) -> None:
+        metrics.wer_metric = ErrorRateStats()
+        metrics.wer_metric2 = ErrorRateStats()
+
+    def eval_batch(self, metrics, ids, words, recon, clean, lens, stage: str) -> None:
+        """Encoder similarity into ``metrics.utility_similarity``; at the test
+        stage, WER of the reconstructed (``wer_metric``) and the clean
+        (``wer_metric2``) features against ``words`` (one string per utterance)."""
+        r = self._encode(recon, lens).cpu().numpy().reshape(len(recon), -1)
+        o = self._encode(clean, lens).cpu().numpy().reshape(len(clean), -1)
+        den = np.linalg.norm(r, axis=1) * np.linalg.norm(o, axis=1)
+        metrics.utility_similarity.append((r * o).sum(axis=1) / np.maximum(den, 1e-8))
+        if stage == "test":
+            target = [w.split(" ") for w in words]
+            for feats, agg in ((recon, metrics.wer_metric), (clean, metrics.wer_metric2)):
+                toks, lengths = self._decode_test(feats, lens)[:2]
+                pred = [self.tokenizer.decode_ids(h).split(" ") for h in hyps_to_lists(toks, lengths)]
+                agg.append(ids, pred, target)
+
+    def finish_test(self, metrics, wer_file: str | None = None) -> float:
+        if wer_file:
+            with open(wer_file, "w") as f:
+                metrics.wer_metric.write_stats(f)
+        return metrics.wer_metric.summarize("error_rate")

@@ -1,0 +1,92 @@
+"""Device-time breakdown of one beam decode (``ASRBundle._decode_test``).
+
+Usage, on a machine with one NVIDIA card:
+
+    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2]
+
+D1 (default) is scripts/bench_decode.py's shape: 8 utterances of T = 504
+feature frames (126 encoder frames), 64 decode steps; D2 is bench.py's
+length: T = 1008 (252 encoder frames), 252 steps. The full-width
+``ASRModel()`` with seeded random weights decodes seeded features at beam 66,
+CTC 0.4, temperature 1.15, f32 caches, fp32 with TF32 off. After a warm-up,
+one decode runs under ``torch.profiler``; the script prints one JSON line:
+the wall time with and without the profiler, summed device time, the
+device's busy share of the profiled wall time, the number of kernel launches,
+and device time by kernel name (cut to 80 characters), largest first. Exits
+non-zero without CUDA or when the trace holds no device time.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..models.asr import ASRModel
+from ..recipes.asr_bundle import ASRBundle
+from ..utils.seeded_init import seeded_init_
+
+SHAPES = {"D1": (8, 504, 64), "D2": (8, 1008, None)}  # utterances, frames, max_decode_steps
+TOP = 15
+
+
+class _Tok:
+    def decode_ids(self, ids):
+        return " ".join(str(i) for i in ids)
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("profile_decode: CUDA is not available", file=sys.stderr)
+        return 1
+    name = argv[0] if argv else "D1"
+    batch, frames, max_steps = SHAPES[name]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    rng = np.random.default_rng(0)
+    feats = torch.from_numpy(rng.standard_normal((batch, frames, 80)).astype(np.float32)).cuda()
+    lens = torch.ones(batch, device="cuda")
+    model = seeded_init_(ASRModel(device="cuda"), 3)
+    bundle = ASRBundle(model, _Tok(), {"test_beam_size": 66, "ctc_weight_decode": 0.4,
+                                       "temperature": 1.15, "max_decode_steps": max_steps})
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bundle._decode_test(feats, lens)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bundle._decode_test(feats, lens)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_kernel: dict[str, float] = {}
+    launches = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernel = evt.name[:80]  # kernels of one template family share a row
+            by_kernel[kernel] = by_kernel.get(kernel, 0.0) + evt.time_range.elapsed_us() / 1e3
+            launches += 1
+    device_ms = sum(by_kernel.values())
+    if device_ms == 0.0:
+        print("profile_decode: the trace holds no device time", file=sys.stderr)
+        return 1
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP]
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "shape": name, "batch": batch, "frames": frames,
+        "wall_ms_unprofiled_median": statistics.median(walls[1:]), "wall_ms": wall_ms,
+        "device_ms": device_ms, "busy_share": device_ms / wall_ms, "device_launches": launches,
+        "kernels_ms": dict(top),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

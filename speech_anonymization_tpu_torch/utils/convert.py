@@ -12,6 +12,14 @@ package). Inputs are flax variable trees as nested dicts of numpy arrays,
                                           torch convolves)
   BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var
   InstanceNorm scale/bias              -> weight/bias
+
+and, for the ASR model (:func:`asr_state_dict`):
+
+  flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
+  DenseGeneral q/k/v kernel (D, H, Dh), bias (H, Dh) -> Linear (H*Dh, D), (H*Dh,)
+  DenseGeneral out kernel (H, Dh, D)   -> Linear weight (D, H*Dh)
+  LayerNorm scale/bias                 -> weight/bias
+  Embed embedding (V, D)               -> Embedding weight (V, D)
 """
 
 from __future__ import annotations
@@ -95,6 +103,73 @@ def convae_state_dict(variables: Mapping) -> dict:
 def indexed_state_dict(variables: Mapping) -> dict:
     """Xvector / XvectorClassifier variables -> the port's state_dict (numpy values)."""
     return _indexed_layers(variables["params"], variables.get("batch_stats", {}), "")
+
+
+def conv2d_from_flax(p: Mapping) -> dict:
+    return {"weight": np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)), "bias": np.asarray(p["bias"])}
+
+
+def layernorm_from_flax(p: Mapping) -> dict:
+    return {"weight": np.asarray(p["scale"]), "bias": np.asarray(p["bias"])}
+
+
+def attention_from_flax(p: Mapping) -> dict:
+    """MultiHeadAttention's four DenseGeneral layers -> q/k/v/out Linear layers."""
+    out: dict = {}
+    for name in ("q", "k", "v"):
+        kernel = np.asarray(p[name]["kernel"])
+        d = kernel.shape[0]
+        _put(out, name, {"weight": kernel.reshape(d, -1).T,
+                         "bias": np.asarray(p[name]["bias"]).reshape(-1)})
+    kernel = np.asarray(p["out"]["kernel"])
+    _put(out, "out", {"weight": kernel.reshape(-1, kernel.shape[-1]).T,
+                      "bias": np.asarray(p["out"]["bias"])})
+    return out
+
+
+def _feedforward(p: Mapping) -> dict:
+    return {**{f"dense0.{k}": v for k, v in linear_from_flax(p["Dense_0"]).items()},
+            **{f"dense1.{k}": v for k, v in linear_from_flax(p["Dense_1"]).items()}}
+
+
+# per-layer flax submodule -> (port submodule, converter)
+_ENCODER_LAYER = {"attn": ("attn", attention_from_flax), "LayerNorm_0": ("ln1", layernorm_from_flax),
+                  "FeedForward_0": ("ff", _feedforward), "LayerNorm_1": ("ln2", layernorm_from_flax)}
+_DECODER_LAYER = {"self_attn": ("self_attn", attention_from_flax),
+                  "cross_attn": ("cross_attn", attention_from_flax),
+                  "ln1": ("ln1", layernorm_from_flax), "ln2": ("ln2", layernorm_from_flax),
+                  "ln3": ("ln3", layernorm_from_flax), "ff": ("ff", _feedforward)}
+
+
+def asr_state_dict(variables: Mapping) -> dict:
+    """ASRModel variables (non-``sb_compat``) -> ``models.ASRModel`` state_dict (numpy values)."""
+    params = variables["params"]
+    out: dict = {}
+    for name, p in params["cnn"].items():
+        kind, idx = name.rsplit("_", 1)
+        if kind == "Conv":
+            _put(out, f"cnn.convs.{idx}", conv2d_from_flax(p))
+        elif kind == "LayerNorm":
+            _put(out, f"cnn.norms.{idx}", layernorm_from_flax(p))
+        else:
+            raise KeyError(f"no conversion rule for flax layer cnn/{name!r}")
+    for name, p in params["heads"].items():
+        _put(out, f"heads.{name}", linear_from_flax(p))
+    for name, p in params["transformer"].items():
+        if name == "input_proj":
+            _put(out, "transformer.input_proj", linear_from_flax(p))
+        elif name == "embed":
+            out["transformer.embed.weight"] = np.asarray(p["embedding"])
+        elif name.startswith(("enc_", "dec_")):
+            kind, idx = name.split("_")
+            rules, stack = ((_ENCODER_LAYER, "encoder_layers") if kind == "enc"
+                            else (_DECODER_LAYER, "decoder_layers"))
+            for sub, sp in p.items():
+                port_name, convert = rules[sub]
+                _put(out, f"transformer.{stack}.{idx}.{port_name}", convert(sp))
+        else:
+            raise KeyError(f"no conversion rule for flax layer transformer/{name!r}")
+    return out
 
 
 def load_numpy_state(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:

@@ -1,0 +1,104 @@
+"""K3/K4's plain twin, ``attention_step_plain``, against the JAX package (CPU).
+
+f32 caches: against the reference math the JAX package runs off the TPU,
+``MultiHeadAttention.attend_cached`` + ``finalize_jnp`` (through
+``_make_attends``' plain branch), at atol 2e-4 (tests/test_cached_decode.py:42).
+bf16 caches: against the TPU kernel itself, ``cached_attention_step`` in
+interpret mode, at 2e-2 relative to the largest output
+(tests/test_attention_step_kernel.py:52). Shapes: whole-row (L 2, N 8, U 16,
+M 256) and the chunked shape of the JAX kernel test (M 768, U 448). Inputs
+include a masked fresh token and NaN/Inf beyond the step.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speech_anonymization_tpu.models.transformer import MultiHeadAttention, _make_attends
+from speech_anonymization_tpu.ops.pallas.attention_step import cached_attention_step
+from speech_anonymization_tpu_torch.ops import attention_step as port
+from speech_anonymization_tpu_torch.ops.attention_step import attention_step_plain
+from tests.torch_port_helpers import t
+
+SHAPES = {"whole_row": (2, 8, 16, 256, 4), "chunked": (2, 8, 448, 768, 8)}
+
+
+def _inputs(shape, step, seed, masked_fresh):
+    layers, n, u, m, _ = shape
+    rng = np.random.default_rng(seed)
+    q, kh, vh = (rng.standard_normal((n, m)).astype(np.float32) for _ in range(3))
+    mask = rng.random((n, u)) > 0.2
+    mask[:, 0] = True
+    mask[:, step] = True
+    if masked_fresh:
+        mask[::2, step] = False  # every other row's fresh token is a pad key
+    ck, cv = (rng.standard_normal((layers, n, u, m)).astype(np.float32) for _ in range(2))
+    for c in (ck, cv):  # stale bytes beyond the step
+        c[:, :, step + 1:] = np.nan
+        c[:, :, step + 2:, ::5] = np.inf
+    return q, kh, vh, mask, ck, cv
+
+
+CASES = [("whole_row", 0, False), ("whole_row", 7, True), ("whole_row", 15, False),
+         ("chunked", 3, False), ("chunked", 200, True), ("chunked", 440, False)]
+
+
+@pytest.mark.parametrize("name,step,masked_fresh", CASES)
+def test_f32_matches_attend_cached(name, step, masked_fresh):
+    shape = SHAPES[name]
+    layers, n, u, m, nhead = shape
+    q, kh, vh, mask, ck, cv = _inputs(shape, step, seed=step, masked_fresh=masked_fresh)
+    d = m // nhead
+    cache = {"k": jnp.asarray(ck), "v": jnp.asarray(cv)}
+    attends, finalize = _make_attends([None] * layers, [MultiHeadAttention(m, nhead)] * layers,
+                                      cache, jnp.asarray(mask), step, nhead)
+    want = np.asarray(attends[1](*(jnp.asarray(x).reshape(n, 1, nhead, d) for x in (q, kh, vh))))
+    new = finalize(*([jnp.asarray(x).reshape(n, 1, m)] * layers for x in (kh, vh)))
+
+    pk, pv = t(ck), t(cv)
+    got = attention_step_plain(t(q), t(kh), t(vh), t(mask), pk, pv, step, 1, nhead)
+    np.testing.assert_allclose(got.numpy(), want.reshape(n, m), atol=2e-4)
+    # the fresh k/v at (layer 1, :, step), as finalize_jnp writes it
+    np.testing.assert_array_equal(pk[1, :, :step + 1].numpy(), np.asarray(new["k"])[1, :, :step + 1])
+    np.testing.assert_array_equal(pv[1, :, :step + 1].numpy(), np.asarray(new["v"])[1, :, :step + 1])
+    np.testing.assert_array_equal(pk[0].numpy(), ck[0])  # the other layer is untouched
+
+
+@pytest.mark.parametrize("name,step,masked_fresh", CASES)
+def test_bf16_matches_tpu_kernel_interpret(name, step, masked_fresh):
+    shape = SHAPES[name]
+    _, _, _, _, nhead = shape
+    q, kh, vh, mask, ck, cv = _inputs(shape, step, seed=100 + step, masked_fresh=masked_fresh)
+    jk, jv = (jnp.asarray(c).astype(jnp.bfloat16) for c in (ck, cv))
+    want, nck, ncv = cached_attention_step(jnp.asarray(q), jnp.asarray(kh), jnp.asarray(vh),
+                                           jnp.asarray(mask.astype(np.int8)), jk, jv, step, 1,
+                                           nhead, interpret=True)
+    want = np.asarray(want)
+    pk, pv = (t(np.asarray(c.astype(jnp.float32))).to(torch.bfloat16) for c in (jk, jv))
+    got = attention_step_plain(t(q), t(kh), t(vh), t(mask), pk, pv, step, 1, nhead)
+    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert rel < 2e-2, rel
+    for port_cache, jax_cache in ((pk, nck), (pv, ncv)):
+        np.testing.assert_array_equal(port_cache[1, :, step].float().numpy(),
+                                      np.asarray(jax_cache[1, :, step].astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("name,chunked", [("whole_row", False), ("chunked", True)])
+def test_dispatch_rule_matches_jax(name, chunked):
+    """The port picks K3/K4 by the JAX rule (``_attn_step_call:1167``)."""
+    _, _, u, m, _ = SHAPES[name]
+    assert port.uses_chunked(u, m, torch.bfloat16) is chunked
+    assert port.max_u_whole_row(768, 4) == 213 and port.max_u_whole_row(768, 2) == 426
+    assert not port.uses_chunked(213, 768, torch.float32)
+    assert port.uses_chunked(214, 768, torch.float32)
+
+
+def test_cpu_wrappers_take_the_plain_twin():
+    q, kh, vh, mask, ck, cv = _inputs(SHAPES["whole_row"], 5, seed=1, masked_fresh=False)
+    counts = (port.attention_step.launches, port.attention_step_chunked.launches)
+    want = attention_step_plain(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 5, 0, 4)
+    for kernel in (port.attention_step, port.attention_step_chunked, port.cached_attention_step):
+        got = kernel(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 5, 0, 4)
+        assert torch.equal(got, want)
+    assert (port.attention_step.launches, port.attention_step_chunked.launches) == counts
