@@ -1,11 +1,12 @@
 """Transformer ASR stack and its KV-cached beam-decode step.
 
 Counterpart of ``speech_anonymization_tpu/models/transformer.py`` (the
-non-``sb_compat`` ASR path and the physical, non-paged decode caches):
+non-``sb_compat`` ASR path and its physical and paged decode caches):
 ``ConvolutionFrontEnd`` (3 conv2d blocks, 4x time subsampling), post-norm
 encoder/decoder layers (8 heads, GELU feed-forward), ``TransformerASR`` with
 ``encode``, ``decode``, ``cross_kv`` and ``decode_step``, and the cache
-helpers ``make_kv_cache``, ``beam_reorder_cache`` and ``make_attends``.
+helpers ``use_paged_cache``, ``make_kv_cache``, ``beam_reorder_cache`` and
+``make_attends``.
 
 Layouts follow the JAX package at the public functions: heads flat as
 (N, U, H*D) in the cache, (B, T, H, D) for the cross-attention K/V. Module
@@ -13,10 +14,13 @@ names mirror the flax tree, so ``utils/convert.py`` maps it one to one.
 Numerics follow flax: LayerNorm eps 1e-6, tanh-approximate GELU, SAME
 (asymmetric) convolution padding, masked scores set to -1e9.
 
-The decode step runs the kernels: self-attention through K3/K4
-(``ops/attention_step.py``) and the beam reorder through K2
-(``ops/beam_gather.py``). Unlike the JAX arrays, the cache is updated in
-place (the fresh k/v, the token buffer) to avoid copying it every step.
+The decode step runs the kernels: with paged caches (the default on the
+card) self-attention through K5/K6 (``ops/attention_step_paged.py``) and a
+beam reorder that gathers an int table; with physical caches
+self-attention through K3/K4 (``ops/attention_step.py``) and the beam
+reorder through K2 (``ops/beam_gather.py``). Unlike the JAX arrays, the
+cache is updated in place (the fresh k/v or merged page, the token buffer)
+to avoid copying it every step.
 """
 
 from __future__ import annotations
@@ -29,6 +33,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention_step import cached_attention_step, max_u_whole_row
+from ..ops.attention_step_paged import (
+    PAGE,
+    PAGE_LONG,
+    cached_attention_step_paged,
+    max_u_for_kernel,
+)
 from ..ops.beam_gather import beam_gather
 
 NEG_INF = -1e9
@@ -214,47 +224,113 @@ class DecoderLayer(nn.Module):
         return self.ln3(x + self.ff(x)), kh.flatten(-2), vh.flatten(-2)
 
 
+def use_paged_cache(batch: int, u_max: int, d_model: int, dtype: torch.dtype,
+                    device: str | torch.device) -> bool:
+    """The JAX rule for the paged (lazy-beam-reorder) decode cache, with "TPU
+    backend" read as "the cache lives on the card": a CUDA device,
+    ``d_model % 128 == 0``, ``batch % 8 == 0`` and a U some paged kernel
+    serves. The shape conditions are kept so that the same inputs take the
+    same layout on both sides."""
+    return (
+        torch.device(device).type == "cuda"
+        and d_model % 128 == 0
+        and batch % 8 == 0
+        and u_max <= max_u_for_kernel(d_model, max(dtype.itemsize, 2))
+    )
+
+
 def make_kv_cache(batch: int, u_max: int, num_layers: int, nhead: int, d_head: int,
                   dtype: torch.dtype = torch.float32, pad_index: int = 0,
-                  device: str | torch.device = "cuda") -> dict:
-    """Stacked KV + token buffers for incremental decoding (physical layout).
+                  device: str | torch.device = "cuda", paged: bool = False,
+                  fused: bool = True) -> dict:
+    """Stacked KV + token buffers for incremental decoding.
 
-    ``k``/``v``: (L, N, U, H*D), zeros; ``tokens``: (N, U) filled with the pad
-    index so unwritten positions are masked like the full path. U is
-    ``u_max`` rounded up to a multiple of 8, and to a multiple of 64 above
+    U is ``u_max`` rounded up to a multiple of 8, to a multiple of 64 above
     ``max_u_whole_row`` (the JAX rounding, so both sides pick the same
-    attention kernel). ``k_spare``/``v_spare`` are the second pair of buffers
-    the beam reorder gathers into (it cannot write in place); they come from
-    ``torch.empty`` and their contents are undefined.
+    attention kernel), and, paged, to a multiple of the page: 32 for the
+    whole-row kernel, 64 (``PAGE_LONG``) above it. ``tokens``: (N, U) filled
+    with the pad index so unwritten positions are masked like the full path.
+
+    Physical layout: ``k``/``v`` (L, N, U, H*D), zeros, and ``k_spare``/
+    ``v_spare``, the second pair of buffers the beam reorder gathers into (it
+    cannot write in place), from ``torch.empty`` (contents undefined).
+
+    Paged layout (the lazy beam reorder, ``ops/attention_step_paged.py``):
+    no spare pair; ``table`` (N, U / page) int32, each row owning its own
+    pages, and ``act_src`` (N,) int32, the row holding each row's active
+    page. Split: ``k``/``v`` (L, N, U, M) and ``k_act``/``v_act``
+    (L, N, 2, page, M) parity slots. At page 64 the layout is fused unless
+    ``fused=False`` (the JAX package's ``SATPU_FUSED_KV=0``): ``kv``
+    (L, N, 2U, M), each logical page stored as [K-page, V-page], and
+    ``kv_act`` (L, N, 2, 2 * page, M). All zeros.
     """
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{dtype} caches are not ported (float32 and bfloat16 are)")
+    m = nhead * d_head
     u = -(-u_max // 8) * 8
-    if u > max_u_whole_row(nhead * d_head, max(dtype.itemsize, 2)):
+    page = PAGE
+    if u > max_u_whole_row(m, max(dtype.itemsize, 2)):
         u = -(-u // 64) * 64
-    shape = (num_layers, batch, u, nhead * d_head)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "k_spare": torch.empty(shape, dtype=dtype, device=device),
-        "v_spare": torch.empty(shape, dtype=dtype, device=device),
-        "tokens": torch.full((batch, u), pad_index, dtype=torch.long, device=device),
+        page = PAGE_LONG
+    if paged:
+        u = -(-u // page) * page
+    tokens = torch.full((batch, u), pad_index, dtype=torch.long, device=device)
+    if not paged:
+        shape = (num_layers, batch, u, m)
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "k_spare": torch.empty(shape, dtype=dtype, device=device),
+            "v_spare": torch.empty(shape, dtype=dtype, device=device),
+            "tokens": tokens,
+        }
+    rows = torch.arange(batch, dtype=torch.int32, device=device)
+    cache = {
+        "tokens": tokens,
+        # materialized: an expanded view would give the table a zero row stride
+        "table": rows[:, None].repeat(1, u // page),
+        "act_src": rows,
     }
+    if fused and page == PAGE_LONG:
+        cache["kv"] = torch.zeros(num_layers, batch, 2 * u, m, dtype=dtype, device=device)
+        cache["kv_act"] = torch.zeros(num_layers, batch, 2, 2 * page, m, dtype=dtype, device=device)
+    else:
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(num_layers, batch, u, m, dtype=dtype, device=device)
+            cache[f"{key}_act"] = torch.zeros(num_layers, batch, 2, page, m, dtype=dtype,
+                                              device=device)
+    return cache
 
 
 def beam_reorder_cache(cache: dict, parent: torch.Tensor, step: int | None = None) -> dict:
     """Reorder the cache to new beam parents, (B, K) ``parent`` within each item.
 
-    k/v rows move with the K2 gather into the spare buffers, which become the
-    live ones (the old ones become the spares): only positions <= ``step``
-    move, later positions are undefined (decode steps mask them and overwrite
-    position step + 1 before reading it). ``step=None`` moves whole rows.
+    Physical: k/v rows move with the K2 gather into the spare buffers, which
+    become the live ones (the old ones become the spares): only positions
+    <= ``step`` move, later positions are undefined (decode steps mask them
+    and overwrite position step + 1 before reading it). ``step=None`` moves
+    whole rows.
+
+    Paged: k/v and the active-page slots never move. The ownership table is
+    gathered by the parents' rows and ``act_src`` becomes those rows (the
+    next attention step reads the parent's parity slot); when ``step``
+    completed a page (the kernel wrote it to the main cache at its own row),
+    that page's table column becomes the parents' rows. ``step`` is required.
     """
     b, k = parent.shape
     src = (torch.arange(b, device=parent.device)[:, None] * k + parent).reshape(-1).to(torch.int32)
     tokens = cache["tokens"]
     n, u = tokens.shape
     toks = torch.gather(tokens.view(b, k, u), 1, parent[:, :, None].expand(b, k, u)).view(n, u)
+    if "table" in cache:
+        if step is None:
+            raise ValueError("the paged cache reorder needs the decode step")
+        table = cache["table"].index_select(0, src)
+        page = u // table.shape[1]
+        if step % page == page - 1:
+            table[:, step // page] = src
+        moved = {"table": table, "act_src": src, "tokens": toks}
+        return {**cache, **moved}
     return {
         "k": beam_gather(cache["k"], src, step, cache["k_spare"]),
         "v": beam_gather(cache["v"], src, step, cache["v_spare"]),
@@ -266,7 +342,7 @@ def beam_reorder_cache(cache: dict, parent: torch.Tensor, step: int | None = Non
 
 def _use_kernel(cache: dict) -> bool:
     """The kernel branch runs on the card, as the JAX one runs on the TPU."""
-    return cache["k"].device.type == "cuda"
+    return (cache["kv"] if "kv" in cache else cache["k"]).device.type == "cuda"
 
 
 def make_attends(attns: Sequence[MultiHeadAttention], cache: dict, mask_nu: torch.Tensor,
@@ -274,21 +350,29 @@ def make_attends(attns: Sequence[MultiHeadAttention], cache: dict, mask_nu: torc
     """Per-layer ``attend(qh, kh, vh) -> (N, 1, H, Dh)`` closures for a cached
     decode step, plus ``finalize(khs, vhs) -> cache`` entries.
 
-    On the card each layer's attention is one K3/K4 launch
-    (``ops.attention_step.cached_attention_step``), which also writes the
-    fresh k/v into the cache in place, so ``finalize`` only returns the
-    buffers. Elsewhere: ``MultiHeadAttention.attend_cached`` on per-layer
-    slices and one stacked write at ``step`` in ``finalize``.
+    Paged caches: each layer's attention is one K5/K6 call
+    (``ops.attention_step_paged.cached_attention_step_paged``), which writes
+    the merged active page in place, so ``finalize`` only returns the
+    buffers; on the CPU the same call runs the kernels' plain twins.
+    Physical caches on the card: one K3/K4 launch
+    (``ops.attention_step.cached_attention_step``), which writes the fresh
+    k/v in place. Physical caches elsewhere:
+    ``MultiHeadAttention.attend_cached`` on per-layer slices and one stacked
+    write at ``step`` in ``finalize``.
     """
     n, _ = mask_nu.shape
-    m = cache["k"].shape[-1]
+    paged = "table" in cache
+    m = (cache["kv"] if "kv" in cache else cache["k"]).shape[-1]
     d = m // nhead
     buffers = {key: cache[key] for key in cache if key != "tokens"}
-    if _use_kernel(cache):
+    if paged or _use_kernel(cache):
         def make(i):
             def attend(qh, kh, vh):
-                out = cached_attention_step(qh.reshape(n, m), kh.reshape(n, m), vh.reshape(n, m),
-                                            mask_nu, cache["k"], cache["v"], step, i, nhead)
+                args = (qh.reshape(n, m), kh.reshape(n, m), vh.reshape(n, m), mask_nu)
+                if paged:
+                    out = cached_attention_step_paged(*args, cache, step, i, nhead)
+                else:
+                    out = cached_attention_step(*args, cache["k"], cache["v"], step, i, nhead)
                 return out.view(n, 1, nhead, d)
 
             return attend

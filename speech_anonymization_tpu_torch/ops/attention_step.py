@@ -45,31 +45,76 @@ def uses_chunked(u: int, m: int, dtype: torch.dtype) -> bool:
     return u > max_u_whole_row(m, max(dtype.itemsize, 2))
 
 
-def attention_step_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
-                         cache_k: torch.Tensor, cache_v: torch.Tensor, step: int, layer: int,
-                         nhead: int) -> torch.Tensor:
-    """The kernels' function in plain PyTorch (the same numerics by dtype)."""
+def attend_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
+                 k_buf: torch.Tensor, v_buf: torch.Tensor, step: int, nhead: int) -> torch.Tensor:
+    """The kernels' attention math in plain PyTorch (the same numerics by dtype).
+
+    k_buf/v_buf: (N, step + 1, M) in the cache's dtype, one layer's content of
+    positions <= step; position ``step`` is ignored (the fresh kh/vh take it).
+    Writes nothing.
+    """
     n, m = q.shape
     d = m // nhead
     fresh = (q, kh, vh)
-    if cache_k.dtype == torch.bfloat16:
+    if k_buf.dtype == torch.bfloat16:
         fresh = tuple(x.to(torch.bfloat16).float() for x in fresh)
     qf, khf, vhf = (x.reshape(n, 1, nhead, d) for x in fresh)
     p = step + 1
     pos = torch.arange(p, device=q.device).view(1, p, 1, 1)
     valid = (mask[:, :p] != 0).view(n, p, 1, 1)
     # stale or masked positions are replaced BEFORE any product: 0 * NaN is NaN
-    kb = cache_k[layer, :, :p].float().view(n, p, nhead, d)
-    vb = cache_v[layer, :, :p].float().view(n, p, nhead, d)
+    kb = k_buf.float().view(n, p, nhead, d)
+    vb = v_buf.float().view(n, p, nhead, d)
     kb = torch.where(valid, torch.where(pos == step, khf, kb), 0.0)
     vb = torch.where(valid, torch.where(pos == step, vhf, vb), 0.0)
     scores = torch.einsum("nqhd,nphd->nhp", qf, kb) / math.sqrt(d)
     scores = torch.where(valid.view(n, 1, p), scores, -1e30)
     weights = torch.softmax(scores, dim=-1)
-    out = torch.einsum("nhp,nphd->nhd", weights, vb).reshape(n, m)
+    return torch.einsum("nhp,nphd->nhd", weights, vb).reshape(n, m)
+
+
+def attention_step_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
+                         cache_k: torch.Tensor, cache_v: torch.Tensor, step: int, layer: int,
+                         nhead: int) -> torch.Tensor:
+    """The kernels' function in plain PyTorch (the same numerics by dtype)."""
+    p = step + 1
+    out = attend_plain(q, kh, vh, mask, cache_k[layer, :, :p], cache_v[layer, :, :p], step, nhead)
     cache_k[layer, :, step] = kh.to(cache_k.dtype)
     cache_v[layer, :, step] = vh.to(cache_v.dtype)
     return out
+
+
+def check_step_operands(q, kh, vh, mask, tensors: dict, itemsize: int, layers: int, n: int,
+                        u: int, m: int, step: int, layer: int, nhead: int) -> None:
+    """Raises on what K3-K6 do not take, apart from the cache layout: the
+    fresh (N, M) f32 operands, the (N, U) mask, one device, contiguity,
+    16-byte alignment of every float operand, the head width, step and layer.
+    ``tensors``: the named cache operands; the first one's device is the
+    kernels'."""
+    for name, x in (("q", q), ("kh", kh), ("vh", vh)):
+        if x.dtype != torch.float32 or x.shape != (n, m):
+            raise ValueError(f"{name} must be ({n}, {m}) float32, got {tuple(x.shape)} {x.dtype}")
+    if mask.shape != (n, u) or mask.dtype not in (torch.bool, torch.int8, torch.uint8):
+        raise ValueError(f"mask must be ({n}, {u}) bool/int8/uint8, got {tuple(mask.shape)} "
+                         f"{mask.dtype}")
+    device = next(iter(tensors.values())).device
+    for name, x in {"q": q, "kh": kh, "vh": vh, "mask": mask, **tensors}.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, the cache on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.is_floating_point() and x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    vec = 16 // itemsize
+    if nhead <= 0 or m % nhead:
+        raise ValueError(f"d_model {m} is not a multiple of {nhead} heads")
+    d = m // nhead
+    if d % vec or d // vec > _MAX_VECS:
+        raise ValueError(f"head width {d} unsupported for {itemsize}-byte cache elements")
+    if not 0 <= step < u:
+        raise ValueError(f"step {step} outside the cache's {u} positions")
+    if not 0 <= layer < layers:
+        raise ValueError(f"layer {layer} outside the cache's {layers} layers")
 
 
 def _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead) -> None:
@@ -80,30 +125,8 @@ def _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead) -> None:
         raise ValueError(f"caches must be (L, N, U, M) of one shape, got {tuple(cache_k.shape)} "
                          f"and {tuple(cache_v.shape)}")
     layers, n, u, m = cache_k.shape
-    for name, x in (("q", q), ("kh", kh), ("vh", vh)):
-        if x.dtype != torch.float32 or x.shape != (n, m):
-            raise ValueError(f"{name} must be ({n}, {m}) float32, got {tuple(x.shape)} {x.dtype}")
-    if mask.shape != (n, u) or mask.dtype not in (torch.bool, torch.int8, torch.uint8):
-        raise ValueError(f"mask must be ({n}, {u}) bool/int8/uint8, got {tuple(mask.shape)} "
-                         f"{mask.dtype}")
-    for name, x in (("q", q), ("kh", kh), ("vh", vh), ("mask", mask), ("cache_k", cache_k),
-                    ("cache_v", cache_v)):
-        if x.device != cache_k.device:
-            raise ValueError(f"{name} is on {x.device}, the cache on {cache_k.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x is not mask and x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    vec = 16 // cache_k.element_size()
-    if nhead <= 0 or m % nhead:
-        raise ValueError(f"d_model {m} is not a multiple of {nhead} heads")
-    d = m // nhead
-    if d % vec or d // vec > _MAX_VECS:
-        raise ValueError(f"head width {d} unsupported for {cache_k.dtype} caches")
-    if not 0 <= step < u:
-        raise ValueError(f"step {step} outside the cache's {u} positions")
-    if not 0 <= layer < layers:
-        raise ValueError(f"layer {layer} outside the cache's {layers} layers")
+    check_step_operands(q, kh, vh, mask, {"cache_k": cache_k, "cache_v": cache_v},
+                        cache_k.element_size(), layers, n, u, m, step, layer, nhead)
 
 
 _fn = None  # the bound C entry point, set on first launch

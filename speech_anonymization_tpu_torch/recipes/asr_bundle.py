@@ -2,7 +2,7 @@
 
 Counterpart of ``speech_anonymization_tpu/recipes/asr_bundle.py``
 ``ASRBundle`` without a language model (what the recipe runs when
-``lm_checkpoint_dir`` is unset) and with physical KV caches:
+``lm_checkpoint_dir`` is unset):
 
   * ``utility_loss``: divergence of the frozen ASR's decoder outputs on
     clean and reconstructed features (MSE or cosine);
@@ -13,8 +13,12 @@ Counterpart of ``speech_anonymization_tpu/recipes/asr_bundle.py``
   * ``start_test`` / ``finish_test``: the two WER aggregators.
 
 The tokenizer is duck-typed: anything with ``decode_ids(list[int]) -> str``.
-The decode's hot path runs the port's kernels: K3/K4 for the cached
-self-attention and K2 for the beam reorder.
+The decode's hot path runs the port's kernels. On the card it pages its KV
+caches by default, as the JAX package does on its accelerator
+(``decode_paged_kv``, default true, under ``use_paged_cache``): K5/K6 for the
+cached self-attention, and a beam reorder that gathers an int table.
+``decode_paged_kv: false``, and every CPU decode, keep physical caches: K3/K4
+for the attention (plain twins on the CPU) and K2 for the reorder.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ..decoding import BeamSearchConfig, beam_search, hyps_to_lists
 from ..eval.wer import ErrorRateStats
 from ..losses import cosine_similarity_loss, mse_loss
 from ..models.asr import ASRModel
-from ..models.transformer import beam_reorder_cache, make_kv_cache
+from ..models.transformer import beam_reorder_cache, make_kv_cache, use_paged_cache
 
 _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,6 +45,7 @@ class ASRBundle:
         # the recipe default float32 keeps the scores stable against the
         # reference's f32 decode; 'bfloat16' halves the cache traffic
         self.cache_dtype = _CACHE_DTYPES[hparams.get("decode_cache_dtype", "float32")]
+        self.paged_kv = bool(hparams.get("decode_paged_kv", True))
         self.cfg = BeamSearchConfig(
             beam_size=self.beam_size,
             bos_index=int(hparams.get("bos_index", 1)),
@@ -70,6 +75,17 @@ class ASRBundle:
     def _encode(self, feats, lens):
         return self.model.encode(feats, lens)
 
+    def pages(self, n: int, u_max: int, device) -> bool:
+        """Whether a decode of ``n`` rows and ``u_max`` positions on ``device``
+        pages its caches: ``decode_paged_kv`` and the JAX rule."""
+        return self.paged_kv and use_paged_cache(n, u_max, self.model.d_model, self.cache_dtype,
+                                                 device)
+
+    def make_cache(self, n: int, u_max: int, device) -> dict:
+        m = self.model
+        return make_kv_cache(n, u_max, m.num_decoder_layers, m.nhead, m.d_model // m.nhead,
+                             self.cache_dtype, device=device, paged=self.pages(n, u_max, device))
+
     @torch.no_grad()
     def _decode_test(self, feats, lens):
         """Beam-decode normalized (B, T, F) features -> (tokens, lengths, scores[, stats])."""
@@ -80,9 +96,7 @@ class ASRBundle:
         # level: decode steps group the B * beam query rows over it
         cross = m.cross_kv(enc)
         att_cached = (
-            lambda n, u_max: make_kv_cache(n, u_max, m.num_decoder_layers, m.nhead,
-                                           m.d_model // m.nhead, self.cache_dtype,
-                                           device=enc.device),
+            lambda n, u_max: self.make_cache(n, u_max, enc.device),
             lambda state, prev, step: m.decode_step_cached(prev, enc, state, step, lens, cross),
             beam_reorder_cache,
         )

@@ -2,13 +2,15 @@
 
 Usage, on a machine with one NVIDIA card:
 
-    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2]
+    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical]
 
 D1 (default) is scripts/bench_decode.py's shape: 8 utterances of T = 504
 feature frames (126 encoder frames), 64 decode steps; D2 is bench.py's
 length: T = 1008 (252 encoder frames), 252 steps. The full-width
 ``ASRModel()`` with seeded random weights decodes seeded features at beam 66,
-CTC 0.4, temperature 1.15, f32 caches, fp32 with TF32 off. After a warm-up,
+CTC 0.4, temperature 1.15, f32 caches, fp32 with TF32 off, with paged caches
+(the default: K5 at D1, K6 at D2) or physical ones (``decode_paged_kv:
+false``: K2 and K3 at D1, K2 and K4 at D2). After a warm-up,
 one decode runs under ``torch.profiler``; the script prints one JSON line:
 the wall time with and without the profiler, summed device time, the
 device's busy share of the profiled wall time, the number of kernel launches,
@@ -45,6 +47,10 @@ def main(argv: list[str]) -> int:
         print("profile_decode: CUDA is not available", file=sys.stderr)
         return 1
     name = argv[0] if argv else "D1"
+    layout = argv[1] if len(argv) > 1 else "paged"
+    if layout not in ("paged", "physical"):
+        print(f"profile_decode: layout {layout!r} is neither paged nor physical", file=sys.stderr)
+        return 2
     batch, frames, max_steps = SHAPES[name]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -54,7 +60,8 @@ def main(argv: list[str]) -> int:
     lens = torch.ones(batch, device="cuda")
     model = seeded_init_(ASRModel(device="cuda"), 3)
     bundle = ASRBundle(model, _Tok(), {"test_beam_size": 66, "ctc_weight_decode": 0.4,
-                                       "temperature": 1.15, "max_decode_steps": max_steps})
+                                       "temperature": 1.15, "max_decode_steps": max_steps,
+                                       "decode_paged_kv": layout == "paged"})
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -80,7 +87,8 @@ def main(argv: list[str]) -> int:
         return 1
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP]
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "shape": name, "batch": batch, "frames": frames,
+        "device": torch.cuda.get_device_name(0), "shape": name, "layout": layout, "batch": batch,
+        "frames": frames,
         "wall_ms_unprofiled_median": statistics.median(walls[1:]), "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms, "device_launches": launches,
         "kernels_ms": dict(top),

@@ -1,6 +1,6 @@
-"""The port on an NVIDIA card: K1, K2, K3 and K4 against their plain twins, and
-the anonymization and decode slices on the card against the CPU. Imports no
-JAX, so it runs on a machine without it:
+"""The port on an NVIDIA card: K1 to K6 against their plain twins, and the
+anonymization and decode slices (physical and paged caches) on the card
+against the CPU. Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -19,6 +19,13 @@ from speech_anonymization_tpu_torch.ops.attention_step import (
     attention_step_chunked,
     attention_step_plain,
     cached_attention_step,
+)
+from speech_anonymization_tpu_torch.models.transformer import beam_reorder_cache, make_kv_cache
+from speech_anonymization_tpu_torch.ops.attention_step_paged import (
+    attention_step_paged,
+    attention_step_paged_chunked,
+    attention_step_paged_fused_plain,
+    attention_step_paged_plain,
 )
 from speech_anonymization_tpu_torch.ops.beam_gather import (
     beam_gather,
@@ -252,3 +259,121 @@ def test_decode_on_card_matches_cpu(cuda, cache_dtype):
     on_cpu = ASRBundle(model, _Tok(), hp)._decode_test(feats, lens)
     assert torch.equal(on_card[0].cpu(), on_cpu[0]) and torch.equal(on_card[1].cpu(), on_cpu[1])
     torch.testing.assert_close(on_card[2].cpu(), on_cpu[2], rtol=0, atol=1e-3)
+
+
+def _nan_paged_cache(u_max, fused, dtype, device):
+    """A paged cache (8 rows, 2 layers, M 768) in the f32 layout of ``u_max``,
+    cast to ``dtype``, whose every k/v byte starts as NaN: a kernel that
+    reads a position the step may not read poisons its output."""
+    cache = make_kv_cache(8, u_max, 2, 8, 96, device=device, paged=True, fused=fused)
+    cache = {k: v.to(dtype) if v.is_floating_point() else v for k, v in cache.items()}
+    for key in ("k", "v", "kv", "k_act", "v_act", "kv_act"):
+        if key in cache:
+            cache[key].fill_(float("nan"))
+    return cache
+
+
+def _same(x, y):
+    return bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+
+# name: (kernel, u_max, page, fused): K5 at page 32 (U 96); K6 at page 64 (U 256), split and fused
+PAGED = {"k5_split": (attention_step_paged, 80, 32, False),
+         "k6_split": (attention_step_paged_chunked, 250, 64, False),
+         "k6_fused": (attention_step_paged_chunked, 250, 64, True)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(PAGED))
+def test_k5_k6_protocol_match_plain_twin(cuda, name, dtype):
+    """Steps 0 .. 75 with a random beam reorder after each: page completions
+    at 31 and 63 (page 32) or 63 (page 64), masked keys and fresh tokens.
+    Outputs within 1e-5 of the twin's; every page, slot, table and act_src
+    equal after every step (NaN where never written)."""
+    kernel, u_max, page, fused = PAGED[name]
+    cache = _nan_paged_cache(u_max, fused, dtype, cuda)
+    assert ("kv" in cache) == fused and cache["table"].shape[1] * page == cache["tokens"].shape[1]
+    twin_cache = {k: v.clone() for k, v in cache.items()}
+    twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
+    rng = np.random.default_rng(len(name) + dtype.itemsize)
+    n, u = cache["tokens"].shape
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    before = kernel.launches
+    steps = 76
+    for step in range(steps):
+        for layer in range(2):
+            q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                         for _ in range(3))
+            got = kernel(q, kh, vh, mask, cache, step, layer, 8)
+            want = twin(q, kh, vh, mask, twin_cache, step, layer, 8)
+            assert torch.isfinite(got).all(), (step, layer)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        for key in cache:
+            assert _same(cache[key], twin_cache[key]), (step, key)
+        parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
+        cache = beam_reorder_cache(cache, parent, step)
+        twin_cache = beam_reorder_cache(twin_cache, parent, step)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 * steps
+
+
+def test_paged_kernels_reject_bad_operands(cuda):
+    cache = make_kv_cache(8, 80, 2, 8, 96, device=cuda, paged=True)
+    q = torch.zeros(8, 768, device=cuda)
+    mask = torch.ones(8, 96, dtype=torch.bool, device=cuda)
+    for kernel in (attention_step_paged, attention_step_paged_chunked):
+        with pytest.raises(TypeError):
+            kernel(q, q, q, mask, {k: v.to(torch.int8) if v.is_floating_point() else v
+                                   for k, v in cache.items()}, 3, 0, 8)
+        with pytest.raises(ValueError):  # a table without its row stride
+            kernel(q, q, q, mask, {**cache, "table": cache["table"].t().contiguous().t()}, 3, 0, 8)
+        with pytest.raises(ValueError):
+            kernel(q, q, q, mask, {**cache, "table": cache["table"].long()}, 3, 0, 8)
+        with pytest.raises(ValueError):
+            kernel(q, q, q, mask, {**cache, "act_src": cache["act_src"].cpu()}, 3, 0, 8)
+        with pytest.raises(ValueError):
+            kernel(q, q, q, mask, {**cache, "k_act": cache["k_act"][:, :, :1]}, 3, 0, 8)
+        for step in (-1, 96):
+            with pytest.raises(ValueError):
+                kernel(q, q, q, mask, cache, step, 0, 8)
+        with pytest.raises(ValueError):
+            kernel(q, q, q, mask, cache, 3, 2, 8)
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("regime", ["page32", "page64_fused"])
+def test_paged_decode_on_card_matches_cpu(cuda, regime, cache_dtype):
+    """A small ASR decode (beam 4 over 2 utterances: N = 8) that pages on the
+    card (d_model % 128 == 0) and not on the CPU: the same hypotheses, scores
+    within 1e-3; and the card's physical decode equal to its paged one.
+    page32: d_model 128, 44 steps (a page completes at step 31); page64_fused:
+    d_model 768, 220 steps (U 256: fused K6 for f32, K5 at page 32 for bf16)."""
+    widths, frames, steps = ((dict(d_model=128, nhead=4, num_decoder_layers=2), 176, None)
+                             if regime == "page32" else
+                             (dict(d_model=768, nhead=8, num_decoder_layers=1), 900, 220))
+    model = seeded_init_(ASRModel(**widths, num_encoder_layers=1, d_ffn=128, output_neurons=40,
+                                  device="cpu"), 0)
+    feats = torch.from_numpy(np.random.default_rng(2).standard_normal((2, frames, 80)).astype(np.float32))
+    lens = torch.tensor([1.0, 0.85])
+    hp = {"test_beam_size": 4, "ctc_weight_decode": 0.4, "temperature": 1.15,
+          "decode_cache_dtype": cache_dtype, "max_decode_steps": steps}
+    card_model = copy.deepcopy(model).to(cuda)
+    paged = ASRBundle(card_model, _Tok(), hp)
+    n_steps = steps or 44
+    chunked = regime == "page64_fused" and cache_dtype == "float32"
+    kernel = attention_step_paged_chunked if chunked else attention_step_paged
+    assert "table" in paged.make_cache(8, n_steps + 1, cuda)
+    counts = (beam_gather.launches, attention_step.launches, attention_step_chunked.launches)
+    before = kernel.launches
+    on_card = paged._decode_test(feats.to(cuda), lens.to(cuda))
+    torch.cuda.synchronize()
+    assert kernel.launches - before == widths["num_decoder_layers"] * n_steps
+    assert (beam_gather.launches, attention_step.launches, attention_step_chunked.launches) == counts
+    on_cpu = ASRBundle(model, _Tok(), hp)._decode_test(feats, lens)
+    assert torch.equal(on_card[0].cpu(), on_cpu[0]) and torch.equal(on_card[1].cpu(), on_cpu[1])
+    torch.testing.assert_close(on_card[2].cpu(), on_cpu[2], rtol=0, atol=1e-3)
+    physical = ASRBundle(card_model, _Tok(), {**hp, "decode_paged_kv": False})._decode_test(
+        feats.to(cuda), lens.to(cuda))
+    assert torch.equal(physical[0], on_card[0]) and torch.equal(physical[1], on_card[1])
+    torch.testing.assert_close(physical[2], on_card[2], rtol=0, atol=1e-4)

@@ -1,0 +1,280 @@
+"""K5/K6's plain twins, ``attention_step_paged_plain`` (split layout) and
+``attention_step_paged_fused_plain`` (fused layout), against the JAX package
+(CPU), through the paged protocol: a random beam reorder after every step,
+across page completions.
+
+f32 caches: every output against ``_make_attends_paged_jnp`` +
+``attend_cached`` (the reference math JAX runs off the TPU) at atol 2e-4;
+afterwards the logical content at positions <= the last step, rebuilt from
+the pages, the table and the parity slots, equals a physically maintained
+ground truth exactly. Page 32 (split), and page 64 split and fused at a small
+M (the JAX function takes any cache dict).
+bf16 caches: against the TPU kernels themselves in interpret mode
+(``cached_attention_step_paged`` / ``_fused``) at 2e-2 relative to the
+largest output, over three steps from a seeded mid-decode state that crosses
+a page completion; the rebuilt content equals the kernels' exactly.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speech_anonymization_tpu.models.transformer import (
+    MultiHeadAttention,
+    _make_attends_paged_jnp,
+)
+from speech_anonymization_tpu.models.transformer import beam_reorder_cache as jax_reorder
+from speech_anonymization_tpu.ops.pallas import attention_step as ats
+from speech_anonymization_tpu_torch.models.transformer import beam_reorder_cache
+from speech_anonymization_tpu_torch.ops import attention_step_paged as port
+from speech_anonymization_tpu_torch.ops.attention_step_paged import (
+    attention_step_paged_fused_plain,
+    attention_step_paged_plain,
+)
+
+L, B, K, M, H = 2, 2, 4, 256, 4
+N = B * K
+# name: (page, fused, steps of the f32 protocol; the last one completes no page)
+CONFIGS = {"page32_split": (32, False, 70), "page64_split": (64, False, 74),
+           "page64_fused": (64, True, 74)}
+
+
+def _zero_cache(page, fused, u, dtype=np.float32):
+    cache = {"tokens": np.zeros((N, u), np.int32),
+             "table": np.repeat(np.arange(N, dtype=np.int32)[:, None], u // page, axis=1),
+             "act_src": np.arange(N, dtype=np.int32)}
+    if fused:
+        cache["kv"] = np.zeros((L, N, 2 * u, M), dtype)
+        cache["kv_act"] = np.zeros((L, N, 2, 2 * page, M), dtype)
+    else:
+        for key in ("k", "v"):
+            cache[key] = np.zeros((L, N, u, M), dtype)
+            cache[f"{key}_act"] = np.zeros((L, N, 2, page, M), dtype)
+    return cache
+
+
+def _to_jax(cache, dtype=jnp.float32):
+    return {k: jnp.asarray(v) if v.dtype.kind in "iu" else jnp.asarray(v, dtype)
+            for k, v in cache.items()}
+
+
+def _to_port(cache, dtype=torch.float32):
+    return {k: torch.from_numpy(np.array(v)) if v.dtype.kind in "iu"
+            else torch.from_numpy(np.asarray(v, np.float32)).to(dtype) for k, v in cache.items()}
+
+
+def _logical(cache, page, last):
+    """(L, N, last + 1, M) f32 k and v content of either layout, rebuilt from
+    the completed pages through the table and the active page from the
+    parity slot written at ``last`` (the caller has reordered after it)."""
+    arr = {k: np.asarray(v.float() if isinstance(v, torch.Tensor) else v.astype(jnp.float32),
+                         np.float32) for k, v in cache.items()}
+    if "kv" in arr:
+        layers, n, u2, m = arr["kv"].shape
+        pages = arr["kv"].reshape(layers, n, u2 // (2 * page), 2, page, m)
+        mains = [pages[:, :, :, i].reshape(layers, n, -1, m) for i in (0, 1)]
+        acts = [arr["kv_act"][:, :, :, :page], arr["kv_act"][:, :, :, page:]]
+    else:
+        mains, acts = [arr["k"], arr["v"]], [arr["k_act"], arr["v_act"]]
+    table, src = arr["table"].astype(int), arr["act_src"].astype(int)
+    done = (last + 1) // page  # pages completed by the last step
+    out = []
+    for main, act in zip(mains, acts):
+        got = np.zeros(main.shape[:2] + (last + 1, main.shape[3]), np.float32)
+        for n in range(main.shape[1]):
+            for p in range(done):
+                got[:, n, p * page:(p + 1) * page] = main[:, table[n, p], p * page:(p + 1) * page]
+            got[:, n, done * page:] = act[:, src[n], last % 2, :last + 1 - done * page]
+        out.append(got)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(u):
+    """Jitted reference step: every layer's attend, then finalize."""
+    attns = [MultiHeadAttention(M, H)] * L
+    d = M // H
+
+    @jax.jit
+    def step_fn(cache, q, kh, vh, mask, step):
+        attends, finalize = _make_attends_paged_jnp(attns, cache, mask, step, H, False)
+        outs = [attends[i](*(x[i].reshape(N, 1, H, d) for x in (q, kh, vh))) for i in range(L)]
+        new = finalize([x.reshape(N, 1, M) for x in kh], [x.reshape(N, 1, M) for x in vh])
+        return jnp.stack(outs).reshape(L, N, M), {**new, "tokens": cache["tokens"]}
+
+    return step_fn
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_f32_protocol_matches_jax(name):
+    page, fused, steps = CONFIGS[name]
+    u = -(-(steps + 1) // page) * page
+    rng = np.random.default_rng(page + fused)
+    mask = rng.random((N, u)) > 0.2
+    mask[:, 0] = True
+    jcache = _to_jax(_zero_cache(page, fused, u))
+    pcache = _to_port(_zero_cache(page, fused, u))
+    twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
+    k_true, v_true = (np.zeros((L, N, u, M), np.float32) for _ in range(2))
+    step_fn = _jax_step(u)
+    for t in range(steps):
+        q, kh, vh = (rng.standard_normal((L, N, M)).astype(np.float32) for _ in range(3))
+        want, jcache = step_fn(jcache, q, kh, vh, jnp.asarray(mask), t)
+        for i in range(L):
+            got = twin(*(torch.from_numpy(x[i]) for x in (q, kh, vh)), torch.from_numpy(mask),
+                       pcache, t, i, H)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want[i]), atol=2e-4, rtol=0,
+                                       err_msg=f"step {t} layer {i}")
+        k_true[:, :, t], v_true[:, :, t] = kh, vh
+        parent = rng.integers(0, K, (B, K))
+        src = (np.arange(B)[:, None] * K + parent).reshape(-1)
+        jcache = jax_reorder(jcache, jnp.asarray(parent, jnp.int32), t)
+        pcache = beam_reorder_cache(pcache, torch.from_numpy(parent), t)
+        k_true, v_true = k_true[:, src], v_true[:, src]
+    last = steps - 1
+    assert last % page != page - 1 and last >= page  # ends mid-page, after a completion
+    for cache in (pcache, jcache):
+        got_k, got_v = _logical(cache, page, last)
+        np.testing.assert_array_equal(got_k, k_true[:, :, :last + 1])
+        np.testing.assert_array_equal(got_v, v_true[:, :, :last + 1])
+
+
+def _mid_decode_state(rng, page, fused, u, s0):
+    """Seeded bf16-valued content and the table/act_src of a beam history of s0 steps."""
+    cache = _zero_cache(page, fused, u)
+    for key in cache:
+        if cache[key].dtype == np.float32:
+            cache[key] = np.asarray(jnp.asarray(rng.standard_normal(cache[key].shape), jnp.bfloat16),
+                                    np.float32)
+    table, src = cache["table"], cache["act_src"]
+    for t in range(s0):
+        src = (np.arange(B)[:, None] * K + rng.integers(0, K, (B, K))).reshape(-1).astype(np.int32)
+        table = table[src]
+        if t % page == page - 1:
+            table[:, t // page] = src
+    cache["table"], cache["act_src"] = table, src
+    return cache
+
+
+# name, first step: the three steps cross a page completion
+BF16_CASES = [("page32_split", 30), ("page64_split", 62), ("page64_fused", 62)]
+
+
+@pytest.mark.parametrize("name,s0", BF16_CASES)
+def test_bf16_matches_tpu_kernel_interpret(name, s0, monkeypatch):
+    page, fused, _ = CONFIGS[name]
+    if page == 64:  # the JAX package takes its chunked paged kernel at page 64
+        monkeypatch.setattr(ats, "max_u_whole_row", lambda m, itemsize: 8)
+    u = 2 * page
+    rng = np.random.default_rng(s0 + fused)
+    state = _mid_decode_state(rng, page, fused, u, s0)
+    jcache, pcache = _to_jax(state, jnp.bfloat16), _to_port(state, torch.bfloat16)
+    mask = rng.random((N, u)) > 0.2
+    mask[:, 0] = True
+    for t in range(s0, s0 + 3):
+        for i in range(L):
+            q, kh, vh = (rng.standard_normal((N, M)).astype(np.float32) for _ in range(3))
+            jargs = (jnp.asarray(q), jnp.asarray(kh), jnp.asarray(vh), jnp.asarray(mask.astype(np.int8)))
+            if fused:
+                want, jcache["kv"], jcache["kv_act"] = ats.cached_attention_step_paged_fused(
+                    *jargs, jcache["kv"], jcache["kv_act"], jcache["table"], jcache["act_src"], t,
+                    i, H, interpret=True)
+            else:
+                (want, jcache["k"], jcache["v"], jcache["k_act"],
+                 jcache["v_act"]) = ats.cached_attention_step_paged(
+                    *jargs, jcache["k"], jcache["v"], jcache["k_act"], jcache["v_act"],
+                    jcache["table"], jcache["act_src"], t, i, H, interpret=True)
+            twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
+            got = twin(torch.from_numpy(q), torch.from_numpy(kh), torch.from_numpy(vh),
+                       torch.from_numpy(mask), pcache, t, i, H)
+            want = np.asarray(want)
+            rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+            assert rel < 2e-2, (t, i, rel)
+        parent = rng.integers(0, K, (B, K))
+        jcache = jax_reorder(jcache, jnp.asarray(parent, jnp.int32), t)
+        pcache = beam_reorder_cache(pcache, torch.from_numpy(parent), t)
+    for got, want in zip(_logical(pcache, page, s0 + 2), _logical(jcache, page, s0 + 2)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_cpu_wrappers_take_the_plain_twin():
+    rng = np.random.default_rng(3)
+    state = _mid_decode_state(rng, 32, False, 64, 40)
+    mask = torch.from_numpy(rng.random((N, 64)) > 0.2)
+    q, kh, vh = (torch.from_numpy(rng.standard_normal((N, M)).astype(np.float32)) for _ in range(3))
+    want_cache = _to_port(state)
+    want = attention_step_paged_plain(q, kh, vh, mask, want_cache, 40, 1, H)
+    counts = (port.attention_step_paged.launches, port.attention_step_paged_chunked.launches)
+    for kernel in (port.attention_step_paged, port.attention_step_paged_chunked,
+                   port.cached_attention_step_paged):
+        cache = _to_port(state)
+        assert torch.equal(kernel(q, kh, vh, mask, cache, 40, 1, H), want)
+        for key in want_cache:
+            assert torch.equal(cache[key], want_cache[key]), key
+    assert (port.attention_step_paged.launches, port.attention_step_paged_chunked.launches) == counts
+
+
+def test_twins_refuse_the_other_layout():
+    q = torch.zeros(N, M)
+    mask = torch.ones(N, 128, dtype=torch.bool)
+    split, fused = _to_port(_zero_cache(64, False, 128)), _to_port(_zero_cache(64, True, 128))
+    with pytest.raises(ValueError):
+        attention_step_paged_plain(q, q, q, mask, fused, 3, 0, H)
+    with pytest.raises(ValueError):
+        attention_step_paged_fused_plain(q, q, q, mask, split, 3, 0, H)
+
+
+@pytest.mark.parametrize("u,dtype,fused,chunked", [
+    (96, torch.float32, False, False), (256, torch.float32, True, True),
+    (256, torch.float32, False, True), (256, torch.bfloat16, False, False),
+    (448, torch.bfloat16, False, True)])
+def test_dispatch_follows_the_jax_rule(u, dtype, fused, chunked, monkeypatch):
+    """K6 for the fused layout and above ``max_u_whole_row`` (213 f32, 426
+    bf16 at M 768), else K5; CPU tensors, so the launch counts stay and the
+    choice is read from the kernel the dispatcher called."""
+    calls = []
+    mask = torch.ones(8, u, dtype=torch.bool)
+    cache = {"kv" if fused else "k": torch.zeros(1, 8, 2 * u if fused else u, 768, dtype=dtype)}
+    monkeypatch.setattr(port, "attention_step_paged", lambda *a: calls.append("K5"))
+    monkeypatch.setattr(port, "attention_step_paged_chunked", lambda *a: calls.append("K6"))
+    port.cached_attention_step_paged(None, None, None, mask, cache, 0, 0, 8)
+    assert calls == ["K6" if chunked else "K5"]
+
+
+def _bad(cache, case):
+    """A copy of ``cache`` with one operand broken as ``case`` names."""
+    cache = dict(cache)
+    if case == "int8":
+        return {k: v.to(torch.int8) if v.is_floating_point() else v for k, v in cache.items()}
+    if case == "strided_table":
+        cache["table"] = cache["table"].t().contiguous().t()
+    elif case == "int64_table":
+        cache["table"] = cache["table"].long()
+    elif case == "short_slots":
+        cache["k_act"] = cache["k_act"][:, :, :1].contiguous()
+    elif case == "act_src_shape":
+        cache["act_src"] = cache["act_src"][:-1]
+    elif case == "table_columns":
+        cache["table"] = cache["table"][:, :1].repeat(1, 3).contiguous()
+    return cache
+
+
+@pytest.mark.parametrize("case,step,error", [
+    ("int8", 3, TypeError), ("strided_table", 3, ValueError), ("int64_table", 3, ValueError),
+    ("short_slots", 3, ValueError), ("act_src_shape", 3, ValueError),
+    ("table_columns", 3, ValueError), ("none", -1, ValueError),
+    ("none", 128, ValueError), ("none", 127, None)])
+def test_kernel_operand_checks(case, step, error):
+    """What the K5/K6 wrappers check before a launch (run here on CPU tensors)."""
+    cache = _to_port(_zero_cache(64, False, 128))
+    q = torch.zeros(N, M)
+    mask = torch.ones(N, 128, dtype=torch.bool)
+    if error is None:
+        assert port._check(q, q, q, mask, _bad(cache, case), step, 1, H) == (128, 64, False)
+        return
+    with pytest.raises(error):
+        port._check(q, q, q, mask, _bad(cache, case), step, 1, H)
