@@ -22,7 +22,18 @@ failure raises and exits non-zero:
            with the table and act_src of a simulated beam history (beams
            sharing parents) and NaN planted wherever the step may not read,
            out within 1e-5 and every written page and slot equal to the
-           plain twin's; K5 is also timed on D2's bf16 layout (page 32);
+           plain twin's; K5 is also timed on D2's bf16 layout (page 32), and
+           checked at the LM's head width (12 x 64) at D1; K7 (lm_megastep)
+           at D2's LM cache (N 528, U 256 fused page 64, 12 layers, M 768, 12
+           heads, d_ffn 3072), f32 and bf16, steps 0, 63, 64, 125, 251 of a
+           simulated beam history with NaN planted where a step may not read,
+           against its plain twin: a layer at a time, both fed the kernel's
+           x (x within K7_LAYER_ATOL, every written page and slot within one
+           bf16 ulp, the count of differing elements reported), then in one
+           launch for all layers (x_out's max and mean gap within K7_ATOL and
+           K7_MEAN_ATOL, the head's log-probs within rtol 0.1, atol 0.12),
+           one exact-GELU step, and timed at step 125 beside the twin and the
+           per-layer path (cuBLAS f32 GEMMs + K6 x 12, ``per_layer_ms``);
   slice    the anonymization path at bench.py's shape (32 utterances of
            161,120 samples = 10.07 s, T = 1008 frames), seeded random weights:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
@@ -39,18 +50,29 @@ failure raises and exits non-zero:
            with K3 at D1, with K4 at D2). Two shapes: D1, 8 x 80,480 samples
            (5.03 s, 126 encoder frames, 64 steps; U = 72 physical, 96 paged)
            and D2, 8 x 161,120 samples (10.07 s, 252 frames, 252 steps,
-           U = 256). Launch counts are reset right before each run and read
-           right after; one more decode checks the launches of a single
-           decode; then ``_decode_test`` is timed. Paged and physical decodes
-           on the card give identical tokens, scores within 1e-4;
+           U = 256). Then the reference's LM-fused test decode: the same with a
+           seeded full-width TransformerLM (vocab 5000, d_model 768, 12 heads,
+           12 layers, d_ffn 3072) at lm_weight 0.6, temperature_lm 1.15: D1
+           paged (K5 for all 18 layers) and physical (K3 + K2), D2 paged (K6
+           for the ASR, one K7 launch a step for the LM) and D2 paged with
+           ``decode_lm_megastep: false`` (K6 for all 18 layers). Launch counts
+           are reset right before each run and read right after; one more
+           decode checks the launches of a single decode; then
+           ``_decode_test`` is timed. Paged and physical decodes on the card
+           give identical tokens, scores within 1e-4 (with the LM too); for
+           D2's K7 decode against its per-layer one the share of identical
+           tokens and the score gap are reported (bf16 arithmetic);
   decode_parity  two utterances, beam 4, the same weights on the card (paged:
            K5 at 40 steps, D1's features; K6 at 230 steps, D2's) and on the
            CPU (physical): identical tokens and lengths, scores within 1e-3;
-           the card's physical decode equal to its paged one within 1e-4.
+           the card's physical decode equal to its paged one within 1e-4;
+           and the LM-fused D1 decode (beam 4, 40 steps, K5 in both stacks on
+           the card) against the CPU alike.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON object, and last ``{"ok": true, "device": {...}}``. Without CUDA the
-script exits non-zero before printing any result. fp32 throughout, TF32 off.
+script exits non-zero before printing any result. fp32 throughout, TF32 off
+(K7 computes with bf16 weights and activations, by its contract).
 """
 
 from __future__ import annotations
@@ -75,6 +97,7 @@ from speech_anonymization_tpu_torch.eval.evaluator import FeatureClassifier  # n
 from speech_anonymization_tpu_torch.models import (  # noqa: E402
     ASRModel,
     ConvAutoencoder,
+    TransformerLM,
     Xvector,
     XvectorClassifier,
 )
@@ -97,6 +120,10 @@ from speech_anonymization_tpu_torch.ops.beam_gather import (  # noqa: E402
     beam_gather_plain,
 )
 from speech_anonymization_tpu_torch.ops.fbank import Fbank, frame_signal  # noqa: E402
+from speech_anonymization_tpu_torch.ops.lm_megastep import (  # noqa: E402
+    lm_megastep,
+    lm_megastep_plain,
+)
 from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_power_plain  # noqa: E402
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe  # noqa: E402
@@ -115,6 +142,7 @@ N_SAMPLES = (36 * 28 - 1) * 160  # 161,120 samples: 10.07 s at 16 kHz, T = 1008 
 SAMPLE_RATE = 16000
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth (700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 K1_RTOL = K1_ATOL = 1e-4
 PARITY_ATOL = 1e-3  # card vs CPU: cuDNN and the CPU sum in different orders
@@ -133,6 +161,24 @@ DECODE_PARITY_ATOL = 1e-3  # scores, card vs CPU: cuBLAS and the CPU sum in othe
 # content (K5 is K3's, K6 K4's, with other addresses)
 LAYOUT_PARITY_ATOL = 1e-4
 DECODE_LAYERS = 6  # ASRModel()'s decoder layers: one attention launch each per step
+LM_LAYERS = 12  # TransformerLM()'s layers
+# K7 vs its twin on the card: the same rounding points, products summed in
+# other orders, so a bf16 rounding of q/k/v, the context or the hidden can
+# flip by one ulp and carry through the later layers. Measured at D2's LM
+# cache with seeded random weights: the x gap grows with depth, max
+# 0.006-0.011 after one layer, 0.017 after two, 0.07-0.15 after twelve (mean
+# 0.009-0.012).
+# Checked a layer at a time (both fed the kernel's x): x within
+# K7_LAYER_ATOL and every written page and slot within one bf16 ulp, past
+# K7_ULP_SLACK absolute (two f32 sums in other orders differ by ~1e-6 near
+# zero, where a bf16 ulp is far smaller). Checked in one launch: x_out's max
+# and mean gap, and the head's log-probs at the JAX package's own tolerance
+# for its megastep (rtol 0.1, atol 0.12).
+K7_LAYER_ATOL = 0.02
+K7_ATOL = 0.25
+K7_MEAN_ATOL = 0.03
+K7_ULP_SLACK = 1e-5
+K7_LOGP_RTOL, K7_LOGP_ATOL = 0.1, 0.12
 KERNEL_SOURCES = {
     "fused_fbank": ("speech_anonymization_tpu_torch/csrc/fbank.cu",
                     "speech_anonymization_tpu/ops/pallas/fbank_kernel.py:61"),
@@ -146,6 +192,8 @@ KERNEL_SOURCES = {
                              "speech_anonymization_tpu/ops/pallas/attention_step.py:411"),
     "attention_step_paged_chunked": ("speech_anonymization_tpu_torch/csrc/attention_step.cu",
                                      "speech_anonymization_tpu/ops/pallas/attention_step.py:618"),
+    "lm_megastep": ("speech_anonymization_tpu_torch/csrc/lm_megastep.cu",
+                    "speech_anonymization_tpu/ops/pallas/lm_megastep.py:111"),
 }
 
 
@@ -182,10 +230,12 @@ def host_median_s(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def kernel_entry(name: str, max_abs_err: float, ms: float, plain_ms: float, flops: float,
-                 nbytes: float, library_ms: float | None) -> dict:
+                 nbytes: float, library_ms: float | None, tc_flops: float = 0.0) -> dict:
     """One row of the kernel table; the bound is the larger of the operation
-    time at the fp32 peak and the byte time at the HBM rate."""
-    ops_ms, bytes_ms = 1e3 * flops / PEAK_FP32_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    time (``flops`` at the fp32 peak plus ``tc_flops`` at the bf16 tensor-core
+    peak) and the byte time at the HBM rate."""
+    ops_ms = 1e3 * (flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_TC_FLOPS)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     source, replaces = KERNEL_SOURCES[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
@@ -371,16 +421,18 @@ def phase_attention(kernel, shape_name: str, steps, timed_step: int, gen: torch.
     return entry
 
 
-def _paged_inputs(shape_name: str, dtype, fused: bool, step: int, gen: torch.Generator):
+def _paged_inputs(shape_name: str, dtype, fused: bool, step: int, gen: torch.Generator,
+                  layers: int = DECODE_LAYERS, nhead: int = 8):
     """A paged decode cache at a decode shape, after ``step`` reorders of a
     simulated beam history (parents drawn towards the best beams, so beams
     share them: the table's pages coalesce as in a real decode), with seeded
     content and NaN or Inf wherever the step may not read; seeded q/kh/vh and
-    a mask with ~20% pad keys and odd rows' fresh token masked."""
-    layers, n, _, m = _decode_cache_shape(shape_name)
+    a mask with ~20% pad keys and odd rows' fresh token masked. ``layers``
+    and ``nhead``: the ASR decoder's by default, the LM's for K7."""
+    _, n, _, m = _decode_cache_shape(shape_name)
     beams = DECODE_HPARAMS["test_beam_size"]
     # the layout the decode takes for this dtype; the fused one is page 64's, built in f32
-    cache = make_kv_cache(n, _decode_steps(shape_name) + 1, layers, 8, m // 8,
+    cache = make_kv_cache(n, _decode_steps(shape_name) + 1, layers, nhead, m // nhead,
                           torch.float32 if fused else dtype, device=DEVICE, paged=True, fused=fused)
     for t in range(step):
         r = torch.rand(n // beams, beams, generator=gen, device=DEVICE)
@@ -417,11 +469,11 @@ def _paged_logical(cache: dict, step: int, layer: int, kh, vh):
             for pages, act, fresh in ((k_pages, k_act, kh), (v_pages, v_act, vh))]
 
 
-def _paged_bytes(cache: dict, mask, step: int, itemsize: int) -> int:
-    """Bytes one paged step must move: each distinct (owner row, position)
-    of the completed pages that some reader row holds valid, each parent's
-    active positions (copied whole into the merged page), the merged page's
-    writeback, q/kh/vh/out, the mask up to the step and the table."""
+def _paged_cache_bytes(cache: dict, mask, step: int, itemsize: int) -> int:
+    """Cache bytes one layer's paged step must move: each distinct (owner
+    row, position) of the completed pages that some reader row holds valid,
+    each parent's active positions (copied whole into the merged page), and
+    the merged page's writeback."""
     table, act_src = cache["table"], cache["act_src"]
     n, up = table.shape
     u = cache["tokens"].shape[1]
@@ -432,8 +484,22 @@ def _paged_bytes(cache: dict, mask, step: int, itemsize: int) -> int:
     main = int(torch.unique(owner_pos[mask[:, :p_act * page]]).numel())
     active = int(torch.unique(act_src).numel()) * o
     m = page_views(cache)[0].shape[-1]
-    cache_bytes = 2 * (main + active + n * (o + 1)) * m * itemsize
-    return cache_bytes + 4 * n * m * 4 + n * (step + 1) + 4 * (n * p_act + n)
+    return 2 * (main + active + n * (o + 1)) * m * itemsize
+
+
+def _mask_table_bytes(cache: dict, step: int) -> int:
+    """The mask up to the step, the table's completed columns and act_src."""
+    n, up = cache["table"].shape
+    p_act = step // (cache["tokens"].shape[1] // up)
+    return n * (step + 1) + 4 * (n * p_act + n)
+
+
+def _paged_bytes(cache: dict, mask, step: int, itemsize: int) -> int:
+    """Bytes one paged attention launch must move: one layer's cache bytes,
+    q/kh/vh/out, the mask and the table."""
+    n, m = cache["table"].shape[0], page_views(cache)[0].shape[-1]
+    return (_paged_cache_bytes(cache, mask, step, itemsize) + 4 * n * m * 4
+            + _mask_table_bytes(cache, step))
 
 
 def _equal_buffers(a: dict, b: dict) -> bool:
@@ -446,11 +512,12 @@ def _equal_buffers(a: dict, b: dict) -> bool:
     return True
 
 
-def phase_paged_attention(kernel, shape_name: str, fused: bool, steps, timed_step: int,
-                          gen: torch.Generator) -> dict:
+def phase_paged_attention(kernel, shape_name: str, fused: bool, steps, timed_step: dict,
+                          gen: torch.Generator, nhead: int = 8) -> dict:
     """K5 or K6 at a decode shape's paged cache against its plain twin, f32
-    and bf16: out within rtol/atol 1e-5 and every page and slot equal."""
-    nhead, layer = 8, 3
+    and bf16: out within rtol/atol 1e-5 and every page and slot equal.
+    ``nhead``: 8 (the ASR's 8 x 96) or 12 (the LM's 12 x 64)."""
+    layer = 3
     max_err, checks = 0.0, []
     for dtype in (torch.float32, torch.bfloat16):
         for step in steps:
@@ -501,14 +568,122 @@ def phase_paged_attention(kernel, shape_name: str, fused: bool, steps, timed_ste
         if case_shape == shape_name:
             result = entry
         del q, kh, vh, mask, cache, k_log, v_log
-    emit({"phase": "kernels", "kernel": kernel.__name__, "shape": shape_name,
+    emit({"phase": "kernels", "kernel": kernel.__name__, "shape": shape_name, "nhead": nhead,
           "layout": "fused" if fused else "split", "checks": checks, "rtol": ATTN_RTOL,
           "atol": ATTN_ATOL, "timed": timed,
           "library": "SDPA over the logical buffer, materialized outside the timing"})
     return result
 
 
-def phase_decode_kernels() -> list[dict]:
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor, slack: float = 0.0) -> torch.Tensor:
+    """Per element (|a - b| - slack)+ in bf16 ulps of the larger magnitude; 0
+    where equal (Inf too) or both NaN."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulps = ((a - b).abs() - slack).clamp_min(0.0) / torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return torch.where((a == b) | (a.isnan() & b.isnan()), torch.zeros_like(ulps), ulps)
+
+
+@torch.no_grad()
+def phase_k7(lm: TransformerLM, gen: torch.Generator) -> dict:
+    """K7 at D2's LM cache against its plain twin, f32 and bf16, then timed at
+    step 125 (f32) beside the twin and the per-layer path on the same state."""
+    wall, vecs = lm.prepare_megastep()
+    nhead, layers, nf = lm.nhead, lm.num_layers, lm.d_ffn // lm.d_model
+    nb = 4 + 2 * nf  # weight blocks a layer
+    checks, max_err = [], 0.0
+
+    def run(kernel, x0, mask, cache, step, exact_gelu=False):
+        return kernel(x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step,
+                      wall, vecs, nhead, exact_gelu=exact_gelu)[0]
+
+    def layer_of(layer, c):
+        return {"kv": c["kv"][layer:layer + 1], "kv_act": c["kv_act"][layer:layer + 1],
+                "table": c["table"], "act_src": c["act_src"]}
+
+    cases = [(dtype, step, False) for dtype in (torch.float32, torch.bfloat16)
+             for step in (0, 63, 64, 125, 251)] + [(torch.bfloat16, 125, True)]
+    for dtype, step, exact in cases:
+        x0, _, _, mask, cache = _paged_inputs("D2", dtype, True, step, gen, layers, nhead)
+        twin_cache = {k: v.clone() for k, v in cache.items()}
+        # 1. a layer at a time, both fed the kernel's x: every layer's written
+        # pages and slots within one bf16 ulp, its x within K7_LAYER_ATOL
+        pages = {key: {"differing": 0, "beyond_one_ulp": 0, "max_ulps_past_slack": 0.0,
+                       "nan_matches": True} for key in ("kv", "kv_act")}
+        x, layer_errs = x0, []
+        for layer in range(layers):
+            lw, lv = wall[layer * nb:(layer + 1) * nb], vecs[layer:layer + 1]
+            c, tc = layer_of(layer, cache), layer_of(layer, twin_cache)
+            got_l = lm_megastep(x, mask, c["kv"], c["kv_act"], c["table"], c["act_src"], step, lw, lv,
+                                nhead, exact_gelu=exact)[0]
+            want_l = lm_megastep_plain(x, mask, tc["kv"], tc["kv_act"], tc["table"], tc["act_src"],
+                                       step, lw, lv, nhead, exact_gelu=exact)[0]
+            layer_errs.append(float((got_l - want_l).abs().max()))
+            for key, stats in pages.items():
+                a, b = cache[key][layer], twin_cache[key][layer]
+                ulps = _bf16_ulps(a, b, K7_ULP_SLACK)
+                stats["differing"] += int(((a != b) & ~(a.isnan() & b.isnan())).sum())
+                stats["beyond_one_ulp"] += int((ulps > 1).sum())
+                stats["max_ulps_past_slack"] = max(stats["max_ulps_past_slack"], float(ulps.max()))
+                stats["nan_matches"] &= bool((a.isnan() == b.isnan()).all())
+                del ulps
+            x = got_l
+        # 2. one launch for every layer against the twin from the same state
+        # (the step never reads what it writes: the written pages are rewritten)
+        got = run(lm_megastep, x0, mask, cache, step, exact)
+        want = run(lm_megastep_plain, x0, mask, twin_cache, step, exact)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        mean_err = float((got - want).abs().mean())
+        lp_got, lp_want = (torch.log_softmax(lm._head(x), -1) for x in (got, want))
+        lp_err = float((lp_got - lp_want).abs().max())
+        lp_ok = bool(torch.allclose(lp_got, lp_want, rtol=K7_LOGP_RTOL, atol=K7_LOGP_ATOL))
+        ok = (bool(torch.isfinite(got).all()) and err <= K7_ATOL and mean_err <= K7_MEAN_ATOL
+              and lp_ok and max(layer_errs) <= K7_LAYER_ATOL
+              and all(p["beyond_one_ulp"] == 0 and p["nan_matches"] for p in pages.values()))
+        checks.append({"dtype": str(dtype), "step": step, "exact_gelu": exact, "max_abs_err": err,
+                       "mean_abs_err": mean_err, "log_prob_max_abs_err": lp_err,
+                       "layer_by_layer_max_abs_err": layer_errs, "written": pages, "ok": ok})
+        if not ok:
+            raise AssertionError(f"lm_megastep disagrees with its plain twin: {checks[-1]}")
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        del x0, mask, cache, twin_cache, got, want
+        torch.cuda.empty_cache()
+
+    step = 125
+    x0, _, _, mask, cache = _paged_inputs("D2", torch.float32, True, step, gen, layers, nhead)
+    ms = cuda_ms(lambda: run(lm_megastep, x0, mask, cache, step), iters=10)
+    plain_ms = cuda_ms(lambda: run(lm_megastep_plain, x0, mask, cache, step), iters=3, warmup=1)
+    per_layer_ms = cuda_ms(lambda: lm.step_layers(x0, cache, mask, step), iters=10)
+    n, m = x0.shape
+    d = m // nhead
+    valid = int(mask[:, :step + 1].sum())
+    flops = layers * (4 * valid * d * nhead + n * nhead * (step + 1))
+    tc_flops = 2 * n * m * m * (4 + 2 * nf) * layers
+    # q/k/v, the context and the layers' x stay in K7's L2-resident scratch:
+    # the function moves each layer's cache bytes, the mask and table once,
+    # the weights, and x in and out
+    nbytes = (layers * _paged_cache_bytes(cache, mask, step, 4) + _mask_table_bytes(cache, step)
+              + wall.numel() * 2 + vecs.numel() * 4 + 2 * n * m * 4)
+    entry = kernel_entry("lm_megastep", max_err, ms, plain_ms, flops, nbytes, None, tc_flops)
+    entry["per_layer_ms"] = per_layer_ms
+    emit({"phase": "kernels", "kernel": "lm_megastep", "cache": list(cache["kv"].shape),
+          "slots": list(cache["kv_act"].shape), "layers": layers, "nhead": nhead, "d_ffn": lm.d_ffn,
+          "checks": checks, "atol": K7_ATOL, "mean_atol": K7_MEAN_ATOL,
+          "layer_atol": K7_LAYER_ATOL, "ulp_slack": K7_ULP_SLACK,
+          "log_prob_rtol_atol": [K7_LOGP_RTOL, K7_LOGP_ATOL], "timed_step": step,
+          "distinct_parents": int(torch.unique(cache["act_src"]).numel()), "kernel_ms": ms,
+          "plain_ms": plain_ms, "per_layer_ms": per_layer_ms, "library_ms": None,
+          "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"], "mbytes": nbytes / 1e6,
+          "gflop_tensor_core": tc_flops / 1e9, "gflop_fp32": flops / 1e9,
+          "achieved_gbps": nbytes / ms / 1e6, "share_of_bound": entry["bound_ms"] / ms})
+    del x0, mask, cache
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     # timed at each shape's mean live step: 31 of 0..63 (D1), 125 of 0..251 (D2)
     entries = [phase_k2(gen),
@@ -521,7 +696,11 @@ def phase_decode_kernels() -> list[dict]:
                                       {"D1": 31, "D2": 125}, gen),
                 phase_paged_attention(attention_step_paged_chunked, "D2", True,
                                       (0, 63, 64, 125, 251), {"D2": 125}, gen)]
+    # K5 at the LM's head width, which the LM-fused D1 decode runs (checks and times)
+    phase_paged_attention(attention_step_paged, "D1", False, (0, 31, 32, 50, 95),
+                          {"D1": 31, "D2": 125}, gen, nhead=12)
     torch.cuda.empty_cache()
+    entries.append(phase_k7(lm, gen))
     return entries
 
 
@@ -627,13 +806,52 @@ class StubTokenizer:
         return " ".join(str(i) for i in ids)
 
 
-def phase_decode(asr: ASRModel, ae: ConvAutoencoder, fbank: Fbank, normalizer: InputNormalizer,
-                 card: str):
-    """D1 and D2 through evaluate_batch with the ASR bundle, paged (the default)
-    and physical; returns the launch counts of those runs by kernel and, per
-    shape, the first two clean feature rows (for decode_parity)."""
+# The decodes of each shape, in order: (layout, with the LM, decode_lm_megastep)
+DECODE_RUNS = {"D1": (("paged", False, True), ("physical", False, True), ("paged", True, True),
+                      ("physical", True, True)),
+               "D2": (("paged", False, True), ("physical", False, True), ("paged", True, True),
+                      ("paged", True, False))}
+# pairs of runs that must give identical tokens (scores within 1e-4), and one
+# that is only reported (K7 computes in bf16, the per-layer path in f32)
+SAME_RUNS = {"D1": (("paged", "physical"), ("paged_lm", "physical_lm")),
+             "D2": (("paged", "physical"),)}
+REPORTED_RUNS = {"D2": ("paged_lm", "paged_lm_per_layer")}
+
+
+def _run_label(layout: str, with_lm: bool, mega: bool) -> str:
+    return layout + ("_lm" if with_lm else "") + ("" if mega else "_per_layer")
+
+
+def _expected_launches(name: str, layout: str, with_lm: bool, mega: bool, steps: int) -> dict:
+    """Kernel launches of one decode at shape ``name`` (K1 aside): the ASR's 6
+    decoder layers and, with the LM, its 12 layers, one attention launch each a
+    step, except the LM's fused D2 cache under K7 (one launch a step for all
+    12); physical caches add K2's k and v reorder of each cache a step."""
+    expected = dict.fromkeys(("beam_gather", "attention_step", "attention_step_chunked",
+                              "attention_step_paged", "attention_step_paged_chunked",
+                              "lm_megastep"), 0)
+    lm_layers = LM_LAYERS if with_lm else 0
+    if layout == "physical":
+        expected["attention_step" if name == "D1" else "attention_step_chunked"] = (
+            (DECODE_LAYERS + lm_layers) * steps)
+        expected["beam_gather"] = 2 * (1 + with_lm) * steps
+        return expected
+    kernel = "attention_step_paged" if name == "D1" else "attention_step_paged_chunked"
+    expected[kernel] = DECODE_LAYERS * steps
+    if with_lm and name == "D2" and mega:
+        expected["lm_megastep"] = steps
+    else:
+        expected[kernel] += lm_layers * steps
+    return expected
+
+
+def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: Fbank,
+                 normalizer: InputNormalizer, card: str):
+    """D1 and D2 through evaluate_batch with the ASR bundle, without and with
+    the LM (``DECODE_RUNS``); returns the launch counts of those runs by kernel
+    and, per shape, the first two clean feature rows (for decode_parity)."""
     counters = (fused_fbank, beam_gather, attention_step, attention_step_chunked,
-                attention_step_paged, attention_step_paged_chunked)
+                attention_step_paged, attention_step_paged_chunked, lm_megastep)
     totals = dict.fromkeys((c.__name__ for c in counters), 0)
     rng = np.random.default_rng(SEED + 10)
     parity_feats = {}
@@ -647,11 +865,7 @@ def phase_decode(asr: ASRModel, ae: ConvAutoencoder, fbank: Fbank, normalizer: I
         _, norm_state = normalizer(normalizer.init_state(DEVICE), fbank(wavs), lens, 0, training=True)
         t_frames = 1 + n_samples // 160
         steps = _decode_steps(name)
-        # the attention kernel of each layout at this shape (U 72/96 whole row, 256 streamed)
-        physical_kernel, paged_kernel = (("attention_step", "attention_step_paged") if name == "D1"
-                                         else ("attention_step_chunked",
-                                               "attention_step_paged_chunked"))
-        # one input for both layouts: cuDNN's autoencoder is not bit-reproducible
+        # one input for every run: cuDNN's autoencoder is not bit-reproducible
         # run to run, and a 1e-6 input change can flip a near tie of the beam search
         _, _, recon, clean = recipe.eval_step(ae, fbank, normalizer, norm_state, wavs, lens, labels)
         _finite(f"{name} recon", recon, (batch, t_frames, 80))
@@ -661,9 +875,11 @@ def phase_decode(asr: ASRModel, ae: ConvAutoencoder, fbank: Fbank, normalizer: I
               "clean_rerun_max_abs_diff": float((rerun[3] - clean).abs().max())})
         del rerun
         outputs = {}
-        for layout in ("paged", "physical"):
-            bundle = ASRBundle(asr, StubTokenizer(), {**DECODE_HPARAMS, "max_decode_steps": max_steps,
-                                                      "decode_paged_kv": layout == "paged"})
+        for layout, with_lm, mega in DECODE_RUNS[name]:
+            label = _run_label(layout, with_lm, mega)
+            hp = {**DECODE_HPARAMS, "max_decode_steps": max_steps,
+                  "decode_paged_kv": layout == "paged", "decode_lm_megastep": mega}
+            bundle = ASRBundle(asr, StubTokenizer(), hp, lm=lm if with_lm else None)
             metrics = recipe.EvalMetrics()
             bundle.start_test(metrics)
             torch.cuda.synchronize()
@@ -682,21 +898,16 @@ def phase_decode(asr: ASRModel, ae: ConvAutoencoder, fbank: Fbank, normalizer: I
             toks, lengths, scores = bundle._decode_test(recon, lens)
             torch.cuda.synchronize()
             per_decode = {c.__name__: c.launches for c in counters[1:]}
-            expected = dict.fromkeys(per_decode, 0)
-            if layout == "paged":
-                expected[paged_kernel] = DECODE_LAYERS * steps
-            else:
-                expected["beam_gather"] = 2 * steps  # k and v, every step
-                expected[physical_kernel] = DECODE_LAYERS * steps
+            expected = _expected_launches(name, layout, with_lm, mega, steps)
             if per_decode != expected:
-                raise AssertionError(f"{name} {layout} decode launched {per_decode}, expected {expected}")
-            _finite(f"{name} scores", scores, (batch,))
+                raise AssertionError(f"{name} {label} decode launched {per_decode}, expected {expected}")
+            _finite(f"{name} {label} scores", scores, (batch,))
             if tuple(toks.shape) != (batch, steps) or not bool(((lengths >= 0) & (lengths <= steps)).all()):
                 raise AssertionError(f"{name}: tokens {tuple(toks.shape)}, lengths {lengths.tolist()}")
             distinct = len({tuple(h) for h in hyps_to_lists(toks, lengths)})
-            if distinct < 2:
+            if distinct < 2 and not with_lm:
                 raise AssertionError(f"{name}: every utterance decoded to the same hypothesis")
-            outputs[layout] = (toks, lengths, scores)
+            outputs[label] = (toks, lengths, scores)
 
             torch.cuda.reset_peak_memory_stats()
             median_s = host_median_s(lambda: bundle._decode_test(recon, lens), iters=3, warmup=1)
@@ -704,29 +915,43 @@ def phase_decode(asr: ASRModel, ae: ConvAutoencoder, fbank: Fbank, normalizer: I
             audio_s = batch * n_samples / SAMPLE_RATE
             wer, wer_clean = metrics.wer_metric.summarize("WER"), metrics.wer_metric2.summarize("WER")
             rows = batch * bundle.beam_size
-            cache = make_kv_cache(rows, steps + 1, DECODE_LAYERS, 8, 96, device="meta",
-                                  paged=bundle.pages(rows, steps + 1, DEVICE))  # shapes only
-            emit({"phase": "decode", "shape": name, "layout": layout, "card": card, "batch": batch,
+            paged = bundle.pages(rows, steps + 1, DEVICE)  # the ASR's and the LM's: both d_model 768
+            caches = {"asr": make_kv_cache(rows, steps + 1, DECODE_LAYERS, 8, 96, device="meta",
+                                           paged=paged)}  # shapes only
+            if with_lm:
+                caches["lm"] = make_kv_cache(rows, steps + 1, LM_LAYERS, lm.nhead,
+                                             lm.d_model // lm.nhead, device="meta", paged=paged)
+            emit({"phase": "decode", "shape": name, "layout": layout, "lm": with_lm,
+                  "lm_megastep": with_lm and mega, "card": card, "batch": batch,
                   "samples": n_samples, "frames": t_frames, "steps": steps,
                   "beam": DECODE_HPARAMS["test_beam_size"],
-                  "cache": {k: list(v.shape) for k, v in cache.items()}, "launches": launches,
-                  "launches_per_decode": per_decode,
+                  "cache": {c: {k: list(v.shape) for k, v in cache.items()}
+                            for c, cache in caches.items()},
+                  "launches": launches, "launches_per_decode": per_decode,
                   "decode_median_s": median_s, "ms_per_step": 1e3 * median_s / steps,
                   "audio_s": audio_s, "audio_s_per_wall_s": audio_s / median_s,
                   "peak_mem_gib": peak_gib, "wer_recon": wer, "wer_clean": wer_clean,
                   "utility_similarity": metrics.utility_similarity.summarize(),
                   "distinct_hypotheses": distinct, "lengths": lengths.tolist(),
                   "scores": scores.tolist()})
-            del bundle, cache
+            del bundle, caches
             torch.cuda.empty_cache()
-        (pt, pl, ps), (ft, fl, fs) = outputs["paged"], outputs["physical"]
-        same = torch.equal(pt, ft) and torch.equal(pl, fl)
-        gap = float((ps - fs).abs().max())
-        emit({"phase": "decode_layouts", "shape": name, "identical_tokens": same, "score_gap": gap,
-              "atol": LAYOUT_PARITY_ATOL})
-        if not (same and gap <= LAYOUT_PARITY_ATOL):
-            raise AssertionError(f"{name}: paged and physical decodes disagree: tokens equal {same}, "
-                                 f"gap {gap}")
+        for a, b in SAME_RUNS[name]:
+            (at, al, asc), (bt, bl, bsc) = outputs[a], outputs[b]
+            same = torch.equal(at, bt) and torch.equal(al, bl)
+            gap = float((asc - bsc).abs().max())
+            emit({"phase": "decode_layouts", "shape": name, "runs": [a, b], "identical_tokens": same,
+                  "score_gap": gap, "atol": LAYOUT_PARITY_ATOL})
+            if not (same and gap <= LAYOUT_PARITY_ATOL):
+                raise AssertionError(f"{name}: {a} and {b} decodes disagree: tokens equal {same}, "
+                                     f"gap {gap}")
+        if name in REPORTED_RUNS:
+            a, b = REPORTED_RUNS[name]
+            ha, hb = (hyps_to_lists(*outputs[r][:2]) for r in (a, b))
+            emit({"phase": "decode_layouts", "shape": name, "runs": [a, b], "reported_only": True,
+                  "identical_hypotheses_share": sum(x == y for x, y in zip(ha, hb)) / len(ha),
+                  "identical_tokens": torch.equal(outputs[a][0], outputs[b][0]),
+                  "score_gap": float((outputs[a][2] - outputs[b][2]).abs().max())})
         parity_feats[name] = (clean[:2], lens[:2])
         del wavs, recon, clean, outputs
         torch.cuda.empty_cache()
@@ -738,37 +963,44 @@ def phase_decode(asr: ASRModel, ae: ConvAutoencoder, fbank: Fbank, normalizer: I
     return totals, parity_feats
 
 
-def phase_decode_parity(asr: ASRModel, parity_feats: dict) -> None:
+def phase_decode_parity(asr: ASRModel, lm: TransformerLM, parity_feats: dict) -> None:
     """Paged on the card against the CPU (which never pages): K5 at D1's
     features over 40 steps (a page completes at step 31), K6 at D2's over
-    230 steps (U 256, fused). The card's physical decode of the same input
-    is also compared with its paged one (identical tokens and scores within
+    230 steps (U 256, fused), and the LM-fused D1 decode over 40 steps (K5 for
+    the ASR's and the LM's layers; the LM's cache at D1 is not fused, so no K7
+    and no bf16 arithmetic). The card's physical decode of the same input is
+    also compared with its paged one (identical tokens and scores within
     1e-4): a card-vs-CPU disagreement that both card layouts share is the
     card's arithmetic, not the paged path. (At 220 steps D2's second
     utterance meets such a near tie at position 171 on both card layouts,
     scores 2.9e-6 apart; the step count avoids it.)"""
     cpu_model = copy.deepcopy(asr).to("cpu")
-    for name, steps, kernel in (("D1", 40, attention_step_paged),
-                                ("D2", 230, attention_step_paged_chunked)):
+    cpu_lm = copy.deepcopy(lm).to("cpu")
+    for name, steps, kernel, with_lm in (("D1", 40, attention_step_paged, False),
+                                         ("D2", 230, attention_step_paged_chunked, False),
+                                         ("D1", 40, attention_step_paged, True)):
         feats, lens = parity_feats[name]
         hp = {**DECODE_HPARAMS, "test_beam_size": 4, "max_decode_steps": steps}
+        card_lm, host_lm = (lm, cpu_lm) if with_lm else (None, None)
         kernel.launches = 0
-        gpu = ASRBundle(asr, StubTokenizer(), hp)._decode_test(feats, lens)
+        gpu = ASRBundle(asr, StubTokenizer(), hp, lm=card_lm)._decode_test(feats, lens)
         torch.cuda.synchronize()
-        if kernel.launches != DECODE_LAYERS * steps:
+        layers = DECODE_LAYERS + (LM_LAYERS if with_lm else 0)
+        if kernel.launches != layers * steps:
             raise AssertionError(f"the {name} parity decode launched {kernel.__name__} "
                                  f"{kernel.launches} times")
-        physical = ASRBundle(asr, StubTokenizer(), {**hp, "decode_paged_kv": False})._decode_test(
-            feats, lens)
-        cpu = ASRBundle(cpu_model, StubTokenizer(), hp)._decode_test(feats.cpu(), lens.cpu())
+        physical = ASRBundle(asr, StubTokenizer(), {**hp, "decode_paged_kv": False},
+                             lm=card_lm)._decode_test(feats, lens)
+        cpu = ASRBundle(cpu_model, StubTokenizer(), hp, lm=host_lm)._decode_test(feats.cpu(),
+                                                                                lens.cpu())
         same_layouts = torch.equal(gpu[0], physical[0]) and torch.equal(gpu[1], physical[1])
         layout_gap = float((gpu[2] - physical[2]).abs().max())
         same_tokens = torch.equal(gpu[0].cpu(), cpu[0]) and torch.equal(gpu[1].cpu(), cpu[1])
         gap = float((gpu[2].cpu() - cpu[2]).abs().max())
-        emit({"phase": "decode_parity", "shape": name, "utterances": 2, "beam": 4, "steps": steps,
-              "card_kernel": kernel.__name__, "identical_tokens": same_tokens, "score_gap": gap,
-              "atol": DECODE_PARITY_ATOL, "card_layouts_identical_tokens": same_layouts,
-              "card_layouts_score_gap": layout_gap,
+        emit({"phase": "decode_parity", "shape": name, "lm": with_lm, "utterances": 2, "beam": 4,
+              "steps": steps, "card_kernel": kernel.__name__, "identical_tokens": same_tokens,
+              "score_gap": gap, "atol": DECODE_PARITY_ATOL,
+              "card_layouts_identical_tokens": same_layouts, "card_layouts_score_gap": layout_gap,
               "hypotheses_head": [h[:16] for h in hyps_to_lists(cpu[0], cpu[1])]})
         if not (same_layouts and layout_gap <= LAYOUT_PARITY_ATOL):
             raise AssertionError(f"paged and physical card decodes disagree at {name}: tokens equal "
@@ -798,18 +1030,19 @@ def main() -> int:
     normalizer = InputNormalizer(dim=80)
     models = build_models(DEVICE)
 
+    lm = seeded_init_(TransformerLM(device=DEVICE), SEED + 4)
     k1 = phase_kernels(wavs, fbank)
-    decode_kernels = phase_decode_kernels()
+    decode_kernels = phase_decode_kernels(lm)
     launches = phase_slice(wavs, lens, labels, fbank, normalizer, models, card)
     k1["launches"] = launches["fused_fbank"]
     phase_parity(wavs, lens, labels, fbank, normalizer, models)
     del wavs
 
     asr = seeded_init_(ASRModel(device=DEVICE), SEED + 3)
-    decode_launches, parity_feats = phase_decode(asr, models[0], fbank, normalizer, card)
+    decode_launches, parity_feats = phase_decode(asr, lm, models[0], fbank, normalizer, card)
     for entry in decode_kernels:
         entry["launches"] = decode_launches[entry["name"]]
-    phase_decode_parity(asr, parity_feats)
+    phase_decode_parity(asr, lm, parity_feats)
 
     print(card, flush=True)
     emit({"kernels": [k1, *decode_kernels]})

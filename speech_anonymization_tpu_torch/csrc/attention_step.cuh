@@ -1,0 +1,370 @@
+// The device code that the single-token attention kernels share: K3-K6 of
+// csrc/attention_step.cu and the attention phase of K7 (csrc/lm_megastep.cu).
+// Numerics, addressing and design are stated in csrc/attention_step.cu's
+// header. Each (row, head) pair is one work item of 128 threads; K3-K6 run
+// one item per block, K7 walks many items per block.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 64;  // positions per chunk of the streamed kernel
+constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory without opting in
+constexpr int kMaxDevices = 64;
+
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int kN = 4;  // elements in 16 bytes
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kN = 8;
+};
+
+// x rounded to the cache's element type (to nearest even), as a float
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 16 bytes of cache elements -> floats
+__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// floats -> 16 bytes of cache elements (values already rounded: exact)
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&x)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// kN consecutive f32 values of a fresh (N, M) operand, rounded to T
+template <typename T, int N>
+__device__ __forceinline__ void load_fresh(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * i);
+    x[4 * i] = round_to<T>(v.x);
+    x[4 * i + 1] = round_to<T>(v.y);
+    x[4 * i + 2] = round_to<T>(v.z);
+    x[4 * i + 3] = round_to<T>(v.w);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Every thread gets the block's sum (max); `red` holds kWarps floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
+  __syncthreads();
+  return t;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t = fmaxf(t, red[w]);
+  __syncthreads();
+  return t;
+}
+
+// The operands of one launch. Sizes in positions (rows of M elements).
+template <typename T>
+struct Args {
+  const float* q;
+  const float* kh;
+  const float* vh;
+  const unsigned char* mask;
+  T* ck;  // main k cache; fused layout: the kv cache
+  T* cv;  // main v cache; fused layout: the same kv cache
+  T* ak;  // paged: active-page parity slots of k; fused: the kv slots
+  T* av;
+  const int* table;    // paged: (n, u / page) owner row of each completed page
+  const int* act_src;  // paged: (n,) beam parent holding the active page
+  float* out;
+  int n, u, m, d_head, step, layer;
+  int page_shift;  // paged: log2(page)
+  int row_pos;     // between rows of the main cache: u (physical, split), 2u (fused)
+  int page_pos;    // between pages of a row: page (split), 2 page (fused)
+  int slot_pos;    // in one parity slot: page (split), 2 page (fused)
+  int v_off;       // from a k page or slot to its v: 0 (split), page (fused)
+  float scale;
+};
+
+// What both kernels share for one (row, head) work item, `item` = row * H +
+// head (a block's index in K3-K6): the fresh operands,
+// the address of any position of the row, and (in the constructor) the
+// in-place writes. `item` is unsigned, as blockIdx.x is: with a signed index
+// the division and remainder by H cost K6 ~20 more registers, a third fewer
+// resident blocks and ~18% of its time on an H100.
+template <typename T, bool kPaged>
+struct Head {
+  static constexpr int V = Vec<T>::kN;
+  const T* kmain;  // physical: this row's position 0; paged: the layer's row 0
+  const T* vmain;  //   (all with this head's offset)
+  const T* kact;   // paged: the parent's read slot at the first active position
+  const T* vact;
+  const int* owners;  // paged: shared memory, the owner row of each completed page
+  const unsigned char* mrow;  // mask row
+  size_t qoff;        // offset of this head in the (N, M) operands
+  size_t row_stride;  // paged: elements between rows of the main cache
+  int m, nvec, lane, warp;
+  int act_start, page_shift, page_pos;  // paged
+  bool live;          // lane < nvec: holds a vector of the head
+  float qv[V], kv[V];  // fresh q and k of this lane's vector
+
+  __device__ Head(const Args<T>& a, const int* owners_, unsigned item) : owners(owners_), m(a.m) {
+    const int nhead = m / a.d_head;
+    const int row = item / nhead;
+    const size_t hoff = static_cast<size_t>(item % nhead) * a.d_head;
+    nvec = a.d_head / V;
+    lane = threadIdx.x & 31;
+    warp = threadIdx.x >> 5;
+    live = lane < nvec;
+    qoff = static_cast<size_t>(row) * m + hoff;
+    mrow = a.mask + static_cast<size_t>(row) * a.u;
+    if (live) {
+      load_fresh<T>(a.q + qoff + lane * V, qv);
+      load_fresh<T>(a.kh + qoff + lane * V, kv);
+    }
+    T* kdst;  // where the fresh k/v land
+    T* vdst;
+    const size_t layer_row0 = static_cast<size_t>(a.layer) * a.n;
+    if constexpr (!kPaged) {
+      const size_t base = (layer_row0 + row) * a.u * m + hoff;
+      kmain = a.ck + base;
+      vmain = a.cv + base;
+      // no block of this launch reads the cache at `step`
+      kdst = a.ck + base + static_cast<size_t>(a.step) * m;
+      vdst = a.cv + base + static_cast<size_t>(a.step) * m;
+    } else {
+      const int page = 1 << a.page_shift;
+      page_shift = a.page_shift;
+      page_pos = a.page_pos;
+      act_start = a.step & ~(page - 1);
+      const int o = a.step - act_start;
+      row_stride = static_cast<size_t>(a.row_pos) * m;
+      kmain = a.ck + layer_row0 * row_stride + hoff;
+      vmain = a.cv + layer_row0 * row_stride + static_cast<size_t>(a.v_off) * m + hoff;
+      const int parent = a.act_src[row];
+      const size_t slot_r = ((layer_row0 + parent) * 2 + ((a.step + 1) & 1)) * a.slot_pos;
+      kact = a.ak + slot_r * m + hoff;
+      vact = a.av + (slot_r + a.v_off) * m + hoff;
+      // the merged active page goes to this row: the main cache when the
+      // page completes, else parity slot step % 2
+      T* kd;
+      T* vd;
+      if (o == page - 1) {
+        const size_t at =
+            (layer_row0 + row) * a.row_pos + static_cast<size_t>(a.step >> a.page_shift) * a.page_pos;
+        kd = a.ck + at * m + hoff;
+        vd = a.cv + (at + a.v_off) * m + hoff;
+      } else {
+        const size_t at = ((layer_row0 + row) * 2 + (a.step & 1)) * a.slot_pos;
+        kd = a.ak + at * m + hoff;
+        vd = a.av + (at + a.v_off) * m + hoff;
+      }
+      // the parent's positions act_start .. step - 1, k then v, as bytes
+      const int span = o * nvec;
+      for (int i = threadIdx.x; i < 2 * span; i += kThreads) {
+        const bool is_v = i >= span;
+        const int r = is_v ? i - span : i;
+        const size_t off = static_cast<size_t>(r / nvec) * m + (r % nvec) * V;
+        *reinterpret_cast<uint4*>((is_v ? vd : kd) + off) =
+            *reinterpret_cast<const uint4*>((is_v ? vact : kact) + off);
+      }
+      kdst = kd + static_cast<size_t>(o) * m;
+      vdst = vd + static_cast<size_t>(o) * m;
+    }
+    if (warp == 0 && live) store_vec(kdst + lane * V, kv);
+    if (warp == 1 && live) {
+      float vv[V];
+      load_fresh<T>(a.vh + qoff + lane * V, vv);
+      store_vec(vdst + lane * V, vv);
+    }
+  }
+
+  // Address of position p < step of this row and head (k, or v with is_v).
+  __device__ __forceinline__ const T* at(int p, bool is_v) const {
+    if constexpr (kPaged) {
+      if (p >= act_start) return (is_v ? vact : kact) + static_cast<size_t>(p - act_start) * m;
+      const int pg = p >> page_shift;
+      const size_t pos = static_cast<size_t>(pg) * page_pos + (p - (pg << page_shift));
+      return (is_v ? vmain : kmain) + owners[pg] * row_stride + pos * m;
+    } else {
+      return (is_v ? vmain : kmain) + static_cast<size_t>(p) * m;
+    }
+  }
+
+  // Scaled score of position p (called by a whole warp), -inf where masked.
+  __device__ __forceinline__ float score(int p, int step, float scale) const {
+    if (!mrow[p]) return -INFINITY;  // warp-uniform: the cache is not read
+    float dot = 0.f;
+    if (live) {
+      if (p == step) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kv[i], dot);
+      } else {
+        float kx[V];
+        load_vec(at(p, false) + lane * V, kx);
+#pragma unroll
+        for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kx[i], dot);
+      }
+    }
+    return warp_sum(dot) / scale;
+  }
+
+  // acc += w * v[p] for this thread's vector j of the head
+  __device__ __forceinline__ void add_value(float (&acc)[V], float w, int p, int step, int j,
+                                            const float* vh) const {
+    float vx[V];
+    if (p == step) {
+      load_fresh<T>(vh + qoff + j * V, vx);
+    } else {
+      load_vec(at(p, true) + j * V, vx);
+    }
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = fmaf(w, vx[i], acc[i]);
+  }
+};
+
+// Paged: the completed-page owners of work item `item`'s row into shared memory.
+template <typename T, bool kPaged>
+__device__ __forceinline__ void load_owners(const Args<T>& a, int* owners, unsigned item) {
+  if constexpr (kPaged) {
+    const int row = item / (a.m / a.d_head);
+    const int up = a.u >> a.page_shift;
+    const int done = a.step >> a.page_shift;
+    for (int i = threadIdx.x; i < done; i += kThreads) {
+      owners[i] = a.table[static_cast<size_t>(row) * up + i];
+    }
+    __syncthreads();
+  }
+}
+
+// Sum the groups' partial value vectors and write out = total / denom.
+template <int V>
+__device__ __forceinline__ void finish(const float (&acc)[V], float denom, float* part, int g,
+                                       int groups, int j, int d_head, float* out) {
+  if (g < groups) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) part[g * d_head + j * V + i] = acc[i];
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < d_head; d += kThreads) {
+    float tot = 0.f;
+    for (int gg = 0; gg < groups; ++gg) tot += part[gg * d_head + d];
+    out[d] = denom > 0.f ? tot / denom : 0.f;
+  }
+}
+
+// K4 / K6's body for one (row, head) work item: positions streamed in
+// chunks of kChunk with an online softmax. Called by all kThreads threads of
+// a block. Shared memory `smem`: kChunk + kWarps + groups * d_head floats
+// (+ u / page owners), whatever U is. K7 (csrc/lm_megastep.cu) runs it for
+// every item of a layer's attention phase.
+template <typename T, bool kPaged>
+__device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigned item, float* smem) {
+  constexpr int V = Vec<T>::kN;
+  const int groups = kThreads / (a.d_head / V);
+  float* s = smem;                    // [kChunk]
+  float* part = s + kChunk + kWarps;  // [groups][d_head]
+  int* owners = reinterpret_cast<int*>(part + groups * a.d_head);  // paged: [u / page]
+  load_owners<T, kPaged>(a, owners, item);
+  const Head<T, kPaged> hd(a, owners, item);
+  const int step = a.step;
+
+  const int g = threadIdx.x / hd.nvec;
+  const int j = threadIdx.x % hd.nvec;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  float m_run = -INFINITY;  // running max, denominator: the same in every thread
+  float l_run = 0.f;
+
+  for (int c0 = 0; c0 <= step; c0 += kChunk) {
+    const int cn = min(kChunk, step + 1 - c0);
+    for (int i = hd.warp; i < cn; i += kWarps) {
+      const float sc = hd.score(c0 + i, step, a.scale);
+      if (hd.lane == 0) s[i] = sc;
+    }
+    __syncthreads();
+    float cmax = -INFINITY;
+    for (int i = 0; i < cn; ++i) cmax = fmaxf(cmax, s[i]);
+    const float new_m = fmaxf(m_run, cmax);
+    __syncthreads();  // every thread has read the scores
+    if (new_m == -INFINITY) continue;  // nothing valid yet (block-uniform)
+    const float alpha = m_run == -INFINITY ? 0.f : expf(m_run - new_m);
+    for (int i = threadIdx.x; i < cn; i += kThreads) {
+      s[i] = s[i] == -INFINITY ? 0.f : expf(s[i] - new_m);
+    }
+    __syncthreads();
+    float csum = 0.f;
+    for (int i = 0; i < cn; ++i) csum += s[i];
+    l_run = l_run * alpha + csum;
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] *= alpha;
+    if (g < groups) {
+      for (int i = g; i < cn; i += groups) {
+        const float w = s[i];
+        if (w != 0.f) hd.add_value(acc, w, c0 + i, step, j, a.vh);
+      }
+    }
+    m_run = new_m;
+    __syncthreads();  // the weights are consumed before the next chunk's scores
+  }
+  finish<V>(acc, l_run, part, g, groups, j, a.d_head, a.out + hd.qoff);
+}
+
+}  // namespace

@@ -4,9 +4,10 @@ Counterpart of ``speech_anonymization_tpu/models/transformer.py`` (the
 non-``sb_compat`` ASR path and its physical and paged decode caches):
 ``ConvolutionFrontEnd`` (3 conv2d blocks, 4x time subsampling), post-norm
 encoder/decoder layers (8 heads, GELU feed-forward), ``TransformerASR`` with
-``encode``, ``decode``, ``cross_kv`` and ``decode_step``, and the cache
+``encode``, ``decode``, ``cross_kv`` and ``decode_step``, the cache
 helpers ``use_paged_cache``, ``make_kv_cache``, ``beam_reorder_cache`` and
-``make_attends``.
+``make_attends``, and the shallow-fusion ``TransformerLM`` (``forward``,
+both heads, ``decode_step`` per layer or through K7).
 
 Layouts follow the JAX package at the public functions: heads flat as
 (N, U, H*D) in the cache, (B, T, H, D) for the cross-attention K/V. Module
@@ -18,7 +19,9 @@ The decode step runs the kernels: with paged caches (the default on the
 card) self-attention through K5/K6 (``ops/attention_step_paged.py``) and a
 beam reorder that gathers an int table; with physical caches
 self-attention through K3/K4 (``ops/attention_step.py``) and the beam
-reorder through K2 (``ops/beam_gather.py``). Unlike the JAX arrays, the
+reorder through K2 (``ops/beam_gather.py``). The LM's step on a fused paged
+cache on the card, given its stacked weights, is one K7 launch for every
+layer (``ops/lm_megastep.py``). Unlike the JAX arrays, the
 cache is updated in place (the fresh k/v or merged page, the token buffer)
 to avoid copying it every step.
 """
@@ -40,6 +43,7 @@ from ..ops.attention_step_paged import (
     max_u_for_kernel,
 )
 from ..ops.beam_gather import beam_gather
+from ..ops.lm_megastep import lm_megastep, prepare_lm_megastep
 
 NEG_INF = -1e9
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -166,28 +170,41 @@ class MultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ffn: int):
+    """Dense -> GELU -> Dense; erf GELU with ``exact_gelu`` (``sb_compat``), else tanh."""
+
+    def __init__(self, d_model: int, d_ffn: int, exact_gelu: bool = False):
         super().__init__()
         self.dense0 = nn.Linear(d_model, d_ffn)
         self.dense1 = nn.Linear(d_ffn, d_model)
+        self.approximate = "none" if exact_gelu else "tanh"
 
     def forward(self, x):
-        return self.dense1(F.gelu(self.dense0(x), approximate="tanh"))
+        return self.dense1(F.gelu(self.dense0(x), approximate=self.approximate))
 
 
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer."""
 
-    def __init__(self, d_model: int, nhead: int, d_ffn: int):
+    def __init__(self, d_model: int, nhead: int, d_ffn: int, exact_gelu: bool = False):
         super().__init__()
         self.attn = MultiHeadAttention(d_model, nhead)
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ff = FeedForward(d_model, d_ffn)
+        self.ff = FeedForward(d_model, d_ffn, exact_gelu)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, mask=None):
         x = self.ln1(x + self.attn(x, x, mask))
         return self.ln2(x + self.ff(x))
+
+    def decode_step(self, x, attend):
+        """Cached single-token step. ``attend(qh, kh, vh) -> (N, 1, H, Dh)``
+        computes the attention context against the caller's cache. Returns
+        (out, kh, vh flat (N, 1, M)) for the caller's cache write."""
+        a = self.attn
+        kh = a.heads(a.k, x)
+        vh = a.heads(a.v, x)
+        x = self.ln1(x + a.out(attend(a.heads(a.q, x), kh, vh).flatten(-2)))
+        return self.ln2(x + self.ff(x)), kh.flatten(-2), vh.flatten(-2)
 
 
 class DecoderLayer(nn.Module):
@@ -464,3 +481,98 @@ class TransformerASR(nn.Module):
             khs.append(kh)
             vhs.append(vh)
         return x[:, 0], {**finalize(khs, vhs), "tokens": tok_buf}
+
+
+class TransformerLM(nn.Module):
+    """Causal LM: token embedding * sqrt(d_model) + sinusoidal positions ->
+    post-norm encoder layers under causal and pad-key masks -> vocabulary head.
+
+    Default head: one Linear ``out``. ``sb_compat`` (ported SpeechBrain
+    checkpoints): exact erf GELU in the layers, a final LayerNorm ``norm`` and
+    the head ``out_a`` (d_model -> d_model / 2) -> ``out_ln`` (eps 1e-5) ->
+    ``out_b``. The defaults are the reference LM's published widths (92.7 M
+    parameters).
+    """
+
+    def __init__(self, vocab: int = 5000, d_model: int = 768, nhead: int = 12,
+                 num_layers: int = 12, d_ffn: int = 3072, max_len: int = 5000,
+                 pad_index: int = 0, sb_compat: bool = False,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        self.d_model, self.nhead, self.num_layers, self.d_ffn = d_model, nhead, num_layers, d_ffn
+        self.pad_index, self.sb_compat = pad_index, sb_compat
+        self.embed = nn.Embedding(vocab, d_model)
+        self.register_buffer("pe", sinusoidal_positions(max_len, d_model), persistent=False)
+        self.layers = nn.ModuleList(
+            EncoderLayer(d_model, nhead, d_ffn, exact_gelu=sb_compat) for _ in range(num_layers))
+        if sb_compat:
+            self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
+            self.out_a = nn.Linear(d_model, d_model // 2)
+            self.out_ln = nn.LayerNorm(d_model // 2, eps=1e-5)
+            self.out_b = nn.Linear(d_model // 2, vocab)
+        else:
+            self.out = nn.Linear(d_model, vocab)
+        self.to(device)
+
+    def _head(self, x):
+        if self.sb_compat:
+            return self.out_b(self.out_ln(self.out_a(self.norm(x))))
+        return self.out(x)
+
+    def forward(self, tokens):
+        """(B, U) tokens -> (B, U, vocab) logits."""
+        u = tokens.shape[1]
+        x = self.embed(tokens) * math.sqrt(self.d_model) + self.pe[None, :u]
+        causal = torch.tril(torch.ones(u, u, dtype=torch.bool, device=x.device))[None, None]
+        mask = causal & (tokens != self.pad_index)[:, None, None, :]
+        for layer in self.layers:
+            x = layer(x, mask)
+        return self._head(x)
+
+    def init_cache(self, batch: int, u_max: int, dtype: torch.dtype = torch.float32,
+                   paged: bool = False) -> dict:
+        """A decode cache (:func:`make_kv_cache`) on the model's device."""
+        return make_kv_cache(batch, u_max, self.num_layers, self.nhead, self.d_model // self.nhead,
+                             dtype, self.pad_index, device=self.embed.weight.device, paged=paged)
+
+    def prepare_megastep(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The layer weights stacked for K7 (:func:`ops.lm_megastep.prepare_lm_megastep`).
+        Call once per model; pass the result as ``mega=`` to :meth:`decode_step`."""
+        mats, rows = [], []
+        for layer in self.layers:
+            attn, ff = layer.attn, layer.ff
+            linears = (attn.q, attn.k, attn.v, attn.out, ff.dense0, ff.dense1)
+            mats.append([lin.weight.t() for lin in linears])  # torch's (out, in) -> (in, out)
+            rows.append([lin.bias for lin in linears]
+                        + [layer.ln1.weight, layer.ln1.bias, layer.ln2.weight, layer.ln2.bias])
+        return prepare_lm_megastep(mats, rows)
+
+    def step_layers(self, x, cache: dict, mask_nu, step: int, mega=None):
+        """Every layer of one cached step: (N, M) input -> ((N, M) hidden, the
+        cache's buffers). With ``mega``, a fused paged cache (``kv``) and the
+        cache on the card, one K7 launch (the JAX gate, "TPU" read as "on
+        cuda"); otherwise per layer through ``make_attends`` (K5/K6 paged, K3/K4
+        physical on the card, their plain twins on the CPU)."""
+        if mega is not None and "kv" in cache and _use_kernel(cache):
+            out, _, _ = lm_megastep(x, mask_nu, cache["kv"], cache["kv_act"], cache["table"],
+                                    cache["act_src"], step, mega[0], mega[1], self.nhead,
+                                    exact_gelu=self.sb_compat)
+            return out, {key: cache[key] for key in cache if key != "tokens"}
+        attends, finalize = make_attends([layer.attn for layer in self.layers], cache, mask_nu,
+                                         step, self.nhead)
+        h, khs, vhs = x[:, None], [], []
+        for layer, attend in zip(self.layers, attends):
+            h, kh, vh = layer.decode_step(h, attend)
+            khs.append(kh)
+            vhs.append(vh)
+        return h[:, 0], finalize(khs, vhs)
+
+    def decode_step(self, token, cache: dict, step: int, mega=None):
+        """(N,) token at position ``step`` -> ((N, vocab) logits, cache). The
+        token buffer and the k/v are updated in place; the key mask is the
+        buffer's non-pad positions (pad 0 is also the CTC blank, as in JAX)."""
+        x = self.embed(token) * math.sqrt(self.d_model) + self.pe[step]
+        tok_buf = cache["tokens"]
+        tok_buf[:, step] = token
+        x, buffers = self.step_layers(x, cache, tok_buf != self.pad_index, step, mega)
+        return self._head(x), {**buffers, "tokens": tok_buf}

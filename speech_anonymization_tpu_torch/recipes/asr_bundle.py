@@ -1,15 +1,16 @@
 """Frozen ASR attached to the anonymizer: utility loss, encoder similarity and WER.
 
 Counterpart of ``speech_anonymization_tpu/recipes/asr_bundle.py``
-``ASRBundle`` without a language model (what the recipe runs when
-``lm_checkpoint_dir`` is unset):
+``ASRBundle``, with or without a shallow-fusion language model:
 
   * ``utility_loss``: divergence of the frozen ASR's decoder outputs on
     clean and reconstructed features (MSE or cosine);
   * ``eval_batch``: cosine similarity of the two encoder outputs into the
     utility aggregator and, at the test stage, a beam decode (beam 66, CTC
-    0.4, temperature 1.15, length normalization) of the reconstructed and the
-    clean features, scored as WER against the reference words;
+    0.4, temperature 1.15, length normalization; with ``lm=`` a
+    ``TransformerLM`` fused at ``lm_weight`` 0.6, ``temperature_lm`` 1.15, as
+    the reference's test decode) of the reconstructed and the clean
+    features, scored as WER against the reference words;
   * ``start_test`` / ``finish_test``: the two WER aggregators.
 
 The tokenizer is duck-typed: anything with ``decode_ids(list[int]) -> str``.
@@ -18,7 +19,13 @@ caches by default, as the JAX package does on its accelerator
 (``decode_paged_kv``, default true, under ``use_paged_cache``): K5/K6 for the
 cached self-attention, and a beam reorder that gathers an int table.
 ``decode_paged_kv: false``, and every CPU decode, keep physical caches: K3/K4
-for the attention (plain twins on the CPU) and K2 for the reorder.
+for the attention (plain twins on the CPU) and K2 for the reorder. The LM's
+cache pages under the same rule with the LM's own width; its stacked K7
+weights are made once, here, and a fused paged LM cache on the card (U above
+``max_u_whole_row``, page 64) runs each LM step as one K7 launch, in bf16
+arithmetic as the JAX package does on its accelerator (``decode_lm_megastep:
+false`` keeps the per-layer K6 path). The LM is a built module: loading its
+checkpoint is not ported.
 """
 
 from __future__ import annotations
@@ -30,14 +37,16 @@ from ..decoding import BeamSearchConfig, beam_search, hyps_to_lists
 from ..eval.wer import ErrorRateStats
 from ..losses import cosine_similarity_loss, mse_loss
 from ..models.asr import ASRModel
-from ..models.transformer import beam_reorder_cache, make_kv_cache, use_paged_cache
+from ..models.transformer import TransformerLM, beam_reorder_cache, make_kv_cache, use_paged_cache
 
 _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class ASRBundle:
-    def __init__(self, model: ASRModel, tokenizer, hparams: dict, utility_kind: str = "mse"):
+    def __init__(self, model: ASRModel, tokenizer, hparams: dict, utility_kind: str = "mse",
+                 lm: TransformerLM | None = None):
         self.model = model.eval()
+        self.lm = lm.eval() if lm is not None else None
         self.tokenizer = tokenizer
         self.hparams = hparams
         self.utility_kind = utility_kind
@@ -46,14 +55,23 @@ class ASRBundle:
         # reference's f32 decode; 'bfloat16' halves the cache traffic
         self.cache_dtype = _CACHE_DTYPES[hparams.get("decode_cache_dtype", "float32")]
         self.paged_kv = bool(hparams.get("decode_paged_kv", True))
+        self.lm_weight = float(hparams.get("lm_weight", 0.6)) if lm is not None else 0.0
+        # K7's weights, stacked once per bundle (not once per decode); the
+        # kernel takes d_ffn in d_model blocks. decode_lm_megastep: false
+        # keeps the per-layer path, as the JAX package's SATPU_LM_MEGA=0.
+        self.lm_mega = None
+        if (self.lm_weight > 0 and bool(hparams.get("decode_lm_megastep", True))
+                and lm.d_ffn % lm.d_model == 0):
+            self.lm_mega = lm.prepare_megastep()
         self.cfg = BeamSearchConfig(
             beam_size=self.beam_size,
             bos_index=int(hparams.get("bos_index", 1)),
             eos_index=int(hparams.get("eos_index", 2)),
             blank_index=int(hparams.get("blank_index", 0)),
             ctc_weight=float(hparams.get("ctc_weight_decode", 0.4)),
-            lm_weight=0.0,
+            lm_weight=self.lm_weight,
             temperature=float(hparams.get("temperature", 1.15)),
+            temperature_lm=float(hparams.get("temperature_lm", 1.15)),
             length_normalization=True,
         )
 
@@ -86,6 +104,12 @@ class ASRBundle:
         return make_kv_cache(n, u_max, m.num_decoder_layers, m.nhead, m.d_model // m.nhead,
                              self.cache_dtype, device=device, paged=self.pages(n, u_max, device))
 
+    def make_lm_cache(self, n: int, u_max: int, device) -> dict:
+        lm = self.lm
+        paged = self.paged_kv and use_paged_cache(n, u_max, lm.d_model, self.cache_dtype, device)
+        return make_kv_cache(n, u_max, lm.num_layers, lm.nhead, lm.d_model // lm.nhead,
+                             self.cache_dtype, lm.pad_index, device=device, paged=paged)
+
     @torch.no_grad()
     def _decode_test(self, feats, lens):
         """Beam-decode normalized (B, T, F) features -> (tokens, lengths, scores[, stats])."""
@@ -100,9 +124,16 @@ class ASRBundle:
             lambda state, prev, step: m.decode_step_cached(prev, enc, state, step, lens, cross),
             beam_reorder_cache,
         )
+        lm_cached = None
+        if self.lm is not None and self.lm_weight > 0:
+            lm_cached = (
+                lambda n, u_max: self.make_lm_cache(n, u_max, enc.device),
+                lambda state, prev, step: self.lm.decode_step(prev, state, step, self.lm_mega),
+                beam_reorder_cache,
+            )
         max_steps = self.hparams.get("max_decode_steps")
         return beam_search(att_cached, enc, lens, p_ctc, self.cfg,
-                           max_steps=int(max_steps) if max_steps else None,
+                           max_steps=int(max_steps) if max_steps else None, lm_cached=lm_cached,
                            return_stats=bool(self.hparams.get("decode_return_stats")))
 
     # -- anonymizer evaluation hooks ----------------------------------------

@@ -2,7 +2,7 @@
 
 Usage, on a machine with one NVIDIA card:
 
-    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical]
+    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical] [--lm]
 
 D1 (default) is scripts/bench_decode.py's shape: 8 utterances of T = 504
 feature frames (126 encoder frames), 64 decode steps; D2 is bench.py's
@@ -10,7 +10,11 @@ length: T = 1008 (252 encoder frames), 252 steps. The full-width
 ``ASRModel()`` with seeded random weights decodes seeded features at beam 66,
 CTC 0.4, temperature 1.15, f32 caches, fp32 with TF32 off, with paged caches
 (the default: K5 at D1, K6 at D2) or physical ones (``decode_paged_kv:
-false``: K2 and K3 at D1, K2 and K4 at D2). After a warm-up,
+false``: K2 and K3 at D1, K2 and K4 at D2). ``--lm`` attaches a seeded
+``TransformerLM()`` at its published widths (vocab 5000, d_model 768, 12
+heads, 12 layers, d_ffn 3072), fused at lm_weight 0.6 as the reference's
+test decode: at D2 paged its step is one K7 launch, elsewhere 12 attention
+launches of the ASR's kind. After a warm-up,
 one decode runs under ``torch.profiler``; the script prints one JSON line:
 the wall time with and without the profiler, summed device time, the
 device's busy share of the profiled wall time, the number of kernel launches,
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..models import TransformerLM
 from ..models.asr import ASRModel
 from ..recipes.asr_bundle import ASRBundle
 from ..utils.seeded_init import seeded_init_
@@ -46,6 +51,8 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_decode: CUDA is not available", file=sys.stderr)
         return 1
+    with_lm = "--lm" in argv
+    argv = [a for a in argv if a != "--lm"]
     name = argv[0] if argv else "D1"
     layout = argv[1] if len(argv) > 1 else "paged"
     if layout not in ("paged", "physical"):
@@ -61,7 +68,8 @@ def main(argv: list[str]) -> int:
     model = seeded_init_(ASRModel(device="cuda"), 3)
     bundle = ASRBundle(model, _Tok(), {"test_beam_size": 66, "ctc_weight_decode": 0.4,
                                        "temperature": 1.15, "max_decode_steps": max_steps,
-                                       "decode_paged_kv": layout == "paged"})
+                                       "decode_paged_kv": layout == "paged"},
+                       lm=seeded_init_(TransformerLM(device="cuda"), 4) if with_lm else None)
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -87,7 +95,8 @@ def main(argv: list[str]) -> int:
         return 1
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP]
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "shape": name, "layout": layout, "batch": batch,
+        "device": torch.cuda.get_device_name(0), "shape": name, "layout": layout, "lm": with_lm,
+        "batch": batch,
         "frames": frames,
         "wall_ms_unprofiled_median": statistics.median(walls[1:]), "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms, "device_launches": launches,

@@ -13,7 +13,7 @@ package). Inputs are flax variable trees as nested dicts of numpy arrays,
   BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var
   InstanceNorm scale/bias              -> weight/bias
 
-and, for the ASR model (:func:`asr_state_dict`):
+and, for the ASR model (:func:`asr_state_dict`) and the LM (:func:`lm_state_dict`):
 
   flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
   DenseGeneral q/k/v kernel (D, H, Dh), bias (H, Dh) -> Linear (H*Dh, D), (H*Dh,)
@@ -169,6 +169,28 @@ def asr_state_dict(variables: Mapping) -> dict:
                 _put(out, f"transformer.{stack}.{idx}.{port_name}", convert(sp))
         else:
             raise KeyError(f"no conversion rule for flax layer transformer/{name!r}")
+    return out
+
+
+def lm_state_dict(variables: Mapping) -> dict:
+    """TransformerLM variables -> ``models.TransformerLM`` state_dict (numpy values):
+    ``embed``, ``layer_{i}`` (the encoder layer's rules) and the head, ``out``
+    or, with ``sb_compat``, ``norm``/``out_a``/``out_ln``/``out_b``."""
+    out: dict = {}
+    for name, p in variables["params"].items():
+        if name == "embed":
+            out["embed.weight"] = np.asarray(p["embedding"])
+        elif name.startswith("layer_"):
+            idx = name.split("_")[1]
+            for sub, sp in p.items():
+                port_name, convert = _ENCODER_LAYER[sub]
+                _put(out, f"layers.{idx}.{port_name}", convert(sp))
+        elif name in ("out", "out_a", "out_b"):
+            _put(out, name, linear_from_flax(p))
+        elif name in ("norm", "out_ln"):
+            _put(out, name, layernorm_from_flax(p))
+        else:
+            raise KeyError(f"no conversion rule for flax layer {name!r}")
     return out
 
 

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/lib<name>-<digest>.so`` at the root of the checkout (listed in
-``.gitignore``); the digest covers the source and the flags, so an edited
-source is rebuilt. Nothing is compiled when the package is imported: a kernel's
-library is built on its first launch, or ahead of time by :func:`build`, which
-starts one ``nvcc`` per source, all at once.
+``.gitignore``); the digest covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt. Nothing is
+compiled when the package is imported: a kernel's library is built on its
+first launch, or ahead of time by :func:`build`, which starts one ``nvcc``
+per source, all at once. ``defines`` (``-D`` macros) build a variant of a
+source into a library of its own, as ``tools/profile_lm_megastep.py`` does.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def sources() -> list[str]:
@@ -45,14 +47,19 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    # the shared headers count too: an edited header rebuilds every source
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
+    digest = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, dict]:
-    """Compile the named sources (default: all) in parallel.
+def build(names: list[str] | None = None, defines: tuple[str, ...] = ()) -> dict[str, dict]:
+    """Compile the named sources (default: all) in parallel, with ``defines``.
 
     Returns ``{name: {"seconds": wall time, "ptxas": register/spill report}}``;
     a source whose library is already built reports 0 seconds. Raises with
@@ -63,12 +70,12 @@ def build(names: list[str] | None = None) -> dict[str, dict]:
     procs = {}
     report = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             report[name] = {"seconds": 0.0, "ptxas": "cached"}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, out, time.perf_counter())
     failures = []
@@ -86,13 +93,14 @@ def build(names: list[str] | None = None) -> dict[str, dict]:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``, built
+    first if needed."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        path = library_path(name)
+        path = library_path(name, defines)
         if not path.exists():
-            build([name])
+            build([name], defines)
         lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        _loaded[(name, defines)] = lib
     return lib

@@ -1,6 +1,6 @@
-"""The port on an NVIDIA card: K1 to K6 against their plain twins, and the
-anonymization and decode slices (physical and paged caches) on the card
-against the CPU. Imports no JAX, so it runs on a machine without it:
+"""The port on an NVIDIA card: K1 to K7 against their plain twins, and the
+anonymization and decode slices (physical and paged caches, with and without
+the LM) on the card against the CPU. Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from speech_anonymization_tpu_torch.models import ASRModel, ConvAutoencoder
+from speech_anonymization_tpu_torch.models import ASRModel, ConvAutoencoder, TransformerLM
 from speech_anonymization_tpu_torch.ops.attention_step import (
     attention_step,
     attention_step_chunked,
@@ -33,6 +33,7 @@ from speech_anonymization_tpu_torch.ops.beam_gather import (
     beam_gather_plain,
 )
 from speech_anonymization_tpu_torch.ops.fbank import Fbank, frame_signal
+from speech_anonymization_tpu_torch.ops.lm_megastep import lm_megastep, lm_megastep_plain
 from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_power_plain
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe
@@ -377,3 +378,155 @@ def test_paged_decode_on_card_matches_cpu(cuda, regime, cache_dtype):
         feats.to(cuda), lens.to(cuda))
     assert torch.equal(physical[0], on_card[0]) and torch.equal(physical[1], on_card[1])
     torch.testing.assert_close(physical[2], on_card[2], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(PAGED))
+def test_k5_k6_at_lm_head_width(cuda, name, dtype):
+    """The LM's heads, 12 x 64 (the ASR's are 8 x 96), over 66 steps with a
+    random reorder after each (pages complete at 31 and 63, or 63)."""
+    kernel, u_max, page, fused = PAGED[name]
+    cache = _nan_paged_cache(u_max, fused, dtype, cuda)
+    twin_cache = {k: v.clone() for k, v in cache.items()}
+    twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
+    rng = np.random.default_rng(12 + len(name))
+    n, u = cache["tokens"].shape
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    for step in range(66):
+        q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                     for _ in range(3))
+        got = kernel(q, kh, vh, mask, cache, step, 1, 12)
+        want = twin(q, kh, vh, mask, twin_cache, step, 1, 12)
+        assert torch.isfinite(got).all(), step
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        for key in cache:
+            assert _same(cache[key], twin_cache[key]), (step, key)
+        parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
+        cache = beam_reorder_cache(cache, parent, step)
+        twin_cache = beam_reorder_cache(twin_cache, parent, step)
+
+
+# K7 vs its twin: both round at the same points, but the products sum in other
+# orders, so a bf16 rounding of q/k/v, the context or the hidden can flip by
+# one ulp and carry into later layers
+K7_ATOL = 5e-2
+LM_SMALL = dict(vocab=40, d_model=256, nhead=4, num_layers=2, d_ffn=512)
+
+
+def bf16_ulps(a, b, slack=1e-5):
+    """Per element (|a - b| - slack)+ in bf16 ulps of the larger magnitude; 0
+    where equal or both NaN. The slack: two f32 sums in other orders differ by
+    ~1e-6 near zero, where a bf16 ulp is far smaller."""
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulps = ((a - b).abs() - slack).clamp_min(0.0) / torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return torch.where((a == b) | (a.isnan() & b.isnan()), torch.zeros_like(ulps), ulps)
+
+
+def _fused_nan_cache(layers, n, u, m, dtype, device):
+    """A fused page-64 cache whose every k/v byte starts as NaN."""
+    return {"kv": torch.full((layers, n, 2 * u, m), float("nan"), dtype=dtype, device=device),
+            "kv_act": torch.full((layers, n, 2, 128, m), float("nan"), dtype=dtype, device=device),
+            "table": torch.arange(n, dtype=torch.int32, device=device)[:, None].repeat(1, u // 64),
+            "act_src": torch.arange(n, dtype=torch.int32, device=device),
+            "tokens": torch.zeros(n, u, dtype=torch.long, device=device)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_protocol_matches_plain_twin(cuda, dtype):
+    """Steps 0 .. 75 with a random reorder after each (page 0 completes at 63)
+    on a cache that starts as NaN: x_out within K7_ATOL of the twin's from
+    the same state; the first layer's written pages and slots within one
+    bf16 ulp, up to 1e-5 absolute (the same x0, products summed in other
+    orders), every layer's within K7_ATOL (later layers' k/v carry the x
+    gap); one launch a step. The run goes on from the kernel's state."""
+    lm = seeded_init_(TransformerLM(**LM_SMALL, device=cuda), 0)
+    wall, vecs = lm.prepare_megastep()
+    n, u, m = 8, 128, LM_SMALL["d_model"]
+    cache = _fused_nan_cache(LM_SMALL["num_layers"], n, u, m, dtype, cuda)
+    rng = np.random.default_rng(int(dtype.itemsize))
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    worst = worst_ulps = 0.0
+    for step in range(76):
+        x0 = torch.from_numpy(rng.standard_normal((n, m)).astype(np.float32)).to(cuda)
+        twin = {k: v.clone() for k, v in cache.items()}
+        args = (x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step,
+                wall, vecs, LM_SMALL["nhead"])
+        before = lm_megastep.launches
+        got, kv, act = lm_megastep(*args)
+        torch.cuda.synchronize()
+        assert lm_megastep.launches == before + 1 and kv is cache["kv"] and act is cache["kv_act"]
+        want, _, _ = lm_megastep_plain(x0, mask, twin["kv"], twin["kv_act"], twin["table"],
+                                       twin["act_src"], step, wall, vecs, LM_SMALL["nhead"])
+        assert torch.isfinite(got).all(), step
+        worst = max(worst, float((got - want).abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=K7_ATOL)
+        for key in ("kv", "kv_act"):
+            ulps = bf16_ulps(cache[key], twin[key])
+            assert float(ulps[0].max()) <= 1, (step, key)
+            worst_ulps = max(worst_ulps, float(ulps.max()))
+            torch.testing.assert_close(cache[key].float(), twin[key].float(), rtol=0,
+                                       atol=K7_ATOL, equal_nan=True)
+        parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
+        cache = beam_reorder_cache(cache, parent, step)
+    print(f"K7 vs twin, {dtype}: max |x_out gap| {worst}, pages and slots {worst_ulps} ulps")
+
+
+def test_k7_refuses_bad_operands(cuda):
+    lm = seeded_init_(TransformerLM(**LM_SMALL, device=cuda), 0)
+    wall, vecs = lm.prepare_megastep()
+    n, u, m = 8, 128, LM_SMALL["d_model"]
+    c = _fused_nan_cache(2, n, u, m, torch.float32, cuda)
+    x0 = torch.zeros(n, m, device=cuda)
+    mask = torch.ones(n, u, dtype=torch.bool, device=cuda)
+    ok = (x0, mask, c["kv"], c["kv_act"], c["table"], c["act_src"], 3, wall, vecs, 4)
+
+    def bad(**kw):
+        names = ("x0", "mask", "kv", "act", "table", "src", "step", "wall", "vecs", "nhead")
+        return tuple(kw.get(k, v) for k, v in zip(names, ok))
+
+    with pytest.raises(TypeError):  # int8 caches
+        lm_megastep(*bad(kv=c["kv"].to(torch.int8), act=c["kv_act"].to(torch.int8)))
+    with pytest.raises(ValueError):  # the split layout: k cache and k slots
+        lm_megastep(*bad(kv=c["kv"][:, :, :u].contiguous(), act=c["kv_act"][:, :, :, :64].contiguous()))
+    with pytest.raises(ValueError):  # page 32
+        lm_megastep(*bad(table=c["table"].repeat_interleave(2, dim=1).contiguous()))
+    with pytest.raises(ValueError):  # CPU and CUDA mixed
+        lm_megastep(*bad(table=c["table"].cpu()))
+    with pytest.raises(ValueError):
+        lm_megastep(*bad(x0=x0.t().contiguous().t()))
+    with pytest.raises(ValueError):
+        lm_megastep(*bad(step=u))
+
+
+def test_lm_fused_decode_on_card(cuda):
+    """A small ASR (page 32, K5) fused with a d_model 768 LM whose cache takes
+    the fused page-64 layout (220 steps: U 256): one K7 launch per step, and
+    with ``decode_lm_megastep: false`` K6 per layer instead. Tokens are
+    reported, not compared: K7 computes in bf16, the per-layer path in f32."""
+    model = seeded_init_(ASRModel(d_model=128, nhead=4, num_encoder_layers=1, num_decoder_layers=1,
+                                  d_ffn=128, output_neurons=40, device=cuda), 0)
+    lm = seeded_init_(TransformerLM(vocab=40, d_model=768, nhead=12, num_layers=2, d_ffn=1536,
+                                    device=cuda), 1)
+    feats = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 900, 80)).astype(
+        np.float32)).to(cuda)
+    lens = torch.tensor([1.0, 0.85], device=cuda)
+    hp = {"test_beam_size": 4, "ctc_weight_decode": 0.4, "temperature": 1.15,
+          "max_decode_steps": 220}
+    outs = {}
+    for mega in (True, False):
+        bundle = ASRBundle(model, _Tok(), {**hp, "decode_lm_megastep": mega}, lm=lm)
+        assert (bundle.lm_mega is not None) == mega
+        assert "kv" in bundle.make_lm_cache(8, 221, cuda)
+        counts = (lm_megastep.launches, attention_step_paged_chunked.launches)
+        outs[mega] = bundle._decode_test(feats, lens)
+        torch.cuda.synchronize()
+        k7 = lm_megastep.launches - counts[0]
+        k6 = attention_step_paged_chunked.launches - counts[1]
+        assert (k7, k6) == ((220, 0) if mega else (0, 2 * 220))
+        assert torch.isfinite(outs[mega][2]).all()
+    same = torch.equal(outs[True][0], outs[False][0])
+    print(f"K7 vs per-layer LM decode: tokens identical {same}, score gap "
+          f"{float((outs[True][2] - outs[False][2]).abs().max())}")

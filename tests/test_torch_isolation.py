@@ -27,7 +27,9 @@ def test_import_pulls_in_no_jax():
         "speech_anonymization_tpu_torch.recipes.asr_bundle, speech_anonymization_tpu_torch.decoding, "
         "speech_anonymization_tpu_torch.models.asr, speech_anonymization_tpu_torch.eval.wer, "
         "speech_anonymization_tpu_torch.ops.attention_step, speech_anonymization_tpu_torch.ops.attention_step_paged, "
-        "speech_anonymization_tpu_torch.ops.beam_gather, "
+        "speech_anonymization_tpu_torch.ops.beam_gather, speech_anonymization_tpu_torch.ops.lm_megastep, "
+        "speech_anonymization_tpu_torch.tools.profile_decode, "
+        "speech_anonymization_tpu_torch.tools.profile_lm_megastep, "
         "speech_anonymization_tpu_torch.utils.cuda_build, speech_anonymization_tpu_torch.utils.seeded_init\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'speech_anonymization_tpu') if m in sys.modules]\n"
         "print(bad)\n"
