@@ -13,17 +13,21 @@ failure raises and exits non-zero:
   kernels  each kernel at the main paths' shapes against its plain PyTorch
            twin, with its time, its plain twin's, a PyTorch library yardstick
            and the card's lower bound (CUDA events, after warm-up): K1 at the
-           slice's frames; K2 (beam_gather) at D1's cache, K3
+           slice's frames (bound: its DFT product in three TF32 passes on the
+           tensor cores, and ``fp32_bound_ms``, the same function all in fp32
+           FMA); K2 (beam_gather) at D1's cache, K3
            (attention_step) at D1, K4 (attention_step_chunked) at D2, each
            with f32 and bf16 caches, masked fresh tokens and NaN planted
            beyond the step; the other of K3/K4 is also timed at each shape;
-           K5 (attention_step_paged) at D1's paged cache and K6
+           K5 (attention_step_paged) at D1's paged cache (f32, bf16) and on
+           D2's bf16 layout (page 32, U 256: the serving decode), at the
+           ASR's 8 x 96 heads and the LM's 12 x 64, and K6
            (attention_step_paged_chunked) at D2's fused one, f32 and bf16,
            with the table and act_src of a simulated beam history (beams
            sharing parents) and NaN planted wherever the step may not read,
            out within 1e-5 and every written page and slot equal to the
-           plain twin's; K5 is also timed on D2's bf16 layout (page 32), and
-           checked at the LM's head width (12 x 64) at D1; K7 (lm_megastep)
+           plain twin's; each timed case reports how its rows share pages
+           (``page_sharing``); K7 (lm_megastep)
            at D2's LM cache (N 528, U 256 fused page 64, 12 layers, M 768, 12
            heads, d_ffn 3072), f32 and bf16, steps 0, 63, 64, 125, 251 of a
            simulated beam history with NaN planted where a step may not read,
@@ -55,13 +59,16 @@ failure raises and exits non-zero:
            12 layers, d_ffn 3072) at lm_weight 0.6, temperature_lm 1.15: D1
            paged (K5 for all 18 layers) and physical (K3 + K2), D2 paged (K6
            for the ASR, one K7 launch a step for the LM) and D2 paged with
-           ``decode_lm_megastep: false`` (K6 for all 18 layers). Launch counts
+           ``decode_lm_megastep: false`` (K6 for all 18 layers); then D2's
+           serving decode, bf16 caches (page 32: K5 for the ASR's 6 layers,
+           and for the LM's 12 too; no K7), without and with the LM. Launch counts
            are reset right before each run and read right after; one more
            decode checks the launches of a single decode; then
            ``_decode_test`` is timed. Paged and physical decodes on the card
            give identical tokens, scores within 1e-4 (with the LM too); for
-           D2's K7 decode against its per-layer one the share of identical
-           tokens and the score gap are reported (bf16 arithmetic);
+           D2's K7 decode against its per-layer one, and for the bf16 decodes
+           against the f32 ones, the share of identical hypotheses and the
+           score gap are reported (bf16 arithmetic);
   decode_parity  two utterances, beam 4, the same weights on the card (paged:
            K5 at 40 steps, D1's features; K6 at 230 steps, D2's) and on the
            CPU (physical): identical tokens and lengths, scores within 1e-3;
@@ -72,7 +79,9 @@ failure raises and exits non-zero:
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON object, and last ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits non-zero before printing any result. fp32 throughout, TF32 off
-(K7 computes with bf16 weights and activations, by its contract).
+(K7 computes with bf16 weights and activations, by its contract; K1's
+three-pass TF32 product keeps fp32 accuracy; the bf16 decodes keep bf16
+caches).
 """
 
 from __future__ import annotations
@@ -143,6 +152,7 @@ SAMPLE_RATE = 16000
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 bandwidth (700 W)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12  # dense bf16 on the tensor cores
+PEAK_TF32_TC_FLOPS = 495e12  # dense TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 K1_RTOL = K1_ATOL = 1e-4
 PARITY_ATOL = 1e-3  # card vs CPU: cuDNN and the CPU sum in different orders
@@ -229,18 +239,26 @@ def host_median_s(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def ops_ms(flops: float = 0.0, tc_flops: float = 0.0, tf32_flops: float = 0.0) -> float:
+    """Least time in ms for ``flops`` at the fp32 peak and, on the tensor
+    cores, ``tc_flops`` at the bf16 and ``tf32_flops`` at the TF32 peak: the
+    CUDA cores and the tensor cores run at once, so the longer of the two."""
+    return 1e3 * max(flops / PEAK_FP32_FLOPS,
+                     tc_flops / PEAK_BF16_TC_FLOPS + tf32_flops / PEAK_TF32_TC_FLOPS)
+
+
 def kernel_entry(name: str, max_abs_err: float, ms: float, plain_ms: float, flops: float,
-                 nbytes: float, library_ms: float | None, tc_flops: float = 0.0) -> dict:
+                 nbytes: float, library_ms: float | None, tc_flops: float = 0.0,
+                 tf32_flops: float = 0.0) -> dict:
     """One row of the kernel table; the bound is the larger of the operation
-    time (``flops`` at the fp32 peak plus ``tc_flops`` at the bf16 tensor-core
-    peak) and the byte time at the HBM rate."""
-    ops_ms = 1e3 * (flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_TC_FLOPS)
+    time (:func:`ops_ms`) and the byte time at the HBM rate."""
+    op_ms = ops_ms(flops, tc_flops, tf32_flops)
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     source, replaces = KERNEL_SOURCES[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": None, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": library_ms}
+            "bound_ms": max(op_ms, bytes_ms),
+            "bound_by": "operations" if op_ms >= bytes_ms else "bytes", "library_ms": library_ms}
 
 
 def phase_build() -> None:
@@ -251,11 +269,11 @@ def phase_build() -> None:
 
 def phase_kernels(wavs: torch.Tensor, fbank: Fbank) -> dict:
     frames = frame_signal(wavs).contiguous()
-    dft, mel = fbank.dft, fbank.mel
+    dft, mel, frag = fbank.dft, fbank.mel, fbank.dft_frag
     rows, win = frames.shape[0] * frames.shape[1], frames.shape[2]
     n_bins, n_mels = mel.shape
 
-    got = fused_fbank(frames, dft, mel)
+    got = fused_fbank(frames, dft, mel, frag)
     want = mel_power_plain(frames, dft, mel)
     torch.cuda.synchronize()
     err = (got - want).abs()
@@ -263,20 +281,34 @@ def phase_kernels(wavs: torch.Tensor, fbank: Fbank) -> dict:
     max_rel = float((err / want.abs().clamp_min(1e-30)).max())
     ok = bool(torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL))
 
-    kernel_ms = cuda_ms(lambda: fused_fbank(frames, dft, mel))
+    kernel_ms = cuda_ms(lambda: fused_fbank(frames, dft, mel, frag))
     plain_ms = cuda_ms(lambda: mel_power_plain(frames, dft, mel))
     spec = torch.matmul(frames, dft)
     power = spec[..., :n_bins] ** 2 + spec[..., n_bins:] ** 2
     library_ms = cuda_ms(lambda: (torch.matmul(frames, dft), torch.matmul(power, mel)))
 
-    flops = 2 * rows * win * 2 * n_bins + 3 * rows * n_bins + 2 * rows * n_bins * n_mels
-    nbytes = 4 * (rows * win + win * 2 * n_bins + n_bins * n_mels + rows * n_mels)
-    entry = kernel_entry("fused_fbank", max_abs, kernel_ms, plain_ms, flops, nbytes, library_ms)
+    # the least operations an fp32-accurate result needs: the DFT product in
+    # three TF32 passes on the tensor cores over the 2 * n_bins columns, re^2
+    # + im^2 in fp32, and the mel product in fp32 FMA beside the tensor cores
+    # or in three TF32 passes on them, whichever bounds lower
+    dft_tf32 = 3 * 2 * rows * win * 2 * n_bins
+    power, mel_fp32 = 3 * rows * n_bins, 2 * rows * n_bins * n_mels
+    split = min(({"flops": power + mel_fp32, "tf32_flops": dft_tf32},
+                 {"flops": power, "tf32_flops": dft_tf32 + 3 * mel_fp32}),
+                key=lambda k: ops_ms(**k))
+    nbytes = 4 * (rows * win + frag.numel() + n_bins * n_mels + rows * n_mels)
+    entry = kernel_entry("fused_fbank", max_abs, kernel_ms, plain_ms, split["flops"], nbytes,
+                         library_ms, tf32_flops=split["tf32_flops"])
+    # the same function's bound with every product in fp32 FMA (the earlier design's)
+    fp32_flops = 2 * rows * win * 2 * n_bins + power + mel_fp32
+    fp32_bound_ms = max(ops_ms(fp32_flops), 1e3 * nbytes / PEAK_BYTES_PER_S)
     emit({"phase": "kernels", "kernel": "fused_fbank", "rows": rows, "shape": [rows, win, n_bins, n_mels],
           "max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": K1_RTOL, "atol": K1_ATOL,
           "allclose": ok, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"], "gflop": flops / 1e9,
-          "mbytes": nbytes / 1e6, "achieved_tflops": flops / kernel_ms / 1e9})
+          "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+          "fp32_bound_ms": fp32_bound_ms, "gflop_tf32": split["tf32_flops"] / 1e9,
+          "gflop_fp32": split["flops"] / 1e9, "mbytes": nbytes / 1e6,
+          "share_of_bound": entry["bound_ms"] / kernel_ms})
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain twin: max abs {max_abs}, max rel {max_rel}")
     return entry
@@ -512,18 +544,34 @@ def _equal_buffers(a: dict, b: dict) -> bool:
     return True
 
 
-def phase_paged_attention(kernel, shape_name: str, fused: bool, steps, timed_step: dict,
-                          gen: torch.Generator, nhead: int = 8) -> dict:
-    """K5 or K6 at a decode shape's paged cache against its plain twin, f32
-    and bf16: out within rtol/atol 1e-5 and every page and slot equal.
-    ``nhead``: 8 (the ASR's 8 x 96) or 12 (the LM's 12 x 64)."""
+def _page_sharing(cache: dict, step: int) -> dict:
+    """How the rows share the completed pages one step reads: reader pages
+    (rows x completed pages) and the distinct (owner row, page) pairs among
+    them."""
+    table = cache["table"]
+    n, up = table.shape
+    p_act = step // (cache["tokens"].shape[1] // up)
+    cols = torch.arange(p_act, device=table.device)
+    distinct = int(torch.unique(table[:, :p_act].long() * up + cols).numel())
+    readers = n * p_act
+    return {"reader_pages": readers, "distinct_owner_pages": distinct,
+            "distinct_per_reader": distinct / readers if readers else None}
+
+
+def phase_paged_attention(kernel, checks_at, timed_at, gen: torch.Generator, nhead: int = 8) -> dict:
+    """K5 (split layout) or K6 (fused) against its plain twin: out within
+    rtol/atol 1e-5 and every page and slot equal, at each (shape, dtype,
+    steps) of ``checks_at``; then timed at each (shape, dtype, step) of
+    ``timed_at`` (the first is the kernels line's entry). ``nhead``: 8 (the
+    ASR's 8 x 96) or 12 (the LM's 12 x 64)."""
     layer = 3
+    fused = kernel is attention_step_paged_chunked
+    twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
     max_err, checks = 0.0, []
-    for dtype in (torch.float32, torch.bfloat16):
+    for shape_name, dtype, steps in checks_at:
         for step in steps:
             q, kh, vh, mask, cache = _paged_inputs(shape_name, dtype, fused, step, gen)
             twin_cache = {k: v.clone() for k, v in cache.items()}
-            twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
             got = kernel(q, kh, vh, mask, cache, step, layer, nhead)
             want = twin(q, kh, vh, mask, twin_cache, step, layer, nhead)
             torch.cuda.synchronize()
@@ -531,21 +579,17 @@ def phase_paged_attention(kernel, shape_name: str, fused: bool, steps, timed_ste
             ok = bool(torch.isfinite(got).all()) and bool(
                 torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL))
             same = _equal_buffers(cache, twin_cache)
-            checks.append({"dtype": str(dtype), "step": step, "max_abs_err": err, "allclose": ok,
-                           "pages_and_slots_equal": same,
+            checks.append({"shape": shape_name, "dtype": str(dtype), "step": step,
+                           "max_abs_err": err, "allclose": ok, "pages_and_slots_equal": same,
                            "distinct_parents": int(torch.unique(cache["act_src"]).numel())})
             if not (ok and same):
                 raise AssertionError(f"{kernel.__name__} disagrees with its plain twin: {checks[-1]}")
-            if dtype == torch.float32:
-                max_err = max(max_err, err)
+            max_err = max(max_err, err)
             del q, kh, vh, mask, cache, twin_cache
-    timed = {}
-    # f32 at the shape's own layout; K5 also on D2's bf16 layout (page 32, U 256)
-    cases = [(shape_name, torch.float32)] + ([("D2", torch.bfloat16)] if not fused else [])
-    for case_shape, dtype in cases:
-        q, kh, vh, mask, cache = _paged_inputs(case_shape, dtype, fused, timed_step[case_shape], gen)
-        step, d = timed_step[case_shape], q.shape[1] // nhead
-        twin = attention_step_paged_fused_plain if "kv" in cache else attention_step_paged_plain
+    timed, result = {}, None
+    for case_shape, dtype, step in timed_at:
+        q, kh, vh, mask, cache = _paged_inputs(case_shape, dtype, fused, step, gen)
+        d = q.shape[1] // nhead
         ms = cuda_ms(lambda: kernel(q, kh, vh, mask, cache, step, layer, nhead))
         plain_ms = cuda_ms(lambda: twin(q, kh, vh, mask, cache, step, layer, nhead))
         k_log, v_log = (x.view(x.shape[0], step + 1, nhead, d).transpose(1, 2)
@@ -561,14 +605,15 @@ def phase_paged_attention(kernel, shape_name: str, fused: bool, steps, timed_ste
             "cache": [list(v.shape) for k, v in cache.items() if k in ("k", "kv")][0],
             "table": list(cache["table"].shape), "step": step,
             "distinct_parents": int(torch.unique(cache["act_src"]).numel()),
+            "page_sharing": _page_sharing(cache, step),
             "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
             "mbytes": nbytes / 1e6, "achieved_gbps": nbytes / ms / 1e6,
             "share_of_bound": entry["bound_ms"] / ms}
-        if case_shape == shape_name:
+        if result is None:
             result = entry
         del q, kh, vh, mask, cache, k_log, v_log
-    emit({"phase": "kernels", "kernel": kernel.__name__, "shape": shape_name, "nhead": nhead,
+    emit({"phase": "kernels", "kernel": kernel.__name__, "nhead": nhead,
           "layout": "fused" if fused else "split", "checks": checks, "rtol": ATTN_RTOL,
           "atol": ATTN_ATOL, "timed": timed,
           "library": "SDPA over the logical buffer, materialized outside the timing"})
@@ -691,14 +736,18 @@ def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
                phase_attention(attention_step_chunked, "D2", (0, 63, 64, 251), 125, gen)]
     torch.cuda.empty_cache()
     # the same timed steps as K3 and K4; the checks cross page completions
-    # (D1 pages by 32: step 31 writes main page 0; D2 by 64: step 63 page 0)
-    entries += [phase_paged_attention(attention_step_paged, "D1", False, (0, 31, 32, 50, 95),
-                                      {"D1": 31, "D2": 125}, gen),
-                phase_paged_attention(attention_step_paged_chunked, "D2", True,
-                                      (0, 63, 64, 125, 251), {"D2": 125}, gen)]
-    # K5 at the LM's head width, which the LM-fused D1 decode runs (checks and times)
-    phase_paged_attention(attention_step_paged, "D1", False, (0, 31, 32, 50, 95),
-                          {"D1": 31, "D2": 125}, gen, nhead=12)
+    # (page 32: step 31 writes main page 0; the fused page 64: step 63). K5
+    # serves D1's f32 caches and D2's bf16 ones (page 32, U 256: the serving
+    # decode), at the ASR's 8 x 96 heads and the LM's 12 x 64
+    f32, bf16 = torch.float32, torch.bfloat16
+    k5_checks = [("D1", f32, (0, 31, 32, 50, 95)), ("D1", bf16, (0, 31, 32, 50, 95)),
+                 ("D2", bf16, (0, 31, 32, 125, 255))]
+    k5_timed = [("D1", f32, 31), ("D2", bf16, 125)]
+    entries += [phase_paged_attention(attention_step_paged, k5_checks, k5_timed, gen),
+                phase_paged_attention(attention_step_paged_chunked,
+                                      [("D2", dt, (0, 63, 64, 125, 251)) for dt in (f32, bf16)],
+                                      [("D2", f32, 125)], gen)]
+    phase_paged_attention(attention_step_paged, k5_checks, k5_timed, gen, nhead=12)
     torch.cuda.empty_cache()
     entries.append(phase_k7(lm, gen))
     return entries
@@ -806,39 +855,50 @@ class StubTokenizer:
         return " ".join(str(i) for i in ids)
 
 
-# The decodes of each shape, in order: (layout, with the LM, decode_lm_megastep)
-DECODE_RUNS = {"D1": (("paged", False, True), ("physical", False, True), ("paged", True, True),
-                      ("physical", True, True)),
-               "D2": (("paged", False, True), ("physical", False, True), ("paged", True, True),
-                      ("paged", True, False))}
-# pairs of runs that must give identical tokens (scores within 1e-4), and one
-# that is only reported (K7 computes in bf16, the per-layer path in f32)
+# The decodes of each shape, in order: (layout, with the LM, decode_lm_megastep,
+# cache dtype). D2's bf16 runs are the serving decode (bf16 caches, as the
+# JAX package's serving and benchmarks take): page 32, K5 in every layer.
+DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, True, "float32"),
+                      ("paged", True, True, "float32"), ("physical", True, True, "float32")),
+               "D2": (("paged", False, True, "float32"), ("physical", False, True, "float32"),
+                      ("paged", True, True, "float32"), ("paged", True, False, "float32"),
+                      ("paged", False, True, "bfloat16"), ("paged", True, True, "bfloat16"))}
+# pairs of runs that must give identical tokens (scores within 1e-4), and
+# pairs that are only reported (K7 computes in bf16, the per-layer path in
+# f32; bf16 caches round what f32 ones keep)
 SAME_RUNS = {"D1": (("paged", "physical"), ("paged_lm", "physical_lm")),
              "D2": (("paged", "physical"),)}
-REPORTED_RUNS = {"D2": ("paged_lm", "paged_lm_per_layer")}
+REPORTED_RUNS = {"D2": (("paged_lm", "paged_lm_per_layer"), ("paged", "paged_bf16"),
+                        ("paged_lm", "paged_lm_bf16"))}
 
 
-def _run_label(layout: str, with_lm: bool, mega: bool) -> str:
-    return layout + ("_lm" if with_lm else "") + ("" if mega else "_per_layer")
+def _run_label(layout: str, with_lm: bool, mega: bool, dtype: str) -> str:
+    return (layout + ("_lm" if with_lm else "") + ("" if mega else "_per_layer")
+            + ("_bf16" if dtype == "bfloat16" else ""))
 
 
-def _expected_launches(name: str, layout: str, with_lm: bool, mega: bool, steps: int) -> dict:
+def _expected_launches(name: str, layout: str, with_lm: bool, mega: bool, dtype: str,
+                       steps: int) -> dict:
     """Kernel launches of one decode at shape ``name`` (K1 aside): the ASR's 6
     decoder layers and, with the LM, its 12 layers, one attention launch each a
-    step, except the LM's fused D2 cache under K7 (one launch a step for all
-    12); physical caches add K2's k and v reorder of each cache a step."""
+    step, except the LM's fused page-64 cache (f32 at D2) under K7 (one launch
+    a step for all 12); physical caches add K2's k and v reorder of each cache
+    a step. Paged caches page by 32 (K5) up to the whole-row bound of their
+    dtype (213 f32, 426 bf16 at M 768), else by 64, fused (K6)."""
     expected = dict.fromkeys(("beam_gather", "attention_step", "attention_step_chunked",
                               "attention_step_paged", "attention_step_paged_chunked",
                               "lm_megastep"), 0)
     lm_layers = LM_LAYERS if with_lm else 0
+    u = _decode_cache_shape(name)[2]
+    long_cache = u > max_u_whole_row(768, getattr(torch, dtype).itemsize)
     if layout == "physical":
-        expected["attention_step" if name == "D1" else "attention_step_chunked"] = (
+        expected["attention_step_chunked" if long_cache else "attention_step"] = (
             (DECODE_LAYERS + lm_layers) * steps)
         expected["beam_gather"] = 2 * (1 + with_lm) * steps
         return expected
-    kernel = "attention_step_paged" if name == "D1" else "attention_step_paged_chunked"
+    kernel = "attention_step_paged_chunked" if long_cache else "attention_step_paged"
     expected[kernel] = DECODE_LAYERS * steps
-    if with_lm and name == "D2" and mega:
+    if with_lm and long_cache and mega:
         expected["lm_megastep"] = steps
     else:
         expected[kernel] += lm_layers * steps
@@ -875,9 +935,9 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
               "clean_rerun_max_abs_diff": float((rerun[3] - clean).abs().max())})
         del rerun
         outputs = {}
-        for layout, with_lm, mega in DECODE_RUNS[name]:
-            label = _run_label(layout, with_lm, mega)
-            hp = {**DECODE_HPARAMS, "max_decode_steps": max_steps,
+        for layout, with_lm, mega, dtype in DECODE_RUNS[name]:
+            label = _run_label(layout, with_lm, mega, dtype)
+            hp = {**DECODE_HPARAMS, "max_decode_steps": max_steps, "decode_cache_dtype": dtype,
                   "decode_paged_kv": layout == "paged", "decode_lm_megastep": mega}
             bundle = ASRBundle(asr, StubTokenizer(), hp, lm=lm if with_lm else None)
             metrics = recipe.EvalMetrics()
@@ -898,7 +958,7 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
             toks, lengths, scores = bundle._decode_test(recon, lens)
             torch.cuda.synchronize()
             per_decode = {c.__name__: c.launches for c in counters[1:]}
-            expected = _expected_launches(name, layout, with_lm, mega, steps)
+            expected = _expected_launches(name, layout, with_lm, mega, dtype, steps)
             if per_decode != expected:
                 raise AssertionError(f"{name} {label} decode launched {per_decode}, expected {expected}")
             _finite(f"{name} {label} scores", scores, (batch,))
@@ -916,13 +976,16 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
             wer, wer_clean = metrics.wer_metric.summarize("WER"), metrics.wer_metric2.summarize("WER")
             rows = batch * bundle.beam_size
             paged = bundle.pages(rows, steps + 1, DEVICE)  # the ASR's and the LM's: both d_model 768
-            caches = {"asr": make_kv_cache(rows, steps + 1, DECODE_LAYERS, 8, 96, device="meta",
-                                           paged=paged)}  # shapes only
+            tdtype = getattr(torch, dtype)
+            caches = {"asr": make_kv_cache(rows, steps + 1, DECODE_LAYERS, 8, 96, tdtype,
+                                           device="meta", paged=paged)}  # shapes only
             if with_lm:
                 caches["lm"] = make_kv_cache(rows, steps + 1, LM_LAYERS, lm.nhead,
-                                             lm.d_model // lm.nhead, device="meta", paged=paged)
+                                             lm.d_model // lm.nhead, tdtype, device="meta",
+                                             paged=paged)
             emit({"phase": "decode", "shape": name, "layout": layout, "lm": with_lm,
-                  "lm_megastep": with_lm and mega, "card": card, "batch": batch,
+                  "lm_megastep": bool(per_decode["lm_megastep"]), "cache_dtype": dtype,
+                  "card": card, "batch": batch,
                   "samples": n_samples, "frames": t_frames, "steps": steps,
                   "beam": DECODE_HPARAMS["test_beam_size"],
                   "cache": {c: {k: list(v.shape) for k, v in cache.items()}
@@ -945,8 +1008,7 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
             if not (same and gap <= LAYOUT_PARITY_ATOL):
                 raise AssertionError(f"{name}: {a} and {b} decodes disagree: tokens equal {same}, "
                                      f"gap {gap}")
-        if name in REPORTED_RUNS:
-            a, b = REPORTED_RUNS[name]
+        for a, b in REPORTED_RUNS.get(name, ()):
             ha, hb = (hyps_to_lists(*outputs[r][:2]) for r in (a, b))
             emit({"phase": "decode_layouts", "shape": name, "runs": [a, b], "reported_only": True,
                   "identical_hypotheses_share": sum(x == y for x, y in zip(ha, hb)) / len(ha),

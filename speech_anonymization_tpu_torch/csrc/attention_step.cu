@@ -10,9 +10,10 @@
 //   K5 `_kernel_paged` and K6 `_kernel_chunked_paged` (launched by
 //     `_attn_step_paged_call` and `_attn_step_paged_fused_call`, paged caches:
 //     the lazy beam reorder).
-// Here they are `attn_step_whole_row` and `attn_step_chunked`, each
-// instantiated with physical (kPaged = false: K3, K4) or paged (kPaged =
-// true: K5, K6) addressing. Their per-(row, head) device code lives in
+// Here they are `attn_step_whole_row` (K3), `attn_step_chunked` instantiated
+// with physical (kPaged = false: K4) or paged (kPaged = true: K6) addressing,
+// and K5's own `attn_step_paged_rows` (design below). Their
+// per-(row, head) device code lives in
 // csrc/attention_step.cuh, which K7 (csrc/lm_megastep.cu) includes too.
 // For row n, head h and layer `layer`:
 //
@@ -80,6 +81,19 @@
 //   attn_step_chunked streams positions in chunks of 64 with a running
 //     max, denominator and accumulator (flash-decoding), so its shared
 //     memory does not depend on U.
+//   attn_step_paged_rows (K5) is the whole-row kernel with its position
+//     loops rebuilt, because K3's are bound by load latency, not bytes: a
+//     warp scores one position with d_head / vec of its lanes loading (12
+//     of 32 for bf16 x 96), a few positions' loads in flight. K5's lanes
+//     map to (position, 16-byte vector) in groups of nvec rounded up to 8,
+//     16 or 32, so a warp scores 1-4 positions at once, each group's dot
+//     product summed by shuffles within the group; every thread issues the
+//     loads of 4 positions before using any, in the scores and in the
+//     values. On the card this beat K3's loops at every paged shape (PERF.md
+//     has the measurements), where staging the pages that rows share in shared memory, one
+//     block per page with a merge, and whole pages held in registers lost:
+//     each cut the blocks resident per SM or lengthened a block's chain of
+//     dependent loads.
 // Limits checked by the Python wrappers: d_head a multiple of the vector
 // width (4 f32 or 8 bf16 elements) and at most 32 vectors, 16-byte aligned
 // operands, 0 <= step < U, 0 <= layer < L, a power-of-two page dividing U.
@@ -90,9 +104,9 @@
 
 namespace {
 
-// K3 / K5: the step + 1 scores live in shared memory; exact two-pass softmax.
-// Shared memory: u + kWarps + groups * d_head floats (+ u / page owners).
-template <typename T, bool kPaged>
+// K3: the step + 1 scores live in shared memory; exact two-pass softmax.
+// Shared memory: u + kWarps + groups * d_head floats.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) attn_step_whole_row(const Args<T> a) {
   constexpr int V = Vec<T>::kN;
   extern __shared__ float smem[];
@@ -100,9 +114,7 @@ __global__ void __launch_bounds__(kThreads) attn_step_whole_row(const Args<T> a)
   float* s = smem;             // [u] scores, then weights
   float* red = s + a.u;        // [kWarps]
   float* part = red + kWarps;  // [groups][d_head]
-  int* owners = reinterpret_cast<int*>(part + groups * a.d_head);  // paged: [u / page]
-  load_owners<T, kPaged>(a, owners, blockIdx.x);
-  const Head<T, kPaged> hd(a, owners, blockIdx.x);
+  const Head<T, false> hd(a, nullptr, blockIdx.x);
   const int step = a.step;
 
   for (int p = hd.warp; p <= step; p += kWarps) {
@@ -136,6 +148,166 @@ __global__ void __launch_bounds__(kThreads) attn_step_whole_row(const Args<T> a)
   finish<V>(acc, sum, part, g, groups, j, a.d_head, a.out + hd.qoff);
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to `smem` where that is above
+// the default 48 KB, once per device and size (`set` records what each device
+// was given). Returns 0 or the CUDA error.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem, int device, int (&set)[kMaxDevices]) {
+  if (smem <= kDefaultSmem) return 0;
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (static_cast<int>(smem) > set[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set[device] = static_cast<int>(smem);
+  }
+  return 0;
+}
+
+// 16 bytes of cache elements, as loaded -> floats
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
+  x[0] = __uint_as_float(r.x);
+  x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z);
+  x[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// K5: K3's whole-row exact softmax over the paged cache, with the
+// score pass's lanes mapped to (position, 16-byte vector of d_head) in groups
+// of kGroup lanes (nvec rounded up to 8, 16 or 32), so a warp scores 32 /
+// kGroup positions at once where K3's scores one with d_head / vec lanes,
+// and each thread issues kUnroll positions' loads before using any, in the
+// scores and in the values. Each sum is taken in K3's order (a group's
+// shuffles are K3's warp_sum less its additions of zeros), so K5 equals K3
+// bit for bit. Addressing and the merged-page write are Head<T, true>'s, as
+// K6's. Shared memory: u + kWarps + (kThreads / nvec) * d_head floats + u /
+// page owners.
+template <typename T, int kGroup>
+__global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a) {
+  constexpr int V = Vec<T>::kN;
+  constexpr int kUnroll = 4;
+  constexpr int kPerBlock = kWarps * (32 / kGroup);  // positions scored at once
+  extern __shared__ float smem[];
+  float* s = smem;             // [u] scores, then weights
+  float* red = s + a.u;        // [kWarps]
+  float* part = red + kWarps;  // [kThreads / nvec][d_head], as K3's
+  int* owners = reinterpret_cast<int*>(part + (kThreads / (a.d_head / V)) * a.d_head);
+  load_owners<T, true>(a, owners, blockIdx.x);
+  const Head<T, true> hd(a, owners, blockIdx.x);
+  const int step = a.step;
+  const int j = hd.lane % kGroup;  // this thread's vector of d_head
+  const bool live = j < hd.nvec;
+  float qv[V];
+  if (live) load_fresh<T>(a.q + hd.qoff + j * V, qv);
+
+  const int first = hd.warp * (32 / kGroup) + hd.lane / kGroup;
+  for (int p0 = 0; p0 <= step; p0 += kPerBlock * kUnroll) {
+    uint4 kr[kUnroll];
+    bool ok[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + first + u * kPerBlock;
+      ok[u] = p <= step && hd.mrow[p];  // masked positions are never read
+      if (live && ok[u] && p != step) {
+        kr[u] = *reinterpret_cast<const uint4*>(hd.at(p, false) + j * V);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int p = p0 + first + u * kPerBlock;
+      float dot = 0.f;
+      if (live && ok[u]) {
+        float kx[V];
+        if (p == step) {
+          load_fresh<T>(a.kh + hd.qoff + j * V, kx);
+        } else {
+          unpack(kr[u], kx);
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kx[i], dot);
+      }
+#pragma unroll
+      for (int off = kGroup / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (j == 0 && p <= step) s[p] = ok[u] ? dot / a.scale : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  float mx = -INFINITY;
+  for (int p = threadIdx.x; p <= step; p += kThreads) mx = fmaxf(mx, s[p]);
+  mx = block_max(mx, red);
+  float sum = 0.f;
+  for (int p = threadIdx.x; p <= step; p += kThreads) {
+    const float e = s[p] == -INFINITY ? 0.f : expf(s[p] - mx);
+    s[p] = e;
+    sum += e;
+  }
+  sum = block_sum(sum, red);  // its barriers publish the weights
+
+  // Values in K3's order (groups of nvec threads, group g summing positions
+  // g, g + groups, ... in turn), so K5 and K3 give the same bits on the same
+  // content, as the paged and physical decodes' comparison needs; only the
+  // loads run ahead.
+  const int groups = kThreads / hd.nvec;
+  const int g = threadIdx.x / hd.nvec;
+  const int jv = threadIdx.x % hd.nvec;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  if (g < groups) {
+    for (int p0 = g; p0 <= step; p0 += groups * kUnroll) {
+      uint4 vr[kUnroll];
+      float w[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + u * groups;
+        w[u] = p <= step ? s[p] : 0.f;  // 0 where masked: skipped, never read
+        if (w[u] != 0.f && p != step) {
+          vr[u] = *reinterpret_cast<const uint4*>(hd.at(p, true) + jv * V);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int p = p0 + u * groups;
+        if (w[u] != 0.f) {
+          float vx[V];
+          if (p == step) {
+            load_fresh<T>(a.vh + hd.qoff + jv * V, vx);
+          } else {
+            unpack(vr[u], vx);
+          }
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = fmaf(w[u], vx[i], acc[i]);
+        }
+      }
+    }
+  }
+  finish<V>(acc, sum, part, g, groups, jv, a.d_head, a.out + hd.qoff);
+}
+
+template <typename T, int kGroup>
+int launch_k5(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
+  const int groups = kThreads / (a.d_head / Vec<T>::kN);
+  const size_t smem = (static_cast<size_t>(a.u) + kWarps +
+                       static_cast<size_t>(groups) * a.d_head) * sizeof(float) +
+                      static_cast<size_t>(a.u >> a.page_shift) * sizeof(int);
+  static int smem_set[kMaxDevices] = {};
+  const int err = allow_smem(attn_step_paged_rows<T, kGroup>, smem, device, smem_set);
+  if (err != 0) return err;
+  if (a.n > 0) attn_step_paged_rows<T, kGroup><<<a.n * nhead, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // K4 / K6: one block per (row, head); see attn_step_chunked_item.
 template <typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads) attn_step_chunked(const Args<T> a) {
@@ -152,20 +324,12 @@ int launch(const Args<T>& a, int nhead, int chunked, int device, cudaStream_t st
       (static_cast<size_t>(scores) + kWarps + static_cast<size_t>(groups) * a.d_head) *
           sizeof(float) +
       static_cast<size_t>(owners) * sizeof(int);
-  auto kernel = chunked ? attn_step_chunked<T, kPaged> : attn_step_whole_row<T, kPaged>;
-  // Above the default 48 KB (K3 at U beyond ~11,800 positions) the kernel's
-  // dynamic shared-memory limit is raised, once per device, kernel and size.
-  static int smem_set[kMaxDevices][2] = {};
-  if (smem > kDefaultSmem) {
-    if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-    int& set = smem_set[device][chunked ? 1 : 0];
-    if (static_cast<int>(smem) > set) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      set = static_cast<int>(smem);
-    }
-  }
+  // paged caches take the streamed kernel here (K6); K5 is attn_step_paged_rows
+  auto kernel = chunked || kPaged ? attn_step_chunked<T, kPaged> : attn_step_whole_row<T>;
+  // above 48 KB: K3 at U beyond ~11,800 positions
+  static int smem_set[2][kMaxDevices] = {};
+  const int err = allow_smem(kernel, smem, device, smem_set[chunked ? 1 : 0]);
+  if (err != 0) return err;
   if (a.n > 0) kernel<<<a.n * nhead, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -214,7 +378,11 @@ int launch_paged(const void* q, const void* kh, const void* vh, const void* mask
   a.page_pos = fused ? 2 * page : page;
   a.slot_pos = fused ? 2 * page : page;
   a.v_off = fused ? page : 0;
-  return launch<T, true>(a, nhead, chunked, device, stream);
+  if (chunked) return launch<T, true>(a, nhead, 1, device, stream);
+  const int nvec = a.d_head / Vec<T>::kN;  // lanes per position: nvec rounded up to 8, 16 or 32
+  if (nvec <= 8) return launch_k5<T, 8>(a, nhead, device, stream);
+  if (nvec <= 16) return launch_k5<T, 16>(a, nhead, device, stream);
+  return launch_k5<T, 32>(a, nhead, device, stream);
 }
 
 }  // namespace

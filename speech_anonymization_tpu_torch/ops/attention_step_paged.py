@@ -6,9 +6,10 @@ Counterpart of the paged part of
 ``_kernel_paged`` (K5, whole row, page 32) or ``_kernel_chunked_paged`` (K6,
 U streamed, page 64), and ``cached_attention_step_paged_fused`` ->
 ``_attn_step_paged_fused_call`` -> ``_kernel_chunked_paged`` (K6 on the
-fused-KV layout). The CUDA kernels are K3's and K4's ``__global__`` functions
-of ``csrc/attention_step.cu`` instantiated with paged addressing; its header
-states the numerics, the bound and the design.
+fused-KV layout). The CUDA kernels are in ``csrc/attention_step.cu``: K6 is
+K4's ``__global__`` function instantiated with paged addressing, K5 its own
+(``attn_step_paged_rows``, K3's whole-row softmax with lanes mapped to
+positions); its header states the numerics, the bound and the designs.
 
 The paged cache is the lazy beam reorder (``models.transformer``): k/v never
 move between rows. Completed page ``p`` of row ``n`` lives in the main cache

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .fbank_kernel import fused_fbank
+from .fbank_kernel import fused_fbank, prepare_dft
 
 
 def _to_mel(hz: np.ndarray | float) -> np.ndarray:
@@ -111,13 +111,15 @@ class Fbank(nn.Module):
         dft = np.concatenate([cos_m, sin_m], axis=1)
         self.register_buffer("dft", torch.as_tensor(dft, device=device), persistent=False)
         self.register_buffer("mel", torch.as_tensor(mel, device=device), persistent=False)
+        # K1's DFT operand: its TF32 halves in mma-fragment order, made once
+        self.register_buffer("dft_frag", prepare_dft(self.dft), persistent=False)
 
     def forward(self, wav: torch.Tensor) -> torch.Tensor:
         if wav.ndim == 1:
             return self(wav[None])[0]
         cfg = self.config
         frames = frame_signal(wav, cfg.win_length, cfg.hop_length, cfg.center).contiguous()
-        mel = fused_fbank(frames, self.dft, self.mel)
+        mel = fused_fbank(frames, self.dft, self.mel, self.dft_frag)
         if not cfg.log_mel:
             return mel
         x_db = 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))

@@ -2,7 +2,7 @@
 
 Usage, on a machine with one NVIDIA card:
 
-    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical] [--lm]
+    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical] [--lm] [--bf16]
 
 D1 (default) is scripts/bench_decode.py's shape: 8 utterances of T = 504
 feature frames (126 encoder frames), 64 decode steps; D2 is bench.py's
@@ -14,7 +14,10 @@ false``: K2 and K3 at D1, K2 and K4 at D2). ``--lm`` attaches a seeded
 ``TransformerLM()`` at its published widths (vocab 5000, d_model 768, 12
 heads, 12 layers, d_ffn 3072), fused at lm_weight 0.6 as the reference's
 test decode: at D2 paged its step is one K7 launch, elsewhere 12 attention
-launches of the ASR's kind. After a warm-up,
+launches of the ASR's kind. ``--bf16`` takes bf16 caches
+(``decode_cache_dtype: bfloat16``, the serving setting): D2 then pages by 32
+(U 256 is within the bf16 whole-row bound), so K5 serves every layer, the
+LM's too, and K7 does not run. After a warm-up,
 one decode runs under ``torch.profiler``; the script prints one JSON line:
 the wall time with and without the profiler, summed device time, the
 device's busy share of the profiled wall time, the number of kernel launches,
@@ -52,7 +55,8 @@ def main(argv: list[str]) -> int:
         print("profile_decode: CUDA is not available", file=sys.stderr)
         return 1
     with_lm = "--lm" in argv
-    argv = [a for a in argv if a != "--lm"]
+    cache_dtype = "bfloat16" if "--bf16" in argv else "float32"
+    argv = [a for a in argv if a not in ("--lm", "--bf16")]
     name = argv[0] if argv else "D1"
     layout = argv[1] if len(argv) > 1 else "paged"
     if layout not in ("paged", "physical"):
@@ -68,7 +72,8 @@ def main(argv: list[str]) -> int:
     model = seeded_init_(ASRModel(device="cuda"), 3)
     bundle = ASRBundle(model, _Tok(), {"test_beam_size": 66, "ctc_weight_decode": 0.4,
                                        "temperature": 1.15, "max_decode_steps": max_steps,
-                                       "decode_paged_kv": layout == "paged"},
+                                       "decode_paged_kv": layout == "paged",
+                                       "decode_cache_dtype": cache_dtype},
                        lm=seeded_init_(TransformerLM(device="cuda"), 4) if with_lm else None)
     walls = []
     for _ in range(3):
@@ -96,7 +101,7 @@ def main(argv: list[str]) -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:TOP]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "shape": name, "layout": layout, "lm": with_lm,
-        "batch": batch,
+        "cache_dtype": cache_dtype, "batch": batch,
         "frames": frames,
         "wall_ms_unprofiled_median": statistics.median(walls[1:]), "wall_ms": wall_ms,
         "device_ms": device_ms, "busy_share": device_ms / wall_ms, "device_launches": launches,

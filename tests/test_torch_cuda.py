@@ -1,4 +1,5 @@
-"""The port on an NVIDIA card: K1 to K7 against their plain twins, and the
+"""The port on an NVIDIA card: K1 to K7 against their plain twins (K5 in its
+four configurations with identity, single-owner and mixed tables), and the
 anonymization and decode slices (physical and paged caches, with and without
 the LM) on the card against the CPU. Imports no JAX, so it runs on a machine without it:
 
@@ -57,13 +58,15 @@ def _wavs(batch: int, n: int, seed: int) -> torch.Tensor:
     return torch.from_numpy((rng.standard_normal((batch, n)) * 0.1).astype(np.float32))
 
 
-@pytest.mark.parametrize("batch,n", [(1, 0), (1, 10079), (1, 10080), (1, 10240), (3, 32077)])
+@pytest.mark.parametrize("batch,n", [(1, 0), (1, 10079), (1, 10080), (1, 10240), (3, 32077),
+                                     (1, 20160), (1, 20320), (1, 20480), (32, 161120)])
 def test_k1_matches_plain_twin(cuda, batch, n):
-    """Row counts 1, 63, 64, 65 and 603: partial, whole and ragged 64-row blocks."""
+    """Row counts 1, 63, 64, 65, 603, 127, 128, 129 and bench.py's 32,256:
+    partial, whole and ragged 128-row blocks."""
     fb = Fbank(device=cuda)
     frames = frame_signal(_wavs(batch, n, seed=n).to(cuda)).contiguous()
     before = fused_fbank.launches
-    got = fused_fbank(frames, fb.dft, fb.mel)
+    got = fused_fbank(frames, fb.dft, fb.mel, fb.dft_frag)
     torch.cuda.synchronize()
     assert fused_fbank.launches == before + 1
     torch.testing.assert_close(got, mel_power_plain(frames, fb.dft, fb.mel), rtol=1e-4, atol=1e-4)
@@ -72,14 +75,21 @@ def test_k1_matches_plain_twin(cuda, batch, n):
 def test_k1_rejects_bad_operands(cuda):
     fb = Fbank(device=cuda)
     frames = torch.zeros(4, 400, device=cuda)
+    frag = fb.dft_frag
     with pytest.raises(TypeError):
-        fused_fbank(frames.double(), fb.dft, fb.mel)
+        fused_fbank(frames.double(), fb.dft, fb.mel, frag)
     with pytest.raises(ValueError):
-        fused_fbank(torch.zeros(400, 4, device=cuda).t(), fb.dft, fb.mel)
+        fused_fbank(torch.zeros(400, 4, device=cuda).t(), fb.dft, fb.mel, frag)
     with pytest.raises(ValueError):
-        fused_fbank(frames[:, :384].contiguous(), fb.dft, fb.mel)
+        fused_fbank(frames[:, :384].contiguous(), fb.dft, fb.mel, frag)
     with pytest.raises(ValueError):
-        fused_fbank(frames, fb.dft.cpu(), fb.mel)
+        fused_fbank(frames, fb.dft.cpu(), fb.mel, frag)
+    with pytest.raises(ValueError):  # the fragments of another window
+        fused_fbank(frames, fb.dft, fb.mel, frag[:-1].contiguous())
+    with pytest.raises(ValueError):  # more than 80 mels
+        fused_fbank(frames, fb.dft, torch.zeros(201, 96, device=cuda), frag)
+    with pytest.raises(ValueError):  # frames off 16-byte alignment
+        fused_fbank(torch.zeros(4 * 400 + 1, device=cuda)[1:].view(4, 400), fb.dft, fb.mel, frag)
 
 
 def test_eval_step_on_card_matches_cpu(cuda):
@@ -405,6 +415,82 @@ def test_k5_k6_at_lm_head_width(cuda, name, dtype):
         parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
         cache = beam_reorder_cache(cache, parent, step)
         twin_cache = beam_reorder_cache(twin_cache, parent, step)
+
+
+# K5's four configurations: (cache dtype, heads, U) of the f32 decodes (D1's U
+# 96) and of the bf16 serving decode (D2's U 256 at page 32), the ASR's 8 x 96
+# heads and the LM's 12 x 64
+K5_CONFIGS = {"f32_8x96": (torch.float32, 8, 96), "f32_12x64": (torch.float32, 12, 96),
+              "bf16_8x96": (torch.bfloat16, 8, 256), "bf16_12x64": (torch.bfloat16, 12, 256)}
+# positions every row has masked, NaN in every row's pages
+K5_MASKED = [3, 17, 40, 70, 100, 150, 200]
+
+
+def _k5_case(config, step, table_kind, device, n=16, layers=2, m=768, page=32):
+    """A split page-32 cache mid-decode: ``table_kind`` identity (every row
+    owns its pages: no sharing), single (row 0 owns every page and active
+    slot: full sharing) or mixed (owners drawn at random). Rows 1 and 6 have
+    bos as their only valid key (the fresh token masked too); K5_MASKED
+    positions are masked in every row and NaN in every page; positions past
+    the step, the slot the step writes and the parent slot past its content
+    hold NaN or Inf."""
+    dtype, nhead, u = K5_CONFIGS[config]
+    rng = np.random.default_rng(step + 7 * len(table_kind) + u)
+    up = u // page
+    p_act, o = divmod(step, page)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+    cache = {"k": rand(layers, n, u, m), "v": rand(layers, n, u, m),
+             "k_act": rand(layers, n, 2, page, m), "v_act": rand(layers, n, 2, page, m),
+             "tokens": torch.zeros(n, u, dtype=torch.long)}
+    if table_kind == "identity":
+        table, src = np.repeat(np.arange(n)[:, None], up, 1), np.arange(n)
+    elif table_kind == "single":
+        table, src = np.zeros((n, up)), np.zeros(n)
+    else:
+        table, src = rng.integers(0, n, (n, up)), rng.integers(0, n, n)
+    cache["table"] = torch.from_numpy(table.astype(np.int32))
+    cache["act_src"] = torch.from_numpy(src.astype(np.int32))
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2)
+    mask[:, 0] = True
+    masked = [p for p in K5_MASKED if p < u]
+    mask[:, masked] = False
+    mask[[1, 6], 1:] = False
+    for key in ("k", "v"):
+        cache[key][:, :, masked] = float("nan")
+        cache[key][:, :, p_act * page:] = float("nan")  # the active and later pages
+        cache[key][:, :, p_act * page + 1::5] = float("inf")
+        act = cache[f"{key}_act"]
+        act[:, :, step % 2] = float("nan")
+        act[:, :, (step + 1) % 2, o:] = float("nan")
+    q, kh, vh = (torch.from_numpy(rng.standard_normal((n, m)).astype(np.float32))
+                 for _ in range(3))
+    to = lambda x: x.to(device)  # noqa: E731
+    return (to(q), to(kh), to(vh), to(mask), {k: to(v) for k, v in cache.items()}, nhead)
+
+
+@pytest.mark.parametrize("table_kind", ["identity", "single", "mixed"])
+@pytest.mark.parametrize("step_at", [0, 31, 32, 125, -1])
+@pytest.mark.parametrize("config", list(K5_CONFIGS))
+def test_k5_matches_plain_twin(cuda, config, step_at, table_kind):
+    """K5 in each configuration at steps 0, 31 (completes page 0), 32,
+    125 (95 at U 96) and U - 1: out within 1e-5 of the twin's, finite, and
+    every page and slot equal (NaN where NaN); one launch counted."""
+    u = K5_CONFIGS[config][2]
+    step = min(step_at, u - 1) % u
+    q, kh, vh, mask, cache, nhead = _k5_case(config, step, table_kind, cuda)
+    twin_cache = {k: v.clone() for k, v in cache.items()}
+    before = attention_step_paged.launches
+    got = attention_step_paged(q, kh, vh, mask, cache, step, 1, nhead)
+    want = attention_step_paged_plain(q, kh, vh, mask, twin_cache, step, 1, nhead)
+    torch.cuda.synchronize()
+    assert attention_step_paged.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for key in cache:
+        assert _same(cache[key], twin_cache[key]), key
 
 
 # K7 vs its twin: both round at the same points, but the products sum in other

@@ -5,6 +5,7 @@ import inspect
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from speech_anonymization_tpu.ops.fbank import Fbank as JaxFbank
 from speech_anonymization_tpu.ops.fbank import dft_matrices as jax_dft_matrices
@@ -78,7 +79,7 @@ def test_cpu_tensor_takes_plain_twin_without_counting():
     fused_fbank.launches = 0
     fb = Fbank(device="cpu")
     frames = frame_signal(t(rand_wav(1, 4000, seed=1))).contiguous()
-    got = fused_fbank(frames, fb.dft, fb.mel)
+    got = fused_fbank(frames, fb.dft, fb.mel, fb.dft_frag)
     np.testing.assert_array_equal(got.numpy(), mel_power_plain(frames, fb.dft, fb.mel).numpy())
     assert fused_fbank.launches == 0
 
@@ -87,8 +88,54 @@ def test_non_cuda_device_raises():
     fb = Fbank(device="cpu")
     frames = frame_signal(t(rand_wav(1, 4000, seed=1))).contiguous().to("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fused_fbank(frames, fb.dft.to("meta"), fb.mel.to("meta"))
+        fused_fbank(frames, fb.dft.to("meta"), fb.mel.to("meta"), fb.dft_frag.to("meta"))
 
 
 def test_fbank_defaults_to_cuda():
     assert inspect.signature(Fbank).parameters["device"].default == "cuda"
+
+
+def _rna(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 to nearest, ties away (cvt.rna.tf32.f32)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _trunc(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor core reads a TF32 operand: its low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def test_k1_three_pass_tf32_emulated_at_bench_length():
+    """K1's arithmetic emulated on the CPU at one utterance of bench.py's
+    length (161,120 samples, 1,008 frames): the DFT's TF32 halves read back
+    from the kernel's fragment-ordered operand (TF32 values whose sum
+    rebuilds the interleaved DFT to within 2^-21), the frames split as the
+    kernel splits them (hi rounded, lo = x - hi read by the tensor core),
+    three fp32 products (lo*hi + hi*lo + hi*hi) summed in fp32, then the
+    fp32 power and mel product. Held to the fp32 twin at K1's rtol/atol 1e-4
+    and to the JAX log-mel at 1e-3."""
+    wav = rand_wav(1, 161_120, seed=9)
+    fb = Fbank(device="cpu")
+    win, n_bins = fb.dft.shape[0], fb.mel.shape[0]
+    kt, n8 = fb.dft_frag.shape[:2]
+    assert fb.dft_frag.shape == (win // 8, 51, 32, 4)
+    # fragment order [kt][nt][g][t][hi/lo][i] -> (hi, lo) B, k = 8 kt + 4 i + t, n = 8 nt + g
+    halves = fb.dft_frag.view(kt, n8, 8, 4, 2, 2).permute(4, 0, 5, 3, 1, 2).reshape(2, win, 8 * n8)
+    hi_b, lo_b = halves
+    assert torch.equal(halves, _trunc(halves))  # TF32 values
+    inter = torch.zeros(win, 8 * n8)
+    inter[:, 0:2 * n_bins:2], inter[:, 1:2 * n_bins:2] = fb.dft[:, :n_bins], fb.dft[:, n_bins:]
+    torch.testing.assert_close(hi_b + lo_b, inter, rtol=2.0 ** -21, atol=1e-12)
+
+    frames = frame_signal(t(wav)).contiguous()[0]
+    hi_a = _rna(frames)
+    lo_a = _trunc(frames - hi_a)
+    spec = lo_a @ hi_b + hi_a @ lo_b + hi_a @ hi_b
+    power = spec[:, 0:2 * n_bins:2] ** 2 + spec[:, 1:2 * n_bins:2] ** 2
+    mel = power @ fb.mel
+    np.testing.assert_allclose(mel.numpy(), mel_power_plain(frames, fb.dft, fb.mel).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    x_db = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+    x_db = torch.maximum(x_db, x_db.max() - 80.0)
+    want = np.asarray(JaxFbank(use_pallas=False)(jnp.asarray(wav)))[0]
+    assert np.abs(x_db.numpy() - want).max() <= 1e-3

@@ -278,3 +278,40 @@ def test_kernel_operand_checks(case, step, error):
         return
     with pytest.raises(error):
         port._check(q, q, q, mask, _bad(cache, case), step, 1, H)
+
+
+@pytest.mark.parametrize("table_kind,nan_masked", [("identity", False), ("single", False),
+                                                   ("identity", True), ("single", True)])
+def test_twin_matches_jax_on_identity_and_single_owner_tables(table_kind, nan_masked):
+    """The split twin against JAX's paged reference at page 32, step 75 (two
+    completed pages, 11 active positions) on tables without sharing (every
+    row owns its pages) and with full sharing (row 0 owns every page and
+    active slot), the shapes K5 stages least and most alike. With
+    ``nan_masked`` the port's cache holds NaN at the positions every row has
+    masked (inside the completed owner pages) where JAX's holds finite
+    values: masked positions must not reach the output."""
+    page, u, step = 32, 128, 75
+    rng = np.random.default_rng(11 + len(table_kind))
+    state = _zero_cache(page, False, u)
+    for key in ("k", "v", "k_act", "v_act"):
+        state[key] = rng.standard_normal(state[key].shape).astype(np.float32)
+    if table_kind == "single":
+        state["table"] = np.zeros_like(state["table"])
+        state["act_src"] = np.zeros_like(state["act_src"])
+    mask = rng.random((N, u)) > 0.2
+    mask[:, 0] = True
+    masked = [5, 20, 33, 60]
+    mask[:, masked] = False
+    port_state = {k: v.copy() for k, v in state.items()}
+    if nan_masked:
+        for key in ("k", "v"):
+            port_state[key][:, :, masked] = np.nan
+    q, kh, vh = (rng.standard_normal((L, N, M)).astype(np.float32) for _ in range(3))
+    want, _ = _jax_step(u)(_to_jax(state), q, kh, vh, jnp.asarray(mask), step)
+    pcache = _to_port(port_state)
+    for i in range(L):
+        got = attention_step_paged_plain(*(torch.from_numpy(x[i]) for x in (q, kh, vh)),
+                                         torch.from_numpy(mask), pcache, step, i, H)
+        assert torch.isfinite(got).all()
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[i]), atol=2e-4, rtol=0,
+                                   err_msg=f"layer {i}")
