@@ -9,7 +9,7 @@ Phases, one JSON line each (several for ``kernels`` and ``decode``); any
 failure raises and exits non-zero:
 
   build    compile every CUDA source under speech_anonymization_tpu_torch/csrc
-           with nvcc (one process per source, all at once);
+           with nvcc, and K7's stamped variant (one process each, all at once);
   kernels  each kernel at the main paths' shapes against its plain PyTorch
            twin, with its time, its plain twin's, a PyTorch library yardstick
            and the card's lower bound (CUDA events, after warm-up): K1 at the
@@ -22,7 +22,8 @@ failure raises and exits non-zero:
            K5 (attention_step_paged) at D1's paged cache (f32, bf16) and on
            D2's bf16 layout (page 32, U 256: the serving decode), at the
            ASR's 8 x 96 heads and the LM's 12 x 64, and K6
-           (attention_step_paged_chunked) at D2's fused one, f32 and bf16,
+           (attention_step_paged_chunked) at D2's fused one, f32 and bf16, at
+           8 x 96 and (after K7, K7's attention on its own) 12 x 64,
            with the table and act_src of a simulated beam history (beams
            sharing parents) and NaN planted wherever the step may not read,
            out within 1e-5 and every written page and slot equal to the
@@ -37,7 +38,10 @@ failure raises and exits non-zero:
            launch for all layers (x_out's max and mean gap within K7_ATOL and
            K7_MEAN_ATOL, the head's log-probs within rtol 0.1, atol 0.12),
            one exact-GELU step, and timed at step 125 beside the twin and the
-           per-layer path (cuBLAS f32 GEMMs + K6 x 12, ``per_layer_ms``);
+           per-layer path (cuBLAS f32 GEMMs + K6 x 12, ``per_layer_ms``), on a
+           bf16 cache too (``bf16_ms``), with its device time by phase from
+           the stamped build of tools/profile_lm_megastep.py (``us_per_layer``,
+           ``barrier_us``; that build's x_out must equal K7's bit for bit);
   slice    the anonymization path at bench.py's shape (32 utterances of
            161,120 samples = 10.07 s, T = 1008 frames), seeded random weights:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
@@ -141,6 +145,7 @@ from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
     make_kv_cache,
 )
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle  # noqa: E402
+from speech_anonymization_tpu_torch.tools import profile_lm_megastep  # noqa: E402
 from speech_anonymization_tpu_torch.utils import cuda_build  # noqa: E402
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_  # noqa: E402
 
@@ -263,7 +268,8 @@ def kernel_entry(name: str, max_abs_err: float, ms: float, plain_ms: float, flop
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    report = cuda_build.build()
+    # and K7's stamped build, for its time by phase (phase_k7)
+    report = cuda_build.build(also=(("lm_megastep", profile_lm_megastep.STAMPED),))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": report})
 
 
@@ -701,6 +707,12 @@ def phase_k7(lm: TransformerLM, gen: torch.Generator) -> dict:
     ms = cuda_ms(lambda: run(lm_megastep, x0, mask, cache, step), iters=10)
     plain_ms = cuda_ms(lambda: run(lm_megastep_plain, x0, mask, cache, step), iters=3, warmup=1)
     per_layer_ms = cuda_ms(lambda: lm.step_layers(x0, cache, mask, step), iters=10)
+    # the device time by phase, from the stamped build (which must equal K7 bit for bit)
+    phases = profile_lm_megastep.stamped_phases(lambda: run(lm_megastep, x0, mask, cache, step),
+                                                layers)
+    x0b, _, _, maskb, cacheb = _paged_inputs("D2", torch.bfloat16, True, step, gen, layers, nhead)
+    bf16_ms = cuda_ms(lambda: run(lm_megastep, x0b, maskb, cacheb, step), iters=10)
+    del x0b, maskb, cacheb
     n, m = x0.shape
     d = m // nhead
     valid = int(mask[:, :step + 1].sum())
@@ -712,14 +724,16 @@ def phase_k7(lm: TransformerLM, gen: torch.Generator) -> dict:
     nbytes = (layers * _paged_cache_bytes(cache, mask, step, 4) + _mask_table_bytes(cache, step)
               + wall.numel() * 2 + vecs.numel() * 4 + 2 * n * m * 4)
     entry = kernel_entry("lm_megastep", max_err, ms, plain_ms, flops, nbytes, None, tc_flops)
-    entry["per_layer_ms"] = per_layer_ms
+    entry.update(per_layer_ms=per_layer_ms, bf16_ms=bf16_ms, barrier_us=phases["barrier_us"],
+                 us_per_layer=phases["us_per_layer"])
     emit({"phase": "kernels", "kernel": "lm_megastep", "cache": list(cache["kv"].shape),
           "slots": list(cache["kv_act"].shape), "layers": layers, "nhead": nhead, "d_ffn": lm.d_ffn,
           "checks": checks, "atol": K7_ATOL, "mean_atol": K7_MEAN_ATOL,
           "layer_atol": K7_LAYER_ATOL, "ulp_slack": K7_ULP_SLACK,
           "log_prob_rtol_atol": [K7_LOGP_RTOL, K7_LOGP_ATOL], "timed_step": step,
           "distinct_parents": int(torch.unique(cache["act_src"]).numel()), "kernel_ms": ms,
-          "plain_ms": plain_ms, "per_layer_ms": per_layer_ms, "library_ms": None,
+          "plain_ms": plain_ms, "per_layer_ms": per_layer_ms, "bf16_ms": bf16_ms, **phases,
+          "library_ms": None,
           "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"], "mbytes": nbytes / 1e6,
           "gflop_tensor_core": tc_flops / 1e9, "gflop_fp32": flops / 1e9,
           "achieved_gbps": nbytes / ms / 1e6, "share_of_bound": entry["bound_ms"] / ms})
@@ -750,6 +764,12 @@ def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
     phase_paged_attention(attention_step_paged, k5_checks, k5_timed, gen, nhead=12)
     torch.cuda.empty_cache()
     entries.append(phase_k7(lm, gen))
+    # K6 at the LM's 12 x 64, the shape of K7's attention phase; after K7, so
+    # that K7's seeded inputs are those of earlier trees
+    phase_paged_attention(attention_step_paged_chunked,
+                          [("D2", dt, (0, 63, 64, 125, 251)) for dt in (f32, bf16)],
+                          [("D2", f32, 125), ("D2", bf16, 125)], gen, nhead=12)
+    torch.cuda.empty_cache()
     return entries
 
 

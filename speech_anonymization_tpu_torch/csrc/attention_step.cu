@@ -62,25 +62,34 @@
 // paged kernels also write the merged active page, up to page positions of
 // k and v per row.
 //
+// On the card these kernels are bound first by the latency of their
+// dependent loads and by L2 traffic: rows that share pages re-read them
+// through L2, and each paged row reads and writes its merged page.
+//
 // Design: one block of 128 threads per (row, head); d_head = 96 gives
 // N * H = 4,224 blocks at the decode shape. A head's slice of one position
 // is d_head contiguous elements (384 B in f32), read as 16-byte vectors by
-// consecutive lanes. Scores: each warp takes one position at a time and
-// reduces its dot product with shuffles. Values: the block splits into
-// groups of d_head / vec threads, each group summing every groups-th
-// position, then the groups are summed through shared memory. The TPU
-// kernels' devices (the (M, H) head-segment matmul, the optimistic fresh-
-// token seed removed at the end, per-(row, page) DMA descriptors and the
-// uniform-owner tile flag) exist because the TPU cannot index lanes or
-// addresses dynamically; here the fresh token's mask bit is read directly
-// and a position's address is computed per load, the row's page owners held
-// in shared memory. The paged block copies the parent's active positions
-// first; the score pass then finds them in L2.
-//   attn_step_whole_row keeps the step + 1 scores in shared memory (U
-//     floats) and does an exact softmax.
-//   attn_step_chunked streams positions in chunks of 64 with a running
-//     max, denominator and accumulator (flash-decoding), so its shared
-//     memory does not depend on U.
+// consecutive lanes. Values: the block splits into groups of d_head / vec
+// threads, each group summing every groups-th position, then the groups are
+// summed through shared memory. The TPU kernels' devices (the (M, H)
+// head-segment matmul, the optimistic fresh-token seed removed at the end,
+// per-(row, page) DMA descriptors and the uniform-owner tile flag) exist
+// because the TPU cannot index lanes or addresses dynamically; here the
+// fresh token's mask bit is read directly and a position's address is
+// computed per load, the row's page owners held in shared memory.
+//   attn_step_whole_row (K3) keeps the step + 1 scores in shared memory (U
+//     floats) and does an exact softmax; each warp scores one position at a
+//     time, reducing its dot product with shuffles.
+//   attn_step_chunked (K4, K6) streams positions in chunks of 64 with a
+//     running max, denominator and accumulator (flash-decoding), so its
+//     shared memory does not depend on U. Its body
+//     (attn_step_chunked_item, csrc/attention_step.cuh, which K7 runs too)
+//     maps the score lanes to (position, 16-byte vector) in groups of 8, 16
+//     or 32, keeps 2 positions' loads in flight a thread in both passes,
+//     takes two barriers a chunk, and copies the parent's active page to
+//     the merged page in the passes that read it, so the page crosses L2
+//     once; its sums keep the order of the one-warp-a-position design
+//     before it, so K4 and K6 give that design's bits, and each other's.
 //   attn_step_paged_rows (K5) is the whole-row kernel with its position
 //     loops rebuilt, because K3's are bound by load latency, not bytes: a
 //     warp scores one position with d_head / vec of its lanes loading (12
@@ -146,40 +155,6 @@ __global__ void __launch_bounds__(kThreads) attn_step_whole_row(const Args<T> a)
     }
   }
   finish<V>(acc, sum, part, g, groups, j, a.d_head, a.out + hd.qoff);
-}
-
-// Raises `kernel`'s dynamic shared-memory limit to `smem` where that is above
-// the default 48 KB, once per device and size (`set` records what each device
-// was given). Returns 0 or the CUDA error.
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem, int device, int (&set)[kMaxDevices]) {
-  if (smem <= kDefaultSmem) return 0;
-  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (static_cast<int>(smem) > set[device]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    set[device] = static_cast<int>(smem);
-  }
-  return 0;
-}
-
-// 16 bytes of cache elements, as loaded -> floats
-__device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
-  x[0] = __uint_as_float(r.x);
-  x[1] = __uint_as_float(r.y);
-  x[2] = __uint_as_float(r.z);
-  x[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
 }
 
 // K5: K3's whole-row exact softmax over the paged cache, with the
@@ -308,24 +283,28 @@ int launch_k5(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 / K6: one block per (row, head); see attn_step_chunked_item.
+// K4 / K6: one block per (row, head); see attn_step_chunked_item. At least
+// 10 blocks an SM for f32 caches, 8 for bf16 (registers capped at 48 and
+// 64): the fastest of the counts tried on an H100 at D2's shapes.
+template <typename T>
+constexpr int kChunkedBlocks = sizeof(T) == 4 ? 10 : 8;
+
 template <typename T, bool kPaged>
-__global__ void __launch_bounds__(kThreads) attn_step_chunked(const Args<T> a) {
+__global__ void __launch_bounds__(kThreads, kChunkedBlocks<T>) attn_step_chunked(const Args<T> a) {
   extern __shared__ float smem[];
-  attn_step_chunked_item<T, kPaged>(a, blockIdx.x, smem);
+  attn_step_chunked_item<T, kPaged>(a, blockIdx.x, smem, a.out);
 }
 
 template <typename T, bool kPaged>
 int launch(const Args<T>& a, int nhead, int chunked, int device, cudaStream_t stream) {
   const int groups = kThreads / (a.d_head / Vec<T>::kN);
-  const int scores = chunked ? kChunk : a.u;
-  const int owners = kPaged ? (a.u >> a.page_shift) : 0;
-  const size_t smem =
-      (static_cast<size_t>(scores) + kWarps + static_cast<size_t>(groups) * a.d_head) *
-          sizeof(float) +
-      static_cast<size_t>(owners) * sizeof(int);
   // paged caches take the streamed kernel here (K6); K5 is attn_step_paged_rows
-  auto kernel = chunked || kPaged ? attn_step_chunked<T, kPaged> : attn_step_whole_row<T>;
+  const bool streamed = chunked || kPaged;
+  const size_t floats = streamed ? chunked_smem_floats(groups, a.d_head)
+                                 : a.u + kWarps + static_cast<size_t>(groups) * a.d_head;
+  const int owners = kPaged ? (a.u >> a.page_shift) : 0;
+  const size_t smem = floats * sizeof(float) + static_cast<size_t>(owners) * sizeof(int);
+  auto kernel = streamed ? attn_step_chunked<T, kPaged> : attn_step_whole_row<T>;
   // above 48 KB: K3 at U beyond ~11,800 positions
   static int smem_set[2][kMaxDevices] = {};
   const int err = allow_smem(kernel, smem, device, smem_set[chunked ? 1 : 0]);

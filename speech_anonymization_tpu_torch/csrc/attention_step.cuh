@@ -59,6 +59,23 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[8]) 
   }
 }
 
+// 16 bytes of cache elements, as loaded -> floats
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[4]) {
+  x[0] = __uint_as_float(r.x);
+  x[1] = __uint_as_float(r.y);
+  x[2] = __uint_as_float(r.z);
+  x[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
 // floats -> 16 bytes of cache elements (values already rounded: exact)
 __device__ __forceinline__ void store_vec(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -119,6 +136,23 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return t;
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to `smem` where that is above
+// the default 48 KB, once per device and size (`set` records what each device
+// was given). Returns 0 or the CUDA error.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem, int device, int (&set)[kMaxDevices]) {
+  if (smem <= kDefaultSmem) return 0;
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (static_cast<int>(smem) > set[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set[device] = static_cast<int>(smem);
+  }
+  return 0;
+}
+
 // The operands of one launch. Sizes in positions (rows of M elements).
 template <typename T>
 struct Args {
@@ -155,6 +189,8 @@ struct Head {
   const T* vmain;  //   (all with this head's offset)
   const T* kact;   // paged: the parent's read slot at the first active position
   const T* vact;
+  T* kmerge;       // paged: where the merged active page goes (its first position)
+  T* vmerge;
   const int* owners;  // paged: shared memory, the owner row of each completed page
   const unsigned char* mrow;  // mask row
   size_t qoff;        // offset of this head in the (N, M) operands
@@ -164,7 +200,10 @@ struct Head {
   bool live;          // lane < nvec: holds a vector of the head
   float qv[V], kv[V];  // fresh q and k of this lane's vector
 
-  __device__ Head(const Args<T>& a, const int* owners_, unsigned item) : owners(owners_), m(a.m) {
+  // copy: the paged constructor copies the parent's active positions to the
+  // merged page itself (K5); K6's body copies them as its passes read them.
+  __device__ Head(const Args<T>& a, const int* owners_, unsigned item, bool copy = true)
+      : owners(owners_), m(a.m) {
     const int nhead = m / a.d_head;
     const int row = item / nhead;
     const size_t hoff = static_cast<size_t>(item % nhead) * a.d_head;
@@ -215,8 +254,10 @@ struct Head {
         kd = a.ak + at * m + hoff;
         vd = a.av + (at + a.v_off) * m + hoff;
       }
+      kmerge = kd;
+      vmerge = vd;
       // the parent's positions act_start .. step - 1, k then v, as bytes
-      const int span = o * nvec;
+      const int span = copy ? o * nvec : 0;
       for (int i = threadIdx.x; i < 2 * span; i += kThreads) {
         const bool is_v = i >= span;
         const int r = is_v ? i - span : i;
@@ -293,10 +334,14 @@ __device__ __forceinline__ void load_owners(const Args<T>& a, int* owners, unsig
   }
 }
 
+// x -> an output element: f32 as is, bf16 rounded to nearest even
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
 // Sum the groups' partial value vectors and write out = total / denom.
-template <int V>
+template <int V, typename TO>
 __device__ __forceinline__ void finish(const float (&acc)[V], float denom, float* part, int g,
-                                       int groups, int j, int d_head, float* out) {
+                                       int groups, int j, int d_head, TO* out) {
   if (g < groups) {
 #pragma unroll
     for (int i = 0; i < V; ++i) part[g * d_head + j * V + i] = acc[i];
@@ -305,66 +350,189 @@ __device__ __forceinline__ void finish(const float (&acc)[V], float denom, float
   for (int d = threadIdx.x; d < d_head; d += kThreads) {
     float tot = 0.f;
     for (int gg = 0; gg < groups; ++gg) tot += part[gg * d_head + d];
-    out[d] = denom > 0.f ? tot / denom : 0.f;
+    store_out(out + d, denom > 0.f ? tot / denom : 0.f);
   }
+}
+
+// Lanes per position in the score passes: d_head / vec rounded up to 8, 16
+// or 32, so a warp scores 4, 2 or 1 positions at once.
+__device__ __forceinline__ int score_group(int nvec) { return nvec <= 8 ? 8 : (nvec <= 16 ? 16 : 32); }
+
+// Floats of shared memory attn_step_chunked_item takes (then u / page ints
+// of page owners, paged).
+__host__ __device__ constexpr int chunked_smem_floats(int groups, int d_head) {
+  return 2 * kChunk + 2 * kWarps + 1 + groups * d_head;
 }
 
 // K4 / K6's body for one (row, head) work item: positions streamed in
 // chunks of kChunk with an online softmax. Called by all kThreads threads of
-// a block. Shared memory `smem`: kChunk + kWarps + groups * d_head floats
-// (+ u / page owners), whatever U is. K7 (csrc/lm_megastep.cu) runs it for
-// every item of a layer's attention phase.
-template <typename T, bool kPaged>
-__device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigned item, float* smem) {
+// a block; writes the head's d_head outputs to `out` (f32, or bf16 for K7's
+// out-projection). Shared memory `smem`: chunked_smem_floats floats (+ u /
+// page owners), whatever U is. K7 (csrc/lm_megastep.cu) runs it for every
+// item of a layer's attention phase.
+//
+// Per chunk: the score pass maps lanes to (position, 16-byte vector) in
+// groups of score_group(nvec) lanes, each thread issuing kUnroll positions'
+// loads before using any; each warp's maximum goes to shared memory; after
+// one barrier every thread takes the chunk's maximum from those, the
+// weights are exponentiated in place, and after a second barrier one thread
+// sums them (in position order) while the value groups accumulate, again
+// with kUnroll positions' loads ahead. Scores, weights and maxima are
+// double-buffered by chunk parity, so a chunk needs two barriers. Paged, the
+// parent's active positions are copied to the merged page by the passes
+// that read them (k by the score pass, v by the value pass, masked ones
+// too), so the active page crosses L2 once where a copy ahead of the passes
+// read it twice.
+//
+// Every sum is taken in the order of the design before it (one warp per
+// position, every thread scanning the chunk), so K4 and K6 give the same bits
+// as before: a dot product is per-lane fmaf chains then the xor butterfly
+// (a group's butterfly over offsets group / 2 .. 1 is the warp's over 16 .. 1
+// less additions of exact zeros from lanes past nvec), the chunk's sum runs
+// in position order, and the groups' value partials are summed in group
+// order; a maximum is exact in any order.
+template <typename T, bool kPaged, typename TO>
+__device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigned item, float* smem,
+                                                       TO* out) {
   constexpr int V = Vec<T>::kN;
-  const int groups = kThreads / (a.d_head / V);
-  float* s = smem;                    // [kChunk]
-  float* part = s + kChunk + kWarps;  // [groups][d_head]
+  constexpr int kUnroll = 2;  // positions' loads in flight a thread (4 measured slower)
+  const int nvec = a.d_head / V;
+  const int groups = kThreads / nvec;  // value groups of nvec threads
+  float* sbuf = smem;                  // [2][kChunk] scores, then weights
+  float* red = sbuf + 2 * kChunk;      // [2][kWarps] the warps' chunk maxima
+  float* denom = red + 2 * kWarps;     // [1] the softmax denominator
+  float* part = denom + 1;             // [groups][d_head]
   int* owners = reinterpret_cast<int*>(part + groups * a.d_head);  // paged: [u / page]
   load_owners<T, kPaged>(a, owners, item);
-  const Head<T, kPaged> hd(a, owners, item);
+  const Head<T, kPaged> hd(a, owners, item, false);
   const int step = a.step;
+  // paged: positions act_start .. step - 1 are the parent's active page, which
+  // the passes copy to the merged page as they read it (masked ones too)
+  const int act_start = kPaged ? hd.act_start : step;
 
-  const int g = threadIdx.x / hd.nvec;
-  const int j = threadIdx.x % hd.nvec;
+  // score lanes: this lane's vector j of the head, and the first position
+  const int grp = score_group(nvec);
+  const int per_pass = kThreads / grp;  // positions scored at once by the block
+  const int js = hd.lane % grp;
+  const bool live = js < nvec;
+  const int first = threadIdx.x / grp;
+  float qv[V];
+  if (live) load_fresh<T>(a.q + hd.qoff + js * V, qv);
+  // value lanes
+  const int g = threadIdx.x / nvec;
+  const int jv = threadIdx.x % nvec;
+  const bool sums = threadIdx.x == kThreads - 1;  // the thread that keeps the denominator
+
   float acc[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = 0.f;
-  float m_run = -INFINITY;  // running max, denominator: the same in every thread
-  float l_run = 0.f;
+  float m_run = -INFINITY;  // running max: the same in every thread
+  float l_run = 0.f;        // running denominator: thread `sums` only
 
-  for (int c0 = 0; c0 <= step; c0 += kChunk) {
+  for (int c0 = 0, par = 0; c0 <= step; c0 += kChunk, par ^= 1) {
     const int cn = min(kChunk, step + 1 - c0);
-    for (int i = hd.warp; i < cn; i += kWarps) {
-      const float sc = hd.score(c0 + i, step, a.scale);
-      if (hd.lane == 0) s[i] = sc;
+    float* s = sbuf + par * kChunk;
+    float lmax = -INFINITY;
+    for (int i0 = 0; i0 < cn; i0 += per_pass * kUnroll) {
+      uint4 kr[kUnroll];
+      bool ok[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + first + u * per_pass;
+        const int p = c0 + i;
+        ok[u] = i < cn && hd.mrow[p];  // masked positions never reach the sums
+        if (live && (ok[u] || (i < cn && p >= act_start)) && p != step) {
+          kr[u] = *reinterpret_cast<const uint4*>(hd.at(p, false) + js * V);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int i = i0 + first + u * per_pass;
+        if (live && i < cn && c0 + i >= act_start && c0 + i < step) {
+          *reinterpret_cast<uint4*>(hd.kmerge + static_cast<size_t>(c0 + i - act_start) * hd.m +
+                                    js * V) = kr[u];
+        }
+        float dot = 0.f;
+        if (live && ok[u]) {
+          float kx[V];
+          if (c0 + i == step) {
+            load_fresh<T>(a.kh + hd.qoff + js * V, kx);
+          } else {
+            unpack(kr[u], kx);
+          }
+#pragma unroll
+          for (int e = 0; e < V; ++e) dot = fmaf(qv[e], kx[e], dot);
+        }
+        for (int off = grp >> 1; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (i < cn) {
+          const float sc = ok[u] ? dot / a.scale : -INFINITY;
+          if (js == 0) s[i] = sc;
+          lmax = fmaxf(lmax, sc);
+        }
+      }
     }
-    __syncthreads();
+    lmax = warp_max(lmax);
+    if (hd.lane == 0) red[par * kWarps + hd.warp] = lmax;
+    __syncthreads();  // the scores and the warps' maxima
     float cmax = -INFINITY;
-    for (int i = 0; i < cn; ++i) cmax = fmaxf(cmax, s[i]);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) cmax = fmaxf(cmax, red[par * kWarps + w]);
+    // nothing valid yet gives new_m = -inf: every weight, alpha and the sums
+    // stay 0 (the chunk still runs, for the active page's copy)
     const float new_m = fmaxf(m_run, cmax);
-    __syncthreads();  // every thread has read the scores
-    if (new_m == -INFINITY) continue;  // nothing valid yet (block-uniform)
     const float alpha = m_run == -INFINITY ? 0.f : expf(m_run - new_m);
     for (int i = threadIdx.x; i < cn; i += kThreads) {
       s[i] = s[i] == -INFINITY ? 0.f : expf(s[i] - new_m);
     }
-    __syncthreads();
-    float csum = 0.f;
-    for (int i = 0; i < cn; ++i) csum += s[i];
-    l_run = l_run * alpha + csum;
+    __syncthreads();  // the weights
+    if (sums) {
+      float csum = 0.f;
+      for (int i = 0; i < cn; ++i) csum += s[i];
+      l_run = l_run * alpha + csum;
+    }
 #pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] *= alpha;
+    for (int e = 0; e < V; ++e) acc[e] *= alpha;
     if (g < groups) {
-      for (int i = g; i < cn; i += groups) {
-        const float w = s[i];
-        if (w != 0.f) hd.add_value(acc, w, c0 + i, step, j, a.vh);
+      for (int i0 = g; i0 < cn; i0 += groups * kUnroll) {
+        uint4 vr[kUnroll];
+        float w[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = i0 + u * groups;
+          const int p = c0 + i;
+          w[u] = i < cn ? s[i] : 0.f;  // 0 where masked: skipped
+          if ((w[u] != 0.f || (i < cn && p >= act_start)) && p != step) {
+            vr[u] = *reinterpret_cast<const uint4*>(hd.at(p, true) + jv * V);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int p = c0 + i0 + u * groups;
+          if (i0 + u * groups < cn && p >= act_start && p < step) {
+            *reinterpret_cast<uint4*>(hd.vmerge + static_cast<size_t>(p - act_start) * hd.m +
+                                      jv * V) = vr[u];
+          }
+          if (w[u] != 0.f) {
+            float vx[V];
+            if (c0 + i0 + u * groups == step) {
+              load_fresh<T>(a.vh + hd.qoff + jv * V, vx);
+            } else {
+              unpack(vr[u], vx);
+            }
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[e] = fmaf(w[u], vx[e], acc[e]);
+          }
+        }
       }
     }
     m_run = new_m;
-    __syncthreads();  // the weights are consumed before the next chunk's scores
+    // no barrier: the next chunk writes the other buffers, and the one after
+    // comes past the next chunk's barriers, which every thread reaches only
+    // when done with this chunk
   }
-  finish<V>(acc, l_run, part, g, groups, j, a.d_head, a.out + hd.qoff);
+  if (sums) *denom = l_run;
+  __syncthreads();  // the denominator
+  finish<V>(acc, *denom, part, g, groups, jv, a.d_head, out + hd.qoff);
 }
 
 }  // namespace

@@ -14,8 +14,9 @@ product, f32 accumulation and f32 residuals.
 launch, counted in ``lm_megastep.launches``) and runs
 :func:`lm_megastep_plain`, which follows the kernel's rounding points, only
 for tensors on the CPU. Both refuse what the kernel does not take: int8
-caches, the split layout, a page other than 64, a ``d_ffn`` that is not a
-multiple of ``d_model``, misaligned or non-contiguous operands.
+caches, the split layout, a page other than 64, a ``d_model`` that is not a
+multiple of 128, a ``d_ffn`` that is not a multiple of ``d_model``,
+misaligned or non-contiguous operands.
 """
 
 from __future__ import annotations
@@ -29,7 +30,9 @@ from .attention_step import _DTYPE_CODES, check_step_operands
 from .attention_step_paged import PAGE_LONG, _paged_plain
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, inside the rsqrt
-_TILE = 64  # the kernel's product tile: d_model must be a multiple
+# d_model must be a multiple: the kernel's 64-wide product tiles, and the
+# out-projection's two K-slices in the products' stages of up to 64
+_M_ALIGN = 128
 
 
 def _nb(nf: int) -> int:
@@ -97,8 +100,8 @@ def _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead) 
                          f"{tuple(act_kv.shape)} (the split layout is not taken)")
     if act_src.dtype != torch.int32 or act_src.shape != (n,):
         raise ValueError(f"act_src must be ({n},) int32, got {tuple(act_src.shape)} {act_src.dtype}")
-    if m % _TILE:
-        raise ValueError(f"d_model {m} is not a multiple of {_TILE}")
+    if m % _M_ALIGN:
+        raise ValueError(f"d_model {m} is not a multiple of {_M_ALIGN}")
     nb = wall.shape[0] // layers if wall.ndim == 3 else 0
     if (wall.dtype != torch.bfloat16 or wall.ndim != 3 or wall.shape != (layers * nb, m, m)
             or nb < _nb(1) or nb % 2):
@@ -157,7 +160,7 @@ def _entry():
         from ..utils import cuda_build
 
         fn = cuda_build.load("lm_megastep").sa_lm_megastep
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -169,15 +172,17 @@ def _launch(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead,
     u = cache_kv.shape[2] // 2
     dev = x0.device
     xs = torch.empty(n, m, dtype=torch.float32, device=dev)
+    xb = torch.empty(n, m, dtype=torch.bfloat16, device=dev)  # bf16(x): the products' operand
     qkv = torch.empty(3, n, m, dtype=torch.float32, device=dev)
-    ctx = torch.empty(n, m, dtype=torch.float32, device=dev)
+    ctx = torch.empty(n, m, dtype=torch.bfloat16, device=dev)
     # the K-slice sums of the out-projection (2 slices) and of W2 (d_ffn / m)
     part = torch.empty(max(d_ffn // m, 2), n, m, dtype=torch.float32, device=dev)
     hid = torch.empty(n, d_ffn, dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _entry()(x0.data_ptr(), mask.data_ptr(), cache_kv.data_ptr(), act_kv.data_ptr(),
                    table.data_ptr(), act_src.data_ptr(), wall.data_ptr(), vecs.data_ptr(),
-                   xs.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), part.data_ptr(), hid.data_ptr(),
+                   xs.data_ptr(), xb.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), part.data_ptr(),
+                   hid.data_ptr(),
                    n, u, m, nhead, layers, d_ffn, step, _DTYPE_CODES[cache_kv.dtype],
                    int(exact_gelu), dev.index or 0, stream)
     if err != 0:

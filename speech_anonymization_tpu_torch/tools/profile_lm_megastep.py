@@ -6,18 +6,20 @@ Usage, on a machine with one NVIDIA card:
 
 K7 runs every layer of a TransformerLM decode step as seven phases separated
 by grid-wide barriers (q/k/v, attention, out-projection, add + LayerNorm 1,
-W1, W2, add + LayerNorm 2). No profiler sees inside one launch, so this
-builds the same source with ``SA_LM_MEGA_STAMPS`` defined (through
-``utils/cuda_build.py``, into a library of its own), in which block 0 reads
-the card's global timer after every barrier, and runs it on a seeded
-``TransformerLM()`` at its published widths (12 layers, d_model 768, 12
-heads, d_ffn 3072) over D2's fused paged LM cache (N 528 = 8 utterances x
-beam 66, U 256, page 64, f32 or bf16) after ``step`` reorders of a simulated
-beam history (default steps 0 and 125). One JSON line per step: the
-launch's CUDA-event time (K7 itself, median of 10), and the microseconds a layer
-spends in each phase, averaged over the layers (a phase's time includes the
-wait at its closing barrier). The stamped build computes what K7 computes:
-its x_out must equal K7's, bit for bit, or the script exits non-zero.
+W1, W2, add + LayerNorm 2), after a prologue (x0 to bf16). No profiler sees
+inside one launch, so this builds the same source with ``SA_LM_MEGA_STAMPS``
+defined (through ``utils/cuda_build.py``, into a library of its own), in
+which block 0 reads the card's global timer after two back-to-back grid
+barriers (``barrier_us``: one barrier's cost) and after every barrier of the
+step, and runs it on a seeded ``TransformerLM()`` at its published widths
+(12 layers, d_model 768, 12 heads, d_ffn 3072) over D2's fused paged LM cache
+(N 528 = 8 utterances x beam 66, U 256, page 64, f32 or bf16) after ``step``
+reorders of a simulated beam history (default steps 0 and 125). One JSON
+line per step: the launch's CUDA-event time (K7 itself, median of 10), and
+the microseconds a layer spends in each phase, averaged over the layers (a
+phase's time includes the wait at its closing barrier). The stamped build
+computes what K7 computes: its x_out must equal K7's, bit for bit, or the
+script exits non-zero.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..utils.seeded_init import seeded_init_
 PHASES = ("qkv", "attention", "out_proj", "add_ln1", "w1_gelu", "w2", "add_ln2")
 N, U, BEAM = 528, 256, 66
 STAMPS = 1024  # kStamps of the source
+LEAD = 3  # stamps before the first layer's: two lone barriers, then the prologue
 
 
 def _state(lm: TransformerLM, step: int, dtype: torch.dtype, gen: torch.Generator):
@@ -70,6 +73,47 @@ def _ms(fn, iters: int = 10) -> float:
     return statistics.median(times)
 
 
+def _bind(lib) -> ctypes.CDLL:
+    fn = lib.sa_lm_megastep
+    fn.argtypes = k7._entry().argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+STAMPED = ("SA_LM_MEGA_STAMPS",)
+
+
+def stamped_phases(run, layers: int) -> dict:
+    """K7's device time by phase for ``run``, a call that launches K7 through
+    ``ops.lm_megastep`` and returns its x_out: ``run`` is called with the
+    build the wrapper holds, then with the stamped build, whose x_out must
+    equal the first bit for bit (else AssertionError). Returns ``stamped_ms``
+    (prologue and layers), ``barrier_us`` (one grid barrier), ``prologue_us``
+    and ``us_per_layer`` (each phase, the mean over the layers)."""
+    lib = cuda_build.load("lm_megastep", defines=STAMPED)
+    stamped = _bind(lib)
+    want = run()
+    held = k7._fn
+    k7._fn = stamped  # the wrapper launches the stamped build (its count still moves)
+    try:
+        got = run()
+    finally:
+        k7._fn = held
+    stamps = (ctypes.c_ulonglong * STAMPS)()
+    torch.cuda.synchronize()
+    if lib.sa_lm_megastep_stamps(stamps) != 0:
+        raise RuntimeError("reading the stamps failed")
+    gap = float((got - want).abs().max())
+    if gap != 0.0:
+        raise AssertionError(f"the stamped build differs from K7 by {gap}")
+    n_phases = len(PHASES)
+    t = list(stamps)[:1 + LEAD + n_phases * layers]
+    us = [(t[i + 1] - t[i]) / 1e3 for i in range(LEAD, len(t) - 1)]
+    return {"stamped_ms": (t[-1] - t[LEAD - 1]) / 1e6, "barrier_us": (t[2] - t[1]) / 1e3,
+            "prologue_us": (t[LEAD] - t[LEAD - 1]) / 1e3,
+            "us_per_layer": {p: statistics.fmean(us[j::n_phases]) for j, p in enumerate(PHASES)}}
+
+
 @torch.no_grad()
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
@@ -77,10 +121,7 @@ def main(argv: list[str]) -> int:
         return 1
     dtype = torch.bfloat16 if "--bf16" in argv else torch.float32
     steps = [int(a) for a in argv if a != "--bf16"] or [0, 125]
-    lib = cuda_build.load("lm_megastep", defines=("SA_LM_MEGA_STAMPS",))
-    stamped = lib.sa_lm_megastep
-    stamped.argtypes = k7._entry().argtypes
-    stamped.restype = ctypes.c_int
+    cuda_build.build(["lm_megastep"], also=(("lm_megastep", STAMPED),))
     lm = seeded_init_(TransformerLM(device="cuda"), 4)
     wall, vecs = lm.prepare_megastep()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -91,32 +132,14 @@ def main(argv: list[str]) -> int:
             return k7.lm_megastep(x0, mask, cache["kv"], cache["kv_act"], cache["table"],
                                   cache["act_src"], step, wall, vecs, lm.nhead)[0]
 
-        want = run()
         ms = _ms(run)
-        plain_fn = k7._fn
-        k7._fn = stamped  # the wrapper launches the stamped build (its count still moves)
         try:
-            got = run()
-        finally:
-            k7._fn = plain_fn
-        stamps = (ctypes.c_ulonglong * STAMPS)()
-        torch.cuda.synchronize()
-        if lib.sa_lm_megastep_stamps(stamps) != 0:
-            print("profile_lm_megastep: reading the stamps failed", file=sys.stderr)
+            phases = stamped_phases(run, lm.num_layers)
+        except (AssertionError, RuntimeError) as err:
+            print(f"profile_lm_megastep: {err}", file=sys.stderr)
             return 1
-        gap = float((got - want).abs().max())
-        if gap != 0.0:
-            print(f"profile_lm_megastep: the stamped build differs from K7 by {gap}",
-                  file=sys.stderr)
-            return 1
-        n_phases = len(PHASES)
-        t = list(stamps)[:1 + n_phases * lm.num_layers]
-        us = [(t[i + 1] - t[i]) / 1e3 for i in range(len(t) - 1)]
-        print(json.dumps({
-            "device": torch.cuda.get_device_name(0), "dtype": str(dtype)[6:], "step": step,
-            "ms": ms, "stamped_ms": (t[-1] - t[0]) / 1e6,
-            "us_per_layer": {p: statistics.fmean(us[j::n_phases]) for j, p in enumerate(PHASES)},
-        }), flush=True)
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "dtype": str(dtype)[6:],
+                          "step": step, "ms": ms, **phases}), flush=True)
         del x0, mask, cache
         torch.cuda.empty_cache()
     return 0

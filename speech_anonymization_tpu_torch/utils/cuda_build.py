@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 headers and the flags, so an edited source or header is rebuilt. Nothing is
 compiled when the package is imported: a kernel's library is built on its
 first launch, or ahead of time by :func:`build`, which starts one ``nvcc``
-per source, all at once. ``defines`` (``-D`` macros) build a variant of a
-source into a library of its own, as ``tools/profile_lm_megastep.py`` does.
+per source (and variant), all at once. ``defines`` (``-D`` macros) build a
+variant of a source into a library of its own, as
+``tools/profile_lm_megastep.py`` does.
 """
 
 from __future__ import annotations
@@ -58,36 +59,40 @@ def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: list[str] | None = None, defines: tuple[str, ...] = ()) -> dict[str, dict]:
-    """Compile the named sources (default: all) in parallel, with ``defines``.
+def build(names: list[str] | None = None, defines: tuple[str, ...] = (),
+          also: tuple[tuple[str, tuple[str, ...]], ...] = ()) -> dict[str, dict]:
+    """Compile the named sources (default: all) with ``defines``, and each
+    (name, defines) pair of ``also``, all in parallel.
 
-    Returns ``{name: {"seconds": wall time, "ptxas": register/spill report}}``;
-    a source whose library is already built reports 0 seconds. Raises with
-    the compiler's output if any build fails.
+    Returns ``{key: {"seconds": wall time, "ptxas": register/spill report}}``,
+    the key a source's name, followed by ``+MACRO`` for each define; a library
+    already built reports 0 seconds. Raises with the compiler's output if any
+    build fails.
     """
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     report = {}
-    for name in names:
-        out = library_path(name, defines)
+    for name, defs in [*((n, defines) for n in names), *also]:
+        key = "".join([name, *(f"+{d}" for d in defs)])
+        out = library_path(name, defs)
         if out.exists():
-            report[name] = {"seconds": 0.0, "ptxas": "cached"}
+            report[key] = {"seconds": 0.0, "ptxas": "cached"}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out, time.perf_counter())
+        cmd = [nvcc(), *_flags(defs), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), tmp, out, time.perf_counter())
     failures = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for key, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
+            failures.append(f"nvcc failed for {key} (rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
-        ptxas = "\n".join(line for line in log.splitlines() if "ptxas info" in line)
-        report[name] = {"seconds": seconds, "ptxas": ptxas}
+        ptxas = "\n".join(line for line in log.splitlines() if "ptxas info" in line or "spill" in line)
+        report[key] = {"seconds": seconds, "ptxas": ptxas}
     if failures:
         raise RuntimeError("\n".join(failures))
     return report

@@ -9,6 +9,7 @@ Every test skips without a CUDA device (decided at run time, in the fixture).
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from speech_anonymization_tpu_torch.ops.attention_step_paged import (
     attention_step_paged_chunked,
     attention_step_paged_fused_plain,
     attention_step_paged_plain,
+    page_views,
 )
 from speech_anonymization_tpu_torch.ops.beam_gather import (
     beam_gather,
@@ -417,6 +419,60 @@ def test_k5_k6_at_lm_head_width(cuda, name, dtype):
         twin_cache = beam_reorder_cache(twin_cache, parent, step)
 
 
+def _fused_history(n, u, step, dtype, device, rng, layers=2, m=768):
+    """A fused page-64 cache after ``step`` random beam reorders (beams of
+    4), its pages and slots filled with seeded content, in ``dtype``."""
+    cache = _fused_nan_cache(layers, n, u, m, dtype, device)
+    for t in range(step):
+        cache = beam_reorder_cache(cache, torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(device), t)
+    for key in ("kv", "kv_act"):
+        cache[key].copy_(torch.from_numpy(rng.standard_normal(cache[key].shape).astype(np.float32)))
+    return cache
+
+
+def _physical_of(cache, step):
+    """The (L, N, U, M) physical k and v caches holding the fused paged
+    cache's logical content at positions < step (the parent's slot for the
+    active page), NaN at and beyond the step."""
+    k_pages, v_pages, k_act, v_act = page_views(cache)
+    layers, n, up, page, m = k_pages.shape
+    p_act, o = divmod(step, page)
+    owners, parent = cache["table"].long(), cache["act_src"].long()
+    cols = torch.arange(up, device=owners.device)
+    out = []
+    for pages, act in ((k_pages, k_act), (v_pages, v_act)):
+        c = pages[:, owners, cols].reshape(layers, n, up * page, m).clone()
+        c[:, :, p_act * page:p_act * page + o] = act[:, parent, (step + 1) % 2, :o]
+        c[:, :, step:] = float("nan")
+        out.append(c.contiguous())
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [0, 63, 64, 127])
+def test_k4_k6_bit_identical(cuda, step, nhead, dtype):
+    """K4 (physical) and K6 (fused paged) run one body with other addresses:
+    on the same logical content (a beam history's pages and the parent's
+    active page, as a physical cache) their outputs are equal bit for bit, at
+    the ASR's 8 x 96 heads and the LM's 12 x 64, at steps before, on and
+    after a page completion (U 192: a completed and an active page)."""
+    rng = np.random.default_rng(step + nhead + dtype.itemsize)
+    n, u, layer = 16, 192, 1
+    cache = _fused_history(n, u, step, dtype, cuda, rng)
+    ck, cv = _physical_of(cache, step)
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    mask[::3, step] = False
+    q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    paged = attention_step_paged_chunked(q, kh, vh, mask, cache, step, layer, nhead)
+    physical = attention_step_chunked(q, kh, vh, mask, ck, cv, step, layer, nhead)
+    torch.cuda.synchronize()
+    assert torch.isfinite(paged).all()
+    assert torch.equal(paged, physical), float((paged - physical).abs().max())
+
+
 # K5's four configurations: (cache dtype, heads, U) of the f32 decodes (D1's U
 # 96) and of the bf16 serving decode (D2's U 256 at page 32), the ASR's 8 x 96
 # heads and the LM's 12 x 64
@@ -558,6 +614,47 @@ def test_k7_protocol_matches_plain_twin(cuda, dtype):
         parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
         cache = beam_reorder_cache(cache, parent, step)
     print(f"K7 vs twin, {dtype}: max |x_out gap| {worst}, pages and slots {worst_ulps} ulps")
+
+
+@pytest.mark.parametrize("exact_gelu", [False, True])
+@pytest.mark.parametrize("step", [0, 63, 64, 127])
+def test_k7_ragged_rows(cuda, step, exact_gelu):
+    """N = 72 rows (one full 64-row product tile and a ragged one of 8) over
+    a seeded content cache (f32, U 192), at steps before, on and after a page
+    completion, tanh and erf GELU: x_out within K7_ATOL of the twin's from
+    the same state, the first layer's written pages and slots within one bf16
+    ulp, every layer's within K7_ATOL."""
+    lm = seeded_init_(TransformerLM(**LM_SMALL, device=cuda), 2)
+    wall, vecs = lm.prepare_megastep()
+    rng = np.random.default_rng(step + 2 * exact_gelu)
+    n, u, m = 72, 192, LM_SMALL["d_model"]
+    cache = _fused_history(n, u, step, torch.float32, cuda, rng, LM_SMALL["num_layers"], m)
+    twin = {k: v.clone() for k, v in cache.items()}
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    x0 = torch.from_numpy(rng.standard_normal((n, m)).astype(np.float32)).to(cuda)
+    args = (x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step, wall,
+            vecs, LM_SMALL["nhead"])
+    got = lm_megastep(*args, exact_gelu=exact_gelu)[0]
+    want = lm_megastep_plain(x0, mask, twin["kv"], twin["kv_act"], twin["table"], twin["act_src"],
+                             step, wall, vecs, LM_SMALL["nhead"], exact_gelu=exact_gelu)[0]
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=K7_ATOL)
+    for key in ("kv", "kv_act"):
+        assert float(bf16_ulps(cache[key], twin[key])[0].max()) <= 1, key
+        torch.testing.assert_close(cache[key], twin[key], rtol=0, atol=K7_ATOL, equal_nan=True)
+
+
+def test_k7_stamped_build_equals_k7(cuda, capsys):
+    """tools/profile_lm_megastep.py's stamped build (a timer read after every
+    grid barrier) computes what K7 computes: the tool exits non-zero unless
+    its x_out equals K7's bit for bit, and reports every phase."""
+    from speech_anonymization_tpu_torch.tools import profile_lm_megastep as prof
+
+    assert prof.main(["63"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line["us_per_layer"]) == set(prof.PHASES) and line["barrier_us"] > 0
 
 
 def test_k7_refuses_bad_operands(cuda):
