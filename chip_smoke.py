@@ -42,6 +42,14 @@ failure raises and exits non-zero:
            bf16 cache too (``bf16_ms``), with its device time by phase from
            the stamped build of tools/profile_lm_megastep.py (``us_per_layer``,
            ``barrier_us``; that build's x_out must equal K7's bit for bit);
+           then the int8 modes, each its own row of the kernel table
+           (``<kernel>_int8``): K2 on D1's and D2's physical int8 caches
+           (bit-exact), K3 at D1 (U 72) and D2 (U 256), K5 at D1's paged
+           cache (U 96) and D2's page-32 one (U 256), at 8 x 96 and 12 x
+           64, with code -128 and NaN scales wherever the step may not read:
+           out within 1e-5, every written code, page, slot and scale equal
+           to the twin's; the library reference is two calls (torch.mul
+           dequantizing the stacked k/v codes, then SDPA);
   slice    the anonymization path at bench.py's shape (32 utterances of
            161,120 samples = 10.07 s, T = 1008 frames), seeded random weights:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
@@ -65,27 +73,33 @@ failure raises and exits non-zero:
            for the ASR, one K7 launch a step for the LM) and D2 paged with
            ``decode_lm_megastep: false`` (K6 for all 18 layers); then D2's
            serving decode, bf16 caches (page 32: K5 for the ASR's 6 layers,
-           and for the LM's 12 too; no K7), without and with the LM. Launch counts
+           and for the LM's 12 too; no K7), without and with the LM; and the
+           int8 serving decode (whole-row caches: K5 paged, K2 + K3
+           physical): D1 paged and physical with the LM, D2 paged without
+           and with the LM and physical without. Launch counts
            are reset right before each run and read right after; one more
            decode checks the launches of a single decode; then
            ``_decode_test`` is timed. Paged and physical decodes on the card
-           give identical tokens, scores within 1e-4 (with the LM too); for
-           D2's K7 decode against its per-layer one, and for the bf16 decodes
-           against the f32 ones, the share of identical hypotheses and the
-           score gap are reported (bf16 arithmetic);
+           give identical tokens, scores within 1e-4 (with the LM, and in
+           int8, too); for D2's K7 decode against its per-layer one, and for
+           the bf16 and int8 decodes against the f32 (and bf16) ones, the
+           share of identical hypotheses and the score gap are reported (bf16
+           arithmetic, quantization);
   decode_parity  two utterances, beam 4, the same weights on the card (paged:
            K5 at 40 steps, D1's features; K6 at 230 steps, D2's) and on the
            CPU (physical): identical tokens and lengths, scores within 1e-3;
            the card's physical decode equal to its paged one within 1e-4;
-           and the LM-fused D1 decode (beam 4, 40 steps, K5 in both stacks on
-           the card) against the CPU alike.
+           the LM-fused D1 decode (beam 4, 40 steps, K5 in both stacks on
+           the card) against the CPU alike; and the int8 decode of D1's
+           features (K5 on the card, the twins' physical path on the CPU)
+           alike.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON object, and last ``{"ok": true, "device": {...}}``. Without CUDA the
 script exits non-zero before printing any result. fp32 throughout, TF32 off
 (K7 computes with bf16 weights and activations, by its contract; K1's
 three-pass TF32 product keeps fp32 accuracy; the bf16 decodes keep bf16
-caches).
+caches, the int8 decodes int8 codes with f32 scales).
 """
 
 from __future__ import annotations
@@ -119,6 +133,7 @@ from speech_anonymization_tpu_torch.ops.attention_step import (  # noqa: E402
     attention_step_chunked,
     attention_step_plain,
     max_u_whole_row,
+    quantize_rows,
 )
 from speech_anonymization_tpu_torch.ops.attention_step_paged import (  # noqa: E402
     attention_step_paged,
@@ -210,6 +225,10 @@ KERNEL_SOURCES = {
     "lm_megastep": ("speech_anonymization_tpu_torch/csrc/lm_megastep.cu",
                     "speech_anonymization_tpu/ops/pallas/lm_megastep.py:111"),
 }
+# the int8 modes of K2, K3 and K5: the same kernels' int8 instantiations, each
+# its own row of the table (launches counted over the int8 decodes)
+INT8_KERNELS = ("beam_gather", "attention_step", "attention_step_paged")
+KERNEL_SOURCES.update({f"{name}_int8": KERNEL_SOURCES[name] for name in INT8_KERNELS})
 
 
 def emit(obj: dict) -> None:
@@ -383,6 +402,51 @@ def phase_k2(gen: torch.Generator) -> dict:
     return entry
 
 
+def phase_k2_int8(gen: torch.Generator) -> dict:
+    """K2 on int8 codes at D1's and D2's physical caches (U 72 and 256),
+    steps 0, 31, 63 and U - 1, bit-exact against the twin; timed at D1's step
+    31 and D2's step 125. (An int8 cache's scales move by an index_select in
+    ``beam_reorder_cache``, not by K2.)"""
+    beams = DECODE_HPARAMS["test_beam_size"]
+    checks, timed = [], {}
+    for shape_name, timed_step in (("D1", 31), ("D2", 125)):
+        layers, n, u, m = _decode_cache_shape(shape_name)
+        parents = torch.randint(0, beams, (n // beams, beams), generator=gen, device=DEVICE)
+        src = (torch.arange(n // beams, device=DEVICE)[:, None] * beams + parents).view(-1).int()
+        rows_read = int(torch.unique(src).numel())
+        a = torch.randint(-128, 128, (layers, n, u, m), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        out, want = torch.empty_like(a), torch.empty_like(a)
+        for step in sorted({0, 31, 63, timed_step, u - 1}):
+            out.fill_(99)
+            want.fill_(99)
+            beam_gather(a, src, step, out)
+            beam_gather_plain(a, src, step, want)
+            torch.cuda.synchronize()
+            same = torch.equal(out, want)  # every byte: positions > step untouched on both
+            checks.append({"shape": shape_name, "step": step, "equal": same})
+            if not same:
+                raise AssertionError(f"int8 K2 disagrees with its plain twin: {checks[-1]}")
+        p, src_long = timed_step + 1, src.long()
+        ms = cuda_ms(lambda: beam_gather(a, src, timed_step, out))
+        plain_ms = cuda_ms(lambda: beam_gather_plain(a, src, timed_step, want))
+        library_ms = cuda_ms(lambda: torch.index_select(a[:, :, :p], 1, src_long))
+        nbytes = layers * (rows_read + n) * p * m + 4 * n
+        timed[shape_name] = kernel_entry("beam_gather_int8", 0.0, ms, plain_ms, 0, nbytes,
+                                         library_ms)
+        timed[shape_name].update(step=timed_step, cache=[layers, n, u, m],
+                                 achieved_gbps=nbytes / ms / 1e6)
+        del a, out, want
+    if beam_gather_faults(DEVICE):
+        raise AssertionError("int8 K2 met an out-of-range parent")
+    emit({"phase": "kernels", "kernel": "beam_gather_int8", "checks": checks,
+          "timed": {k: {key: e[key] for key in ("step", "cache", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms", "bound_by", "achieved_gbps")}
+                    for k, e in timed.items()}})
+    entry = {k: v for k, v in timed["D1"].items() if k not in ("step", "cache", "achieved_gbps")}
+    return entry
+
+
 def _attention_inputs(shape, dtype, step: int, gen: torch.Generator):
     """Seeded operands; odd rows' fresh token masked, NaN and Inf beyond the step."""
     layers, n, u, m = shape
@@ -459,6 +523,105 @@ def phase_attention(kernel, shape_name: str, steps, timed_step: int, gen: torch.
     return entry
 
 
+def _int8_attention_inputs(shape, step: int, gen: torch.Generator):
+    """Seeded f32 q/kh/vh, int8 codes and (L, N, U) scales; code -128 (which
+    the quantizer never writes) and NaN scales from the step on and at
+    masked positions, where no read may reach; odd rows' fresh token masked."""
+    layers, n, u, m = shape
+    q, kh, vh = (torch.randn(n, m, generator=gen, device=DEVICE) for _ in range(3))
+    mask = torch.rand(n, u, generator=gen, device=DEVICE) > 0.2
+    mask[:, 0] = True
+    mask[0::2, step] = True
+    mask[1::2, step] = False
+    codes = [torch.randint(-127, 128, (layers, n, u, m), generator=gen, device=DEVICE,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(layers, n, u, generator=gen, device=DEVICE) * 0.05 + 1e-3
+              for _ in range(2)]
+    hidden = ~mask
+    hidden[:, step:] = True
+    for c, sc in zip(codes, scales):
+        c[:, hidden] = -128
+        sc[:, hidden] = float("nan")
+    return q, kh, vh, mask, *codes, *scales
+
+
+def _same_nan(x: torch.Tensor, y: torch.Tensor) -> bool:
+    return bool(((x == y) | (x.isnan() & y.isnan())).all())
+
+
+def _dequant_sdpa_ms(q, codes, scales, mask, nhead: int) -> float:
+    """The two-call library reference of an int8 step: one torch.mul that
+    dequantizes the stacked k/v codes (2, N, p, M) by their (2, N, p) scales,
+    then SDPA; the stacked operands are made outside the timing."""
+    _, n, p, m = codes.shape
+    d = m // nhead
+    c = codes.view(2, n, p, nhead, d).transpose(2, 3)
+    sc = scales.view(2, n, 1, p, 1)
+    q4, live_mask = q.view(n, nhead, 1, d), mask[:, None, None, :p]
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q4, *torch.mul(c, sc).unbind(0),
+                                                          attn_mask=live_mask))
+
+
+def phase_attention_int8(gen: torch.Generator) -> dict:
+    """K3 on int8 caches at D1 (U 72) and D2's physical int8 cache (U 256),
+    at the ASR's 8 x 96 heads, against attention_step_plain: out within
+    1e-5, every code and scale bit for bit; timed at step 31 (D1) and 125
+    (D2). The D1 timing is the kernels line's entry."""
+    nhead, layer = 8, 3
+    checks, timed, max_err = [], {}, 0.0
+    for shape_name, steps, timed_step in (("D1", (0, 7, 8, 31, 63), 31),
+                                          ("D2", (0, 63, 64, 125, 251), 125)):
+        shape = _decode_cache_shape(shape_name)
+        layers, n, u, m = shape
+        for step in steps:
+            q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(shape, step, gen)
+            twin = [x.clone() for x in (ck, cv, ks, vs)]
+            got = attention_step(q, kh, vh, mask, ck, cv, step, layer, nhead, ks, vs)
+            want = attention_step_plain(q, kh, vh, mask, *twin[:2], step, layer, nhead, *twin[2:])
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            ok = bool(torch.isfinite(got).all()) and bool(
+                torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+            written = all(_same_nan(x, y) for x, y in zip((ck, cv, ks, vs), twin))
+            checks.append({"shape": shape_name, "step": step, "max_abs_err": err, "allclose": ok,
+                           "codes_and_scales_equal": written})
+            if not (ok and written):
+                raise AssertionError(f"int8 K3 disagrees with its plain twin: {checks[-1]}")
+            max_err = max(max_err, err)
+            del q, kh, vh, mask, ck, cv, ks, vs, twin
+        q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(shape, timed_step, gen)
+        p, d = timed_step + 1, m // nhead
+        ms = cuda_ms(lambda: attention_step(q, kh, vh, mask, ck, cv, timed_step, layer, nhead,
+                                            ks, vs))
+        plain_ms = cuda_ms(lambda: attention_step_plain(q, kh, vh, mask, ck, cv, timed_step,
+                                                        layer, nhead, ks, vs))
+        codes = torch.stack([c[layer, :, :p] for c in (ck, cv)])
+        scales = torch.stack([sc[layer, :, :p] for sc in (ks, vs)])
+        library_ms = _dequant_sdpa_ms(q, codes, scales, mask, nhead)
+        # valid cached positions before the step are read (codes and own-row
+        # scales); the step's k/v come from kh/vh and are written quantized
+        valid_cached = int(mask[:, :timed_step].sum())
+        valid = valid_cached + int(mask[:, timed_step].sum())
+        flops = 4 * valid * d * nhead + n * nhead * p + 2 * valid_cached * m
+        nbytes = (4 * n * m * 4 + n * p + 2 * valid_cached * (m + 4) + 2 * n * (m + 4))
+        entry = kernel_entry("attention_step_int8", max_err, ms, plain_ms, flops, nbytes,
+                             library_ms)
+        timed[shape_name] = {"step": timed_step, "cache": list(shape),
+                             "valid_cached_positions": valid_cached, "kernel_ms": ms,
+                             "plain_ms": plain_ms, "library_ms": library_ms,
+                             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+                             "achieved_gbps": nbytes / ms / 1e6,
+                             "share_of_bound": entry["bound_ms"] / ms}
+        if shape_name == "D1":
+            result = entry
+        del q, kh, vh, mask, ck, cv, ks, vs, codes, scales
+    result["max_abs_err"] = max_err
+    emit({"phase": "kernels", "kernel": "attention_step_int8", "nhead": nhead, "checks": checks,
+          "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "timed": timed,
+          "library": "two calls: torch.mul dequantizing the stacked k/v codes, then SDPA"})
+    return result
+
+
 def _paged_inputs(shape_name: str, dtype, fused: bool, step: int, gen: torch.Generator,
                   layers: int = DECODE_LAYERS, nhead: int = 8):
     """A paged decode cache at a decode shape, after ``step`` reorders of a
@@ -475,6 +638,8 @@ def _paged_inputs(shape_name: str, dtype, fused: bool, step: int, gen: torch.Gen
     for t in range(step):
         r = torch.rand(n // beams, beams, generator=gen, device=DEVICE)
         cache = beam_reorder_cache(cache, (beams * r * r).long(), t)
+    if dtype == torch.int8:
+        return _paged_int8_content(cache, step, gen)
     cache = {k: v.to(dtype) if v.is_floating_point() else v for k, v in cache.items()}
     for key in ("k", "v", "kv", "k_act", "v_act", "kv_act"):
         if key in cache:
@@ -491,6 +656,33 @@ def _paged_inputs(shape_name: str, dtype, fused: bool, step: int, gen: torch.Gen
     mask[:, 0] = True
     mask[0::2, step] = True
     mask[1::2, step] = False
+    return q, kh, vh, mask, cache
+
+
+def _paged_int8_content(cache: dict, step: int, gen: torch.Generator):
+    """``_paged_inputs``' int8 content: seeded codes and scales, with code
+    -128 (never written by the quantizer) in the pages and slots the step may
+    not read and NaN scales from the step on and at masked positions."""
+    n, m = cache["k"].shape[1], cache["k"].shape[3]
+    for key in ("k", "v", "k_act", "v_act"):
+        cache[key].random_(-127, 128, generator=gen)
+    for key in ("k_scale", "v_scale"):
+        cache[key].uniform_(1e-3, 0.05, generator=gen)
+    page = page_views(cache)[0].shape[3]
+    p_act, o = divmod(step, page)
+    for pages, act in zip(page_views(cache)[:2], page_views(cache)[2:]):
+        pages[:, :, p_act:] = -128
+        act[:, :, step % 2] = -128
+        act[:, :, (step + 1) % 2, o:] = -128
+    q, kh, vh = (torch.randn(n, m, generator=gen, device=DEVICE) for _ in range(3))
+    mask = torch.rand(n, cache["tokens"].shape[1], generator=gen, device=DEVICE) > 0.2
+    mask[:, 0] = True
+    mask[0::2, step] = True
+    mask[1::2, step] = False
+    hidden = ~mask
+    hidden[:, step:] = True
+    for key in ("k_scale", "v_scale"):
+        cache[key][:, hidden] = float("nan")
     return q, kh, vh, mask, cache
 
 
@@ -541,8 +733,8 @@ def _paged_bytes(cache: dict, mask, step: int, itemsize: int) -> int:
 
 
 def _equal_buffers(a: dict, b: dict) -> bool:
-    """Every k/v buffer equal, NaN where NaN, layer by layer."""
-    for key in ("k", "v", "kv", "k_act", "v_act", "kv_act"):
+    """Every k/v buffer (and int8 scale) equal, NaN where NaN, layer by layer."""
+    for key in ("k", "v", "kv", "k_act", "v_act", "kv_act", "k_scale", "v_scale"):
         if key in a:
             for x, y in zip(a[key], b[key]):
                 if not bool(((x == y) | (x.isnan() & y.isnan())).all()):
@@ -566,12 +758,15 @@ def _page_sharing(cache: dict, step: int) -> dict:
 
 def phase_paged_attention(kernel, checks_at, timed_at, gen: torch.Generator, nhead: int = 8) -> dict:
     """K5 (split layout) or K6 (fused) against its plain twin: out within
-    rtol/atol 1e-5 and every page and slot equal, at each (shape, dtype,
-    steps) of ``checks_at``; then timed at each (shape, dtype, step) of
-    ``timed_at`` (the first is the kernels line's entry). ``nhead``: 8 (the
-    ASR's 8 x 96) or 12 (the LM's 12 x 64)."""
+    rtol/atol 1e-5 and every page and slot (and int8 scale) equal, at each
+    (shape, dtype, steps) of ``checks_at``; then timed at each (shape, dtype,
+    step) of ``timed_at`` (the first is the kernels line's entry; int8 cases
+    make an ``_int8`` entry, with the two-call dequantize + SDPA reference).
+    ``nhead``: 8 (the ASR's 8 x 96) or 12 (the LM's 12 x 64)."""
     layer = 3
     fused = kernel is attention_step_paged_chunked
+    quant = {dtype for _, dtype, _ in checks_at} == {torch.int8}
+    name = kernel.__name__ + ("_int8" if quant else "")
     twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
     max_err, checks = 0.0, []
     for shape_name, dtype, steps in checks_at:
@@ -589,7 +784,7 @@ def phase_paged_attention(kernel, checks_at, timed_at, gen: torch.Generator, nhe
                            "max_abs_err": err, "allclose": ok, "pages_and_slots_equal": same,
                            "distinct_parents": int(torch.unique(cache["act_src"]).numel())})
             if not (ok and same):
-                raise AssertionError(f"{kernel.__name__} disagrees with its plain twin: {checks[-1]}")
+                raise AssertionError(f"{name} disagrees with its plain twin: {checks[-1]}")
             max_err = max(max_err, err)
             del q, kh, vh, mask, cache, twin_cache
     timed, result = {}, None
@@ -598,15 +793,30 @@ def phase_paged_attention(kernel, checks_at, timed_at, gen: torch.Generator, nhe
         d = q.shape[1] // nhead
         ms = cuda_ms(lambda: kernel(q, kh, vh, mask, cache, step, layer, nhead))
         plain_ms = cuda_ms(lambda: twin(q, kh, vh, mask, cache, step, layer, nhead))
-        k_log, v_log = (x.view(x.shape[0], step + 1, nhead, d).transpose(1, 2)
-                        for x in _paged_logical(cache, step, layer, kh, vh))
-        q4, live_mask = q.to(dtype).view(-1, nhead, 1, d), mask[:, None, None, :step + 1]
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k_log, v_log,
-                                                                     attn_mask=live_mask))
         valid = int(mask[:, :step + 1].sum())
         flops = 4 * valid * d * nhead + mask.shape[0] * nhead * (step + 1)
         nbytes = _paged_bytes(cache, mask, step, dtype.itemsize)
-        entry = kernel_entry(kernel.__name__, max_err, ms, plain_ms, flops, nbytes, library_ms)
+        if quant:
+            # the fresh token's codes and scale, then the logical codes
+            fresh = [quantize_rows(x) for x in (kh, vh)]
+            codes = torch.stack(_paged_logical(cache, step, layer, *(c for c, _ in fresh)))
+            scales = torch.stack([torch.cat([cache[key][layer, :, :step], sc[:, None]], 1)
+                                  for key, (_, sc) in zip(("k_scale", "v_scale"), fresh)])
+            library_ms = _dequant_sdpa_ms(q, codes, scales, mask, nhead)
+            valid_cached = int(mask[:, :step].sum())
+            # own-row scales read at the valid cached positions and written at
+            # the step (k and v, 4 B each); each cached code is dequantized once
+            nbytes += 8 * (valid_cached + mask.shape[0])
+            flops += 2 * valid_cached * q.shape[1]
+            del codes, scales
+        else:
+            k_log, v_log = (x.view(x.shape[0], step + 1, nhead, d).transpose(1, 2)
+                            for x in _paged_logical(cache, step, layer, kh, vh))
+            q4, live_mask = q.to(dtype).view(-1, nhead, 1, d), mask[:, None, None, :step + 1]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k_log, v_log,
+                                                                         attn_mask=live_mask))
+            del k_log, v_log
+        entry = kernel_entry(name, max_err, ms, plain_ms, flops, nbytes, library_ms)
         timed[f"{case_shape} {str(dtype)[6:]}"] = {
             "cache": [list(v.shape) for k, v in cache.items() if k in ("k", "kv")][0],
             "table": list(cache["table"].shape), "step": step,
@@ -618,11 +828,13 @@ def phase_paged_attention(kernel, checks_at, timed_at, gen: torch.Generator, nhe
             "share_of_bound": entry["bound_ms"] / ms}
         if result is None:
             result = entry
-        del q, kh, vh, mask, cache, k_log, v_log
-    emit({"phase": "kernels", "kernel": kernel.__name__, "nhead": nhead,
+        del q, kh, vh, mask, cache
+    emit({"phase": "kernels", "kernel": name, "nhead": nhead,
           "layout": "fused" if fused else "split", "checks": checks, "rtol": ATTN_RTOL,
           "atol": ATTN_ATOL, "timed": timed,
-          "library": "SDPA over the logical buffer, materialized outside the timing"})
+          "library": ("two calls: torch.mul dequantizing the stacked logical k/v codes, then SDPA"
+                      if quant else "SDPA")
+          + " over the logical buffer, materialized outside the timing"})
     return result
 
 
@@ -770,6 +982,15 @@ def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
                           [("D2", dt, (0, 63, 64, 125, 251)) for dt in (f32, bf16)],
                           [("D2", f32, 125), ("D2", bf16, 125)], gen, nhead=12)
     torch.cuda.empty_cache()
+    # int8 (K2, K3, K5), after every earlier phase so that theirs keep the
+    # seeded inputs of earlier trees: D1's and D2's caches, both whole-row
+    i8 = torch.int8
+    k5_int8_checks = [("D1", i8, (0, 31, 32, 50, 95)), ("D2", i8, (0, 31, 32, 125, 255))]
+    k5_int8_timed = [("D1", i8, 31), ("D2", i8, 125)]
+    entries += [phase_k2_int8(gen), phase_attention_int8(gen),
+                phase_paged_attention(attention_step_paged, k5_int8_checks, k5_int8_timed, gen)]
+    phase_paged_attention(attention_step_paged, k5_int8_checks, k5_int8_timed, gen, nhead=12)
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -877,24 +1098,34 @@ class StubTokenizer:
 
 # The decodes of each shape, in order: (layout, with the LM, decode_lm_megastep,
 # cache dtype). D2's bf16 runs are the serving decode (bf16 caches, as the
-# JAX package's serving and benchmarks take): page 32, K5 in every layer.
+# JAX package's serving and benchmarks take): page 32, K5 in every layer. The
+# int8 runs are the quantized serving decode (whole-row at D1 and D2: K5
+# paged, K2 + K3 physical, in both stacks); D1's with the LM is the JAX
+# package's "5 s, 64 steps" int8 shape.
 DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, True, "float32"),
-                      ("paged", True, True, "float32"), ("physical", True, True, "float32")),
+                      ("paged", True, True, "float32"), ("physical", True, True, "float32"),
+                      ("paged", True, True, "int8"), ("physical", True, True, "int8")),
                "D2": (("paged", False, True, "float32"), ("physical", False, True, "float32"),
                       ("paged", True, True, "float32"), ("paged", True, False, "float32"),
-                      ("paged", False, True, "bfloat16"), ("paged", True, True, "bfloat16"))}
+                      ("paged", False, True, "bfloat16"), ("paged", True, True, "bfloat16"),
+                      ("paged", False, True, "int8"), ("paged", True, True, "int8"),
+                      ("physical", False, True, "int8"))}
 # pairs of runs that must give identical tokens (scores within 1e-4), and
 # pairs that are only reported (K7 computes in bf16, the per-layer path in
 # f32; bf16 caches round what f32 ones keep)
-SAME_RUNS = {"D1": (("paged", "physical"), ("paged_lm", "physical_lm")),
-             "D2": (("paged", "physical"),)}
-REPORTED_RUNS = {"D2": (("paged_lm", "paged_lm_per_layer"), ("paged", "paged_bf16"),
-                        ("paged_lm", "paged_lm_bf16"))}
+SAME_RUNS = {"D1": (("paged", "physical"), ("paged_lm", "physical_lm"),
+                    ("paged_lm_int8", "physical_lm_int8")),
+             "D2": (("paged", "physical"), ("paged_int8", "physical_int8"))}
+REPORTED_RUNS = {"D1": (("paged_lm", "paged_lm_int8"),),
+                 "D2": (("paged_lm", "paged_lm_per_layer"), ("paged", "paged_bf16"),
+                        ("paged_lm", "paged_lm_bf16"), ("paged", "paged_int8"),
+                        ("paged_bf16", "paged_int8"), ("physical", "physical_int8"),
+                        ("paged_lm", "paged_lm_int8"), ("paged_lm_bf16", "paged_lm_int8"))}
 
 
 def _run_label(layout: str, with_lm: bool, mega: bool, dtype: str) -> str:
     return (layout + ("_lm" if with_lm else "") + ("" if mega else "_per_layer")
-            + ("_bf16" if dtype == "bfloat16" else ""))
+            + {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[dtype])
 
 
 def _expected_launches(name: str, layout: str, with_lm: bool, mega: bool, dtype: str,
@@ -904,13 +1135,13 @@ def _expected_launches(name: str, layout: str, with_lm: bool, mega: bool, dtype:
     step, except the LM's fused page-64 cache (f32 at D2) under K7 (one launch
     a step for all 12); physical caches add K2's k and v reorder of each cache
     a step. Paged caches page by 32 (K5) up to the whole-row bound of their
-    dtype (213 f32, 426 bf16 at M 768), else by 64, fused (K6)."""
+    dtype (213 f32, 426 bf16 and int8 at M 768), else by 64, fused (K6)."""
     expected = dict.fromkeys(("beam_gather", "attention_step", "attention_step_chunked",
                               "attention_step_paged", "attention_step_paged_chunked",
                               "lm_megastep"), 0)
     lm_layers = LM_LAYERS if with_lm else 0
     u = _decode_cache_shape(name)[2]
-    long_cache = u > max_u_whole_row(768, getattr(torch, dtype).itemsize)
+    long_cache = u > max_u_whole_row(768, max(getattr(torch, dtype).itemsize, 2))
     if layout == "physical":
         expected["attention_step_chunked" if long_cache else "attention_step"] = (
             (DECODE_LAYERS + lm_layers) * steps)
@@ -929,10 +1160,12 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
                  normalizer: InputNormalizer, card: str):
     """D1 and D2 through evaluate_batch with the ASR bundle, without and with
     the LM (``DECODE_RUNS``); returns the launch counts of those runs by kernel
-    and, per shape, the first two clean feature rows (for decode_parity)."""
+    (the int8 runs' under ``<kernel>_int8``) and, per shape, the first two
+    clean feature rows (for decode_parity)."""
     counters = (fused_fbank, beam_gather, attention_step, attention_step_chunked,
                 attention_step_paged, attention_step_paged_chunked, lm_megastep)
     totals = dict.fromkeys((c.__name__ for c in counters), 0)
+    totals.update(dict.fromkeys((f"{name}_int8" for name in INT8_KERNELS), 0))
     rng = np.random.default_rng(SEED + 10)
     parity_feats = {}
     for name, (batch, n_samples, max_steps) in DECODE_SHAPES.items():
@@ -971,7 +1204,10 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
             torch.cuda.synchronize()
             launches = {c.__name__: c.launches for c in counters}
             for key, value in launches.items():
-                totals[key] += value
+                if dtype == "int8" and key in INT8_KERNELS:
+                    totals[f"{key}_int8"] += value
+                else:
+                    totals[key] += value
 
             for c in counters:
                 c.launches = 0
@@ -1050,7 +1286,8 @@ def phase_decode_parity(asr: ASRModel, lm: TransformerLM, parity_feats: dict) ->
     features over 40 steps (a page completes at step 31), K6 at D2's over
     230 steps (U 256, fused), and the LM-fused D1 decode over 40 steps (K5 for
     the ASR's and the LM's layers; the LM's cache at D1 is not fused, so no K7
-    and no bf16 arithmetic). The card's physical decode of the same input is
+    and no bf16 arithmetic), and the int8 decode at D1's features over 40
+    steps (K5 on the card). The card's physical decode of the same input is
     also compared with its paged one (identical tokens and scores within
     1e-4): a card-vs-CPU disagreement that both card layouts share is the
     card's arithmetic, not the paged path. (At 220 steps D2's second
@@ -1058,11 +1295,14 @@ def phase_decode_parity(asr: ASRModel, lm: TransformerLM, parity_feats: dict) ->
     scores 2.9e-6 apart; the step count avoids it.)"""
     cpu_model = copy.deepcopy(asr).to("cpu")
     cpu_lm = copy.deepcopy(lm).to("cpu")
-    for name, steps, kernel, with_lm in (("D1", 40, attention_step_paged, False),
-                                         ("D2", 230, attention_step_paged_chunked, False),
-                                         ("D1", 40, attention_step_paged, True)):
+    for name, steps, kernel, with_lm, dtype in (
+            ("D1", 40, attention_step_paged, False, "float32"),
+            ("D2", 230, attention_step_paged_chunked, False, "float32"),
+            ("D1", 40, attention_step_paged, True, "float32"),
+            ("D1", 40, attention_step_paged, False, "int8")):
         feats, lens = parity_feats[name]
-        hp = {**DECODE_HPARAMS, "test_beam_size": 4, "max_decode_steps": steps}
+        hp = {**DECODE_HPARAMS, "test_beam_size": 4, "max_decode_steps": steps,
+              "decode_cache_dtype": dtype}
         card_lm, host_lm = (lm, cpu_lm) if with_lm else (None, None)
         kernel.launches = 0
         gpu = ASRBundle(asr, StubTokenizer(), hp, lm=card_lm)._decode_test(feats, lens)
@@ -1079,7 +1319,8 @@ def phase_decode_parity(asr: ASRModel, lm: TransformerLM, parity_feats: dict) ->
         layout_gap = float((gpu[2] - physical[2]).abs().max())
         same_tokens = torch.equal(gpu[0].cpu(), cpu[0]) and torch.equal(gpu[1].cpu(), cpu[1])
         gap = float((gpu[2].cpu() - cpu[2]).abs().max())
-        emit({"phase": "decode_parity", "shape": name, "lm": with_lm, "utterances": 2, "beam": 4,
+        emit({"phase": "decode_parity", "shape": name, "lm": with_lm, "cache_dtype": dtype,
+              "utterances": 2, "beam": 4,
               "steps": steps, "card_kernel": kernel.__name__, "identical_tokens": same_tokens,
               "score_gap": gap, "atol": DECODE_PARITY_ATOL,
               "card_layouts_identical_tokens": same_layouts, "card_layouts_score_gap": layout_gap,

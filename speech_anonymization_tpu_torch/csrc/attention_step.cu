@@ -51,13 +51,25 @@
 // k in the scores is a concession to its matrix unit, not the contract.
 // bf16 caches follow the TPU kernel's contract: q, kh and vh are rounded to
 // bf16 on entry, the cache is read as bf16, and every product and sum is
-// f32. int8 caches are not supported (the wrappers refuse them). Paged and
+// f32. int8 caches (K3 and K5 only; K4's and K6's int8 mode is the next
+// slice of the port) hold codes with an f32 scale per (layer, row, position)
+// in separate (L, N, U) arrays, indexed by the row's own logical position in
+// both layouts (paging moves only the code bytes). They follow the JAX
+// package's reference math (`attend_cached` + `finalize_jnp`), not the TPU
+// kernel's bf16 rounding of q and the dequantized keys: a cached element
+// reads as code * scale in f32 before any product, q and the fresh kh/vh stay
+// f32, and the rest is the f32 math. Each launch quantizes the fresh row of
+// M values (every head) once: amax = max(max |x|, 1e-6), code =
+// clip(rint(x * (127 / amax)), -127, 127) (round half to even), scale =
+// amax / 127, both divisions IEEE (the build keeps --use_fast_math off);
+// the TPU kernel's amax * (1 / 127) can differ in the last bit. Paged and
 // physical addressing of the same content give bit-identical outputs.
 //
 // Bound: each launch must read the live cache of its layer, k and v, at
 // the valid positions (2 * N * (step + 1) * M * itemsize bytes at most:
 // 3.24 MB * (step + 1) at N 528, M 768, f32; beams that share a completed
-// page share its bytes); the arithmetic (4 flops per cached element) is far
+// page share its bytes; int8 adds 8 bytes of scales a row and position); the
+// arithmetic (4 flops per cached element) is far
 // below the card's rate, so it is bound by device-memory bandwidth. The
 // paged kernels also write the merged active page, up to page positions of
 // k and v per row.
@@ -103,8 +115,16 @@
 //     block per page with a merge, and whole pages held in registers lost:
 //     each cut the blocks resident per SM or lengthened a block's chain of
 //     dependent loads.
+//   int8 (K3, K5): a 16-byte vector is 16 codes (d_head 96: 6 vectors, 64:
+//     4), each lane dequantizing with its position's scale as it loads. The
+//     quantizer's amax spans the whole row while a block holds one head, so
+//     in every block warp 0 reads the row's M values of kh and warp 1 those of
+//     vh (3 KB each, from L2) and reduce max |x| themselves: a max is exact, so
+//     every head's block gets the same scale bit for bit, with no second
+//     launch. Each block writes its head's codes; the row's head-0 block
+//     writes the two scales. K5's groups are 8 lanes with 6 or 4 live.
 // Limits checked by the Python wrappers: d_head a multiple of the vector
-// width (4 f32 or 8 bf16 elements) and at most 32 vectors, 16-byte aligned
+// width (4 f32, 8 bf16 or 16 int8 elements) and at most 32 vectors, 16-byte aligned
 // operands, 0 <= step < U, 0 <= layer < L, a power-of-two page dividing U.
 // table and act_src must hold rows in [0, N) (the beam reorder builds them
 // from in-range parents).
@@ -188,6 +208,7 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
   const int first = hd.warp * (32 / kGroup) + hd.lane / kGroup;
   for (int p0 = 0; p0 <= step; p0 += kPerBlock * kUnroll) {
     uint4 kr[kUnroll];
+    float ksc[kUnroll];  // int8: the positions' scales
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -195,6 +216,7 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
       ok[u] = p <= step && hd.mrow[p];  // masked positions are never read
       if (live && ok[u] && p != step) {
         kr[u] = *reinterpret_cast<const uint4*>(hd.at(p, false) + j * V);
+        if constexpr (Vec<T>::kQuant) ksc[u] = hd.ksrow[p];
       }
     }
 #pragma unroll
@@ -205,6 +227,8 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
         float kx[V];
         if (p == step) {
           load_fresh<T>(a.kh + hd.qoff + j * V, kx);
+        } else if constexpr (Vec<T>::kQuant) {
+          unpack(kr[u], kx, ksc[u]);
         } else {
           unpack(kr[u], kx);
         }
@@ -242,6 +266,7 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
   if (g < groups) {
     for (int p0 = g; p0 <= step; p0 += groups * kUnroll) {
       uint4 vr[kUnroll];
+      float vsc[kUnroll];  // int8: the positions' scales
       float w[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -249,6 +274,7 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
         w[u] = p <= step ? s[p] : 0.f;  // 0 where masked: skipped, never read
         if (w[u] != 0.f && p != step) {
           vr[u] = *reinterpret_cast<const uint4*>(hd.at(p, true) + jv * V);
+          if constexpr (Vec<T>::kQuant) vsc[u] = hd.vsrow[p];
         }
       }
 #pragma unroll
@@ -258,6 +284,8 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
           float vx[V];
           if (p == step) {
             load_fresh<T>(a.vh + hd.qoff + jv * V, vx);
+          } else if constexpr (Vec<T>::kQuant) {
+            unpack(vr[u], vx, vsc[u]);
           } else {
             unpack(vr[u], vx);
           }
@@ -295,21 +323,30 @@ __global__ void __launch_bounds__(kThreads, kChunkedBlocks<T>) attn_step_chunked
   attn_step_chunked_item<T, kPaged>(a, blockIdx.x, smem, a.out);
 }
 
-template <typename T, bool kPaged>
-int launch(const Args<T>& a, int nhead, int chunked, int device, cudaStream_t stream) {
+// K3 (f32, bf16, int8)
+template <typename T>
+int launch_k3(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
   const int groups = kThreads / (a.d_head / Vec<T>::kN);
-  // paged caches take the streamed kernel here (K6); K5 is attn_step_paged_rows
-  const bool streamed = chunked || kPaged;
-  const size_t floats = streamed ? chunked_smem_floats(groups, a.d_head)
-                                 : a.u + kWarps + static_cast<size_t>(groups) * a.d_head;
-  const int owners = kPaged ? (a.u >> a.page_shift) : 0;
-  const size_t smem = floats * sizeof(float) + static_cast<size_t>(owners) * sizeof(int);
-  auto kernel = streamed ? attn_step_chunked<T, kPaged> : attn_step_whole_row<T>;
-  // above 48 KB: K3 at U beyond ~11,800 positions
-  static int smem_set[2][kMaxDevices] = {};
-  const int err = allow_smem(kernel, smem, device, smem_set[chunked ? 1 : 0]);
+  const size_t smem = (a.u + kWarps + static_cast<size_t>(groups) * a.d_head) * sizeof(float);
+  // above 48 KB: U beyond ~11,800 positions
+  static int smem_set[kMaxDevices] = {};
+  const int err = allow_smem(attn_step_whole_row<T>, smem, device, smem_set);
   if (err != 0) return err;
-  if (a.n > 0) kernel<<<a.n * nhead, kThreads, smem, stream>>>(a);
+  if (a.n > 0) attn_step_whole_row<T><<<a.n * nhead, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 (kPaged = false) and K6 (kPaged = true), f32 and bf16
+template <typename T, bool kPaged>
+int launch_streamed(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
+  const int groups = kThreads / (a.d_head / Vec<T>::kN);
+  const int owners = kPaged ? (a.u >> a.page_shift) : 0;
+  const size_t smem = chunked_smem_floats(groups, a.d_head) * sizeof(float) +
+                      static_cast<size_t>(owners) * sizeof(int);
+  static int smem_set[kMaxDevices] = {};
+  const int err = allow_smem(attn_step_chunked<T, kPaged>, smem, device, smem_set);
+  if (err != 0) return err;
+  if (a.n > 0) attn_step_chunked<T, kPaged><<<a.n * nhead, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -322,12 +359,15 @@ int use_device(int device) {
 
 template <typename T>
 Args<T> make_args(const void* q, const void* kh, const void* vh, const void* mask, void* ck,
-                  void* cv, void* out, int n, int u, int m, int nhead, int step, int layer) {
+                  void* cv, void* ks, void* vs, void* out, int n, int u, int m, int nhead,
+                  int step, int layer) {
   Args<T> a = {};
   a.q = static_cast<const float*>(q);
   a.kh = static_cast<const float*>(kh);
   a.vh = static_cast<const float*>(vh);
   a.mask = static_cast<const unsigned char*>(mask);
+  a.ks = static_cast<float*>(ks);
+  a.vs = static_cast<float*>(vs);
   a.ck = static_cast<T*>(ck);
   a.cv = static_cast<T*>(cv);
   a.out = static_cast<float*>(out);
@@ -344,10 +384,10 @@ Args<T> make_args(const void* q, const void* kh, const void* vh, const void* mas
 
 template <typename T>
 int launch_paged(const void* q, const void* kh, const void* vh, const void* mask, void* ck,
-                 void* cv, void* ak, void* av, const void* table, const void* act_src, void* out,
-                 int n, int u, int m, int nhead, int step, int layer, int page, int fused,
-                 int chunked, int device, cudaStream_t stream) {
-  Args<T> a = make_args<T>(q, kh, vh, mask, ck, cv, out, n, u, m, nhead, step, layer);
+                 void* cv, void* ak, void* av, const void* table, const void* act_src, void* ks,
+                 void* vs, void* out, int n, int u, int m, int nhead, int step, int layer,
+                 int page, int fused, int chunked, int device, cudaStream_t stream) {
+  Args<T> a = make_args<T>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
   a.ak = static_cast<T*>(ak);
   a.av = static_cast<T*>(av);
   a.table = static_cast<const int*>(table);
@@ -357,7 +397,13 @@ int launch_paged(const void* q, const void* kh, const void* vh, const void* mask
   a.page_pos = fused ? 2 * page : page;
   a.slot_pos = fused ? 2 * page : page;
   a.v_off = fused ? page : 0;
-  if (chunked) return launch<T, true>(a, nhead, 1, device, stream);
+  if (chunked) {
+    if constexpr (Vec<T>::kQuant) {
+      return static_cast<int>(cudaErrorInvalidValue);  // K6 in int8: the next slice
+    } else {
+      return launch_streamed<T, true>(a, nhead, device, stream);
+    }
+  }
   const int nvec = a.d_head / Vec<T>::kN;  // lanes per position: nvec rounded up to 8, 16 or 32
   if (nvec <= 8) return launch_k5<T, 8>(a, nhead, device, stream);
   if (nvec <= 16) return launch_k5<T, 16>(a, nhead, device, stream);
@@ -369,26 +415,34 @@ int launch_paged(const void* q, const void* kh, const void* vh, const void* mask
 extern "C" {
 
 // q, kh, vh, out: (n, m) f32; mask: (n, u) bytes, nonzero = valid key;
-// ck, cv: (L, n, u, m) caches, f32 (dtype 0) or bf16 (dtype 1); all
-// contiguous on `device`. chunked = 0 launches the whole-row kernel (K3),
-// 1 the streamed one (K4). Writes out and the caches' (layer, :, step)
-// slices. Launches on `stream` and returns cudaGetLastError() (0 on
-// success). Does not synchronise.
+// ck, cv: (L, n, u, m) caches, f32 (dtype 0), bf16 (dtype 1) or int8 codes
+// (dtype 2, K3 only) with ks, vs their (L, n, u) f32 scales (null
+// otherwise); all contiguous on `device`. chunked = 0 launches the
+// whole-row kernel (K3), 1 the streamed one (K4). Writes out and the caches'
+// (layer, :, step) slices (int8: codes and scales). Launches on `stream` and
+// returns cudaGetLastError() (0 on success). Does not synchronise.
 int sa_attention_step(const void* q, const void* kh, const void* vh, const void* mask, void* ck,
-                      void* cv, void* out, int n, int u, int m, int nhead, int step, int layer,
-                      int dtype, int chunked, int device, void* stream) {
+                      void* cv, void* ks, void* vs, void* out, int n, int u, int m, int nhead,
+                      int step, int layer, int dtype, int chunked, int device, void* stream) {
   const int err = use_device(device);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float, false>(
-        make_args<float>(q, kh, vh, mask, ck, cv, out, n, u, m, nhead, step, layer), nhead,
-        chunked, device, s);
+    const Args<float> a =
+        make_args<float>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
+    return chunked ? launch_streamed<float, false>(a, nhead, device, s)
+                   : launch_k3<float>(a, nhead, device, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16, false>(
-        make_args<__nv_bfloat16>(q, kh, vh, mask, ck, cv, out, n, u, m, nhead, step, layer),
-        nhead, chunked, device, s);
+    const Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(q, kh, vh, mask, ck, cv, ks, vs, out,
+                                                           n, u, m, nhead, step, layer);
+    return chunked ? launch_streamed<__nv_bfloat16, false>(a, nhead, device, s)
+                   : launch_k3<__nv_bfloat16>(a, nhead, device, s);
+  }
+  if (dtype == 2 && !chunked) {
+    return launch_k3<int8_t>(
+        make_args<int8_t>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer),
+        nhead, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -400,22 +454,30 @@ int sa_attention_step(const void* q, const void* kh, const void* vh, const void*
 // cache and ak = av the (L, n, 2, 2 page, m) slots. table: (n, u / page)
 // int32; act_src: (n,) int32. Writes out and this layer's merged active page
 // of every row (its parity slot step % 2, or its main page step / page when
-// the page completes). Returns cudaGetLastError(); does not synchronise.
+// the page completes). int8 codes (dtype 2; K5 on the split layout only):
+// ks, vs are the (L, n, u) f32 scales by own row and logical position, and
+// the launch writes each row's fresh scales at (layer, row, step); null
+// otherwise. Returns cudaGetLastError(); does not synchronise.
 int sa_attention_step_paged(const void* q, const void* kh, const void* vh, const void* mask,
                             void* ck, void* cv, void* ak, void* av, const void* table,
-                            const void* act_src, void* out, int n, int u, int m, int nhead,
-                            int step, int layer, int page, int fused, int dtype, int chunked,
-                            int device, void* stream) {
+                            const void* act_src, void* ks, void* vs, void* out, int n, int u,
+                            int m, int nhead, int step, int layer, int page, int fused, int dtype,
+                            int chunked, int device, void* stream) {
   const int err = use_device(device);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_paged<float>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, out, n, u, m,
-                               nhead, step, layer, page, fused, chunked, device, s);
+    return launch_paged<float>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs, out, n, u,
+                               m, nhead, step, layer, page, fused, chunked, device, s);
   }
   if (dtype == 1) {
-    return launch_paged<__nv_bfloat16>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, out, n, u,
-                                       m, nhead, step, layer, page, fused, chunked, device, s);
+    return launch_paged<__nv_bfloat16>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs,
+                                       out, n, u, m, nhead, step, layer, page, fused, chunked,
+                                       device, s);
+  }
+  if (dtype == 2 && !fused) {
+    return launch_paged<int8_t>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs, out, n,
+                                u, m, nhead, step, layer, page, fused, chunked, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,10 +24,17 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int kN = 4;  // elements in 16 bytes
+  static constexpr bool kQuant = false;  // int8 codes with a scale per position
 };
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int kN = 8;
+  static constexpr bool kQuant = false;
+};
+template <>
+struct Vec<int8_t> {
+  static constexpr int kN = 16;
+  static constexpr bool kQuant = true;
 };
 
 // x rounded to the cache's element type (to nearest even), as a float
@@ -57,6 +64,30 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[8]) 
     x[2 * i] = f.x;
     x[2 * i + 1] = f.y;
   }
+}
+
+// 16 int8 codes -> floats, each dequantized as code * scale in f32 (the
+// int8 contract: no product before the dequantization)
+__device__ __forceinline__ void unpack(const uint4& r, float (&x)[16], float scale) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    x[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu)) * scale;
+  }
+}
+__device__ __forceinline__ void load_vec(const int8_t* p, float (&x)[16], float scale) {
+  unpack(*reinterpret_cast<const uint4*>(p), x, scale);
+}
+
+// floats -> 16 int8 codes: clip(round-half-even(x * inv), -127, 127), inv = 127 / amax
+__device__ __forceinline__ void store_codes(int8_t* p, const float (&x)[16], float inv) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float c = fminf(fmaxf(rintf(x[i] * inv), -127.f), 127.f);
+    w[i / 4] |= (static_cast<uint32_t>(static_cast<int>(c)) & 0xffu) << (8 * (i % 4));
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // 16 bytes of cache elements, as loaded -> floats
@@ -174,6 +205,8 @@ struct Args {
   int slot_pos;    // in one parity slot: page (split), 2 page (fused)
   int v_off;       // from a k page or slot to its v: 0 (split), page (fused)
   float scale;
+  float* ks;  // int8: (L, n, u) scales of k and v by own row and logical
+  float* vs;  //   position; position `step` written by the launch
 };
 
 // What both kernels share for one (row, head) work item, `item` = row * H +
@@ -193,6 +226,8 @@ struct Head {
   T* vmerge;
   const int* owners;  // paged: shared memory, the owner row of each completed page
   const unsigned char* mrow;  // mask row
+  float* ksrow;  // int8: this layer's and row's scales by position
+  float* vsrow;
   size_t qoff;        // offset of this head in the (N, M) operands
   size_t row_stride;  // paged: elements between rows of the main cache
   int m, nvec, lane, warp;
@@ -268,11 +303,49 @@ struct Head {
       kdst = kd + static_cast<size_t>(o) * m;
       vdst = vd + static_cast<size_t>(o) * m;
     }
-    if (warp == 0 && live) store_vec(kdst + lane * V, kv);
-    if (warp == 1 && live) {
-      float vv[V];
-      load_fresh<T>(a.vh + qoff + lane * V, vv);
-      store_vec(vdst + lane * V, vv);
+    if constexpr (Vec<T>::kQuant) {
+      ksrow = a.ks + (layer_row0 + row) * a.u;
+      vsrow = a.vs + (layer_row0 + row) * a.u;
+      // the quantizer's amax spans the row's M values (every head): warp 0
+      // reduces kh's, warp 1 vh's, each reading the whole row itself, so no
+      // second launch and no cross-block exchange. A max is exact in any
+      // order, so every head's block gets the same scale, bit for bit; the
+      // row's head-0 block writes the scales at (layer, row, step).
+      if (warp < 2) {
+        const float* fresh = warp == 0 ? a.kh : a.vh;
+        const float* src = fresh + static_cast<size_t>(row) * m;
+        float amax = 0.f;
+        for (int i = 4 * lane; i < m; i += 128) {
+          const float4 v = *reinterpret_cast<const float4*>(src + i);
+          amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+        }
+        amax = fmaxf(warp_max(amax), 1e-6f);
+        if (live) {
+          float x[V];
+          load_fresh<T>(fresh + qoff + lane * V, x);
+          store_codes((warp == 0 ? kdst : vdst) + lane * V, x, 127.f / amax);  // IEEE division
+        }
+        if (lane == 0 && item % nhead == 0) {
+          (warp == 0 ? ksrow : vsrow)[a.step] = amax / 127.f;
+        }
+      }
+    } else {
+      if (warp == 0 && live) store_vec(kdst + lane * V, kv);
+      if (warp == 1 && live) {
+        float vv[V];
+        load_fresh<T>(a.vh + qoff + lane * V, vv);
+        store_vec(vdst + lane * V, vv);
+      }
+    }
+  }
+
+  // 16 bytes of position p < step of this row and head, lane vector j, as
+  // floats (int8: dequantized with the position's scale)
+  __device__ __forceinline__ void load_at(int p, bool is_v, int j, float (&x)[V]) const {
+    if constexpr (Vec<T>::kQuant) {
+      load_vec(at(p, is_v) + j * V, x, (is_v ? vsrow : ksrow)[p]);
+    } else {
+      load_vec(at(p, is_v) + j * V, x);
     }
   }
 
@@ -298,7 +371,7 @@ struct Head {
         for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kv[i], dot);
       } else {
         float kx[V];
-        load_vec(at(p, false) + lane * V, kx);
+        load_at(p, false, lane, kx);
 #pragma unroll
         for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kx[i], dot);
       }
@@ -313,7 +386,7 @@ struct Head {
     if (p == step) {
       load_fresh<T>(vh + qoff + j * V, vx);
     } else {
-      load_vec(at(p, true) + j * V, vx);
+      load_at(p, true, j, vx);
     }
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = fmaf(w, vx[i], acc[i]);

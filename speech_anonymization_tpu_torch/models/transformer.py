@@ -24,6 +24,11 @@ cache on the card, given its stacked weights, is one K7 launch for every
 layer (``ops/lm_megastep.py``). Unlike the JAX arrays, the
 cache is updated in place (the fresh k/v or merged page, the token buffer)
 to avoid copying it every step.
+
+int8 caches (``decode_cache_dtype: int8``, the JAX package's quantized
+serving mode) hold int8 codes and (L, N, U) f32 ``k_scale``/``v_scale``, by
+the contract of ``ops/attention_step.py``; this slice serves them at U <=
+``max_u_whole_row(M, 2)`` (K3 physical, K5 paged, their twins on the CPU).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention_step import cached_attention_step, max_u_whole_row
+from ..ops.attention_step import cached_attention_step, max_u_whole_row, quantize_rows
 from ..ops.attention_step_paged import (
     PAGE,
     PAGE_LONG,
@@ -136,14 +141,19 @@ class MultiHeadAttention(nn.Module):
         out = self._context(qg, kh, vh, mask)
         return self.out(out.reshape(q.shape[0], 1, self.d_model))
 
-    def attend_cached(self, qh, kh, vh, k_buf, v_buf, mask, step: int):
+    def attend_cached(self, qh, kh, vh, k_buf, v_buf, mask, step: int, k_scale=None,
+                      v_scale=None):
         """Plain cached attention context, the JAX package's reference math.
 
         qh/kh/vh: (N, 1, H, Dh) current-token heads; k_buf/v_buf: (N, U, M)
         cache holding positions < step (position ``step`` and later may hold
         stale bytes: the fresh kh/vh take position ``step``); mask: optional
-        (N, 1, 1, U) key mask. Returns the context (N, 1, H, Dh), f32.
+        (N, 1, 1, U) key mask; int8 caches: k_scale/v_scale (N, U) f32, the
+        buffers dequantized first. Returns the context (N, 1, H, Dh), f32.
         """
+        if k_scale is not None:
+            k_buf = k_buf.float() * k_scale[:, :, None]
+            v_buf = v_buf.float() * v_scale[:, :, None]
         n, u, _ = k_buf.shape
         kb = k_buf.reshape(n, u, self.nhead, self.d_head).float()
         vb = v_buf.reshape(n, u, self.nhead, self.d_head)
@@ -280,18 +290,32 @@ def make_kv_cache(batch: int, u_max: int, num_layers: int, nhead: int, d_head: i
     ``fused=False`` (the JAX package's ``SATPU_FUSED_KV=0``): ``kv``
     (L, N, 2U, M), each logical page stored as [K-page, V-page], and
     ``kv_act`` (L, N, 2, 2 * page, M). All zeros.
+
+    int8 (either layout): the buffers hold codes, and ``k_scale``/``v_scale``
+    (L, N, U) f32 zeros the scales, by each row's own logical position. Served
+    up to ``max_u_whole_row(M, 2)`` (426 at M 768), where K3/K5 take them;
+    longer int8 caches raise ``NotImplementedError``, since the chunked int8
+    kernels (K4, K6, K7) are the next slice of the port.
     """
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"{dtype} caches are not ported (float32 and bfloat16 are)")
+    if dtype not in (torch.float32, torch.bfloat16, torch.int8):
+        raise NotImplementedError(f"{dtype} caches are not ported (float32, bfloat16 and int8 are)")
     m = nhead * d_head
     u = -(-u_max // 8) * 8
     page = PAGE
+    if dtype == torch.int8 and u > max_u_whole_row(m, 2):
+        raise NotImplementedError(
+            f"an int8 cache of {u} positions exceeds the whole-row bound {max_u_whole_row(m, 2)} "
+            f"at d_model {m}: the chunked int8 kernels (K4, K6, K7) are not ported yet")
     if u > max_u_whole_row(m, max(dtype.itemsize, 2)):
         u = -(-u // 64) * 64
         page = PAGE_LONG
     if paged:
         u = -(-u // page) * page
     tokens = torch.full((batch, u), pad_index, dtype=torch.long, device=device)
+    scales = {}
+    if dtype == torch.int8:
+        scales = {key: torch.zeros(num_layers, batch, u, dtype=torch.float32, device=device)
+                  for key in ("k_scale", "v_scale")}
     if not paged:
         shape = (num_layers, batch, u, m)
         return {
@@ -300,10 +324,12 @@ def make_kv_cache(batch: int, u_max: int, num_layers: int, nhead: int, d_head: i
             "k_spare": torch.empty(shape, dtype=dtype, device=device),
             "v_spare": torch.empty(shape, dtype=dtype, device=device),
             "tokens": tokens,
+            **scales,
         }
     rows = torch.arange(batch, dtype=torch.int32, device=device)
     cache = {
         "tokens": tokens,
+        **scales,
         # materialized: an expanded view would give the table a zero row stride
         "table": rows[:, None].repeat(1, u // page),
         "act_src": rows,
@@ -333,12 +359,19 @@ def beam_reorder_cache(cache: dict, parent: torch.Tensor, step: int | None = Non
     next attention step reads the parent's parity slot); when ``step``
     completed a page (the kernel wrote it to the main cache at its own row),
     that page's table column becomes the parents' rows. ``step`` is required.
+
+    int8, both layouts: ``k_scale``/``v_scale`` (L, N, U) are gathered along
+    N by the parents' rows, whole U, as the JAX package does. They are
+    indexed by each row's own position, so in the paged layout they must
+    move although the codes do not.
     """
     b, k = parent.shape
     src = (torch.arange(b, device=parent.device)[:, None] * k + parent).reshape(-1).to(torch.int32)
     tokens = cache["tokens"]
     n, u = tokens.shape
     toks = torch.gather(tokens.view(b, k, u), 1, parent[:, :, None].expand(b, k, u)).view(n, u)
+    scales = {key: cache[key].index_select(1, src) for key in ("k_scale", "v_scale")
+              if key in cache}
     if "table" in cache:
         if step is None:
             raise ValueError("the paged cache reorder needs the decode step")
@@ -346,7 +379,7 @@ def beam_reorder_cache(cache: dict, parent: torch.Tensor, step: int | None = Non
         page = u // table.shape[1]
         if step % page == page - 1:
             table[:, step // page] = src
-        moved = {"table": table, "act_src": src, "tokens": toks}
+        moved = {"table": table, "act_src": src, "tokens": toks, **scales}
         return {**cache, **moved}
     return {
         "k": beam_gather(cache["k"], src, step, cache["k_spare"]),
@@ -354,6 +387,7 @@ def beam_reorder_cache(cache: dict, parent: torch.Tensor, step: int | None = Non
         "k_spare": cache["k"],
         "v_spare": cache["v"],
         "tokens": toks,
+        **scales,
     }
 
 
@@ -375,7 +409,9 @@ def make_attends(attns: Sequence[MultiHeadAttention], cache: dict, mask_nu: torc
     (``ops.attention_step.cached_attention_step``), which writes the fresh
     k/v in place. Physical caches elsewhere:
     ``MultiHeadAttention.attend_cached`` on per-layer slices and one stacked
-    write at ``step`` in ``finalize``.
+    write at ``step`` in ``finalize``. int8: every path reads and writes the
+    scales beside the codes (the kernels in place; ``finalize`` quantizes the
+    stacked fresh rows as ``finalize_jnp`` does).
     """
     n, _ = mask_nu.shape
     paged = "table" in cache
@@ -389,7 +425,8 @@ def make_attends(attns: Sequence[MultiHeadAttention], cache: dict, mask_nu: torc
                 if paged:
                     out = cached_attention_step_paged(*args, cache, step, i, nhead)
                 else:
-                    out = cached_attention_step(*args, cache["k"], cache["v"], step, i, nhead)
+                    out = cached_attention_step(*args, cache["k"], cache["v"], step, i, nhead,
+                                                cache.get("k_scale"), cache.get("v_scale"))
                 return out.view(n, 1, nhead, d)
 
             return attend
@@ -398,15 +435,23 @@ def make_attends(attns: Sequence[MultiHeadAttention], cache: dict, mask_nu: torc
 
     self_mask = mask_nu[:, None, None, :]
 
+    quant = "k_scale" in cache
+
     def make_plain(i, attn):
         def attend(qh, kh, vh):
-            return attn.attend_cached(qh, kh, vh, cache["k"][i], cache["v"][i], self_mask, step)
+            scales = (cache["k_scale"][i], cache["v_scale"][i]) if quant else ()
+            return attn.attend_cached(qh, kh, vh, cache["k"][i], cache["v"][i], self_mask, step,
+                                      *scales)
 
         return attend
 
     def finalize_plain(khs, vhs):
-        cache["k"][:, :, step] = torch.stack(khs)[:, :, 0].to(cache["k"].dtype)
-        cache["v"][:, :, step] = torch.stack(vhs)[:, :, 0].to(cache["v"].dtype)
+        for key, fresh in (("k", khs), ("v", vhs)):
+            rows = torch.stack(fresh)[:, :, 0]  # (L, N, M) f32
+            if quant:
+                cache[key][:, :, step], cache[f"{key}_scale"][:, :, step] = quantize_rows(rows)
+            else:
+                cache[key][:, :, step] = rows.to(cache[key].dtype)
         return buffers
 
     return [make_plain(i, a) for i, a in enumerate(attns)], finalize_plain

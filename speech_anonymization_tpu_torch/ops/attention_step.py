@@ -16,7 +16,29 @@ q/kh/vh (N, M) f32 heads (flat), mask (N, U) nonzero = valid key. Returns the
 (N, M) f32 attention output over positions <= step (position ``step`` taking
 the fresh kh/vh) and writes kh/vh into the cache at ``(layer, :, step)`` in
 place. f32 caches compute in f32; bf16 caches round q/kh/vh to bf16 and
-accumulate in f32; int8 caches are refused.
+accumulate in f32.
+
+int8 caches (the JAX package's ``decode_cache_dtype: int8``; K3 only, K4's
+int8 mode is the next slice of the port) are the reference math of
+``MultiHeadAttention.attend_cached`` and ``finalize_jnp``:
+
+* the caches hold int8 codes; ``k_scale``/``v_scale`` (L, N, U) f32 hold one
+  symmetric scale per (layer, row, position), indexed by the row's own
+  logical position in both cache layouts;
+* the fresh row of M values (all heads) is quantized once, by
+  :func:`quantize_rows`: ``amax = max(max|x|, 1e-6)``, ``code =
+  clip(round(x * (127 / amax)), -127, 127)`` rounding half to even, ``scale
+  = amax / 127``, each division in IEEE f32. The TPU kernel's ``amax * (1 /
+  127)`` can differ in the last bit, and so does ``finalize_jnp`` under
+  ``jax.jit``, where XLA rewrites the division by the constant 127 as that
+  product; the contract is the division;
+* a cached element reads as ``code * scale`` in f32 before any product; q and
+  the fresh kh/vh stay f32 (the fresh token is not quantized in the step
+  that writes it), and the rest is the f32 math. The TPU kernel rounds q and
+  the dequantized keys to bf16 for its matrix unit; the port does not copy
+  that, as its f32 contract does not;
+* scales at positions > step, or masked, may be stale or NaN: they are
+  replaced before any product, like the codes they belong to.
 """
 
 from __future__ import annotations
@@ -31,7 +53,10 @@ import torch
 # to the chunked one; the port keeps the rule so both sides pick the same
 # kernel, though on the card the boundary is still to be re-tuned.
 _VMEM_BUDGET = 10 * 2**20
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# K4, K6 and K7 have no int8 mode yet: the chunked half of the quantized decode
+INT8_CHUNKED_NOT_PORTED = ("int8 caches above the whole-row bound (K4, K6, K7) are the next "
+                           "slice of the port; this slice serves int8 at U <= max_u_whole_row")
 _MAX_VECS = 32  # 16-byte vectors of one head: one warp lane each
 
 
@@ -45,13 +70,27 @@ def uses_chunked(u: int, m: int, dtype: torch.dtype) -> bool:
     return u > max_u_whole_row(m, max(dtype.itemsize, 2))
 
 
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., M) f32 rows -> ((..., M) int8 codes, (...,) f32 scales): the
+    int8 contract's quantizer (module docstring), ``finalize_jnp``'s form."""
+    amax = x.abs().amax(-1, keepdim=True).clamp_min(1e-6)
+    # tensor by tensor: ``127.0 / amax`` is a reciprocal times 127, and on
+    # CUDA ``amax / 127.0`` a product by 1 / 127; neither is the IEEE division
+    c127 = torch.full_like(amax, 127.0)
+    codes = torch.clamp(torch.round(x * torch.div(c127, amax)), -127, 127).to(torch.int8)
+    return codes, torch.div(amax, c127)[..., 0]
+
+
 def attend_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
-                 k_buf: torch.Tensor, v_buf: torch.Tensor, step: int, nhead: int) -> torch.Tensor:
+                 k_buf: torch.Tensor, v_buf: torch.Tensor, step: int, nhead: int,
+                 k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None) -> torch.Tensor:
     """The kernels' attention math in plain PyTorch (the same numerics by dtype).
 
     k_buf/v_buf: (N, step + 1, M) in the cache's dtype, one layer's content of
     positions <= step; position ``step`` is ignored (the fresh kh/vh take it).
-    Writes nothing.
+    int8: k_scale/v_scale (N, step + 1) f32, each position's scale. Writes
+    nothing.
     """
     n, m = q.shape
     d = m // nhead
@@ -63,8 +102,13 @@ def attend_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torc
     pos = torch.arange(p, device=q.device).view(1, p, 1, 1)
     valid = (mask[:, :p] != 0).view(n, p, 1, 1)
     # stale or masked positions are replaced BEFORE any product: 0 * NaN is NaN
-    kb = k_buf.float().view(n, p, nhead, d)
-    vb = v_buf.float().view(n, p, nhead, d)
+    kb = k_buf.float()
+    vb = v_buf.float()
+    if k_buf.dtype == torch.int8:  # dequantized element by element, as the kernels do
+        kb = kb * k_scale[:, :, None]
+        vb = vb * v_scale[:, :, None]
+    kb = kb.view(n, p, nhead, d)
+    vb = vb.view(n, p, nhead, d)
     kb = torch.where(valid, torch.where(pos == step, khf, kb), 0.0)
     vb = torch.where(valid, torch.where(pos == step, vhf, vb), 0.0)
     scores = torch.einsum("nqhd,nphd->nhp", qf, kb) / math.sqrt(d)
@@ -75,12 +119,22 @@ def attend_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torc
 
 def attention_step_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
                          cache_k: torch.Tensor, cache_v: torch.Tensor, step: int, layer: int,
-                         nhead: int) -> torch.Tensor:
-    """The kernels' function in plain PyTorch (the same numerics by dtype)."""
+                         nhead: int, k_scale: torch.Tensor | None = None,
+                         v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernels' function in plain PyTorch (the same numerics by dtype).
+    int8 caches take their (L, N, U) ``k_scale``/``v_scale``, written at
+    ``(layer, :, step)`` beside the codes."""
     p = step + 1
-    out = attend_plain(q, kh, vh, mask, cache_k[layer, :, :p], cache_v[layer, :, :p], step, nhead)
-    cache_k[layer, :, step] = kh.to(cache_k.dtype)
-    cache_v[layer, :, step] = vh.to(cache_v.dtype)
+    scales = (None, None)
+    if cache_k.dtype == torch.int8:
+        scales = (k_scale[layer, :, :p], v_scale[layer, :, :p])
+    out = attend_plain(q, kh, vh, mask, cache_k[layer, :, :p], cache_v[layer, :, :p], step, nhead,
+                       *scales)
+    for cache, scale, fresh in ((cache_k, k_scale, kh), (cache_v, v_scale, vh)):
+        if cache.dtype == torch.int8:
+            cache[layer, :, step], scale[layer, :, step] = quantize_rows(fresh)
+        else:
+            cache[layer, :, step] = fresh.to(cache.dtype)
     return out
 
 
@@ -88,7 +142,8 @@ def check_step_operands(q, kh, vh, mask, tensors: dict, itemsize: int, layers: i
                         u: int, m: int, step: int, layer: int, nhead: int) -> None:
     """Raises on what K3-K6 do not take, apart from the cache layout: the
     fresh (N, M) f32 operands, the (N, U) mask, one device, contiguity,
-    16-byte alignment of every float operand, the head width, step and layer.
+    16-byte alignment of every operand but the mask and the int tables, the
+    head width, step and layer.
     ``tensors``: the named cache operands; the first one's device is the
     kernels'."""
     for name, x in (("q", q), ("kh", kh), ("vh", vh)):
@@ -103,7 +158,7 @@ def check_step_operands(q, kh, vh, mask, tensors: dict, itemsize: int, layers: i
             raise ValueError(f"{name} is on {x.device}, the cache on {device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.is_floating_point() and x.data_ptr() % 16:
+        if name not in ("mask", "table", "act_src") and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     vec = 16 // itemsize
     if nhead <= 0 or m % nhead:
@@ -117,15 +172,28 @@ def check_step_operands(q, kh, vh, mask, tensors: dict, itemsize: int, layers: i
         raise ValueError(f"layer {layer} outside the cache's {layers} layers")
 
 
-def _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead) -> None:
+def check_scales(k_scale, v_scale, layers: int, n: int, u: int) -> dict:
+    """Raises unless both int8 scale arrays are given as (L, N, U) f32;
+    returns them by name for :func:`check_step_operands`."""
+    if k_scale is None or v_scale is None:
+        raise TypeError("int8 caches need their k_scale and v_scale")
+    for name, x in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if x.dtype != torch.float32 or x.shape != (layers, n, u):
+            raise ValueError(f"{name} must be ({layers}, {n}, {u}) float32, got {tuple(x.shape)} "
+                             f"{x.dtype}")
+    return {"k_scale": k_scale, "v_scale": v_scale}
+
+
+def _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_scale) -> None:
     if cache_k.dtype not in _DTYPE_CODES or cache_v.dtype != cache_k.dtype:
-        raise TypeError(f"attention_step takes float32 or bfloat16 caches, got "
+        raise TypeError(f"attention_step takes float32, bfloat16 or int8 caches, got "
                         f"{cache_k.dtype}/{cache_v.dtype}")
     if cache_k.ndim != 4 or cache_v.shape != cache_k.shape:
         raise ValueError(f"caches must be (L, N, U, M) of one shape, got {tuple(cache_k.shape)} "
                          f"and {tuple(cache_v.shape)}")
     layers, n, u, m = cache_k.shape
-    check_step_operands(q, kh, vh, mask, {"cache_k": cache_k, "cache_v": cache_v},
+    scales = check_scales(k_scale, v_scale, layers, n, u) if cache_k.dtype == torch.int8 else {}
+    check_step_operands(q, kh, vh, mask, {"cache_k": cache_k, "cache_v": cache_v, **scales},
                         cache_k.element_size(), layers, n, u, m, step, layer, nhead)
 
 
@@ -139,27 +207,33 @@ def _entry():
         from ..utils import cuda_build
 
         fn = cuda_build.load("attention_step").sa_attention_step
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def _launch(chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead) -> torch.Tensor:
-    _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead)
+def _launch(chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale,
+            v_scale) -> torch.Tensor:
+    _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_scale)
     _, n, u, m = cache_k.shape
     out = torch.empty(n, m, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ks, vs = (0, 0) if k_scale is None else (k_scale.data_ptr(), v_scale.data_ptr())
     err = _entry()(q.data_ptr(), kh.data_ptr(), vh.data_ptr(), mask.data_ptr(), cache_k.data_ptr(),
-             cache_v.data_ptr(), out.data_ptr(), n, u, m, nhead, step, layer,
-             _DTYPE_CODES[cache_k.dtype], int(chunked), q.device.index or 0, stream)
+                   cache_v.data_ptr(), ks, vs, out.data_ptr(), n, u, m, nhead, step, layer,
+                   _DTYPE_CODES[cache_k.dtype], int(chunked), q.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"attention_step kernel launch failed: CUDA error {err}")
     return out
 
 
-def _dispatch(wrapper, chunked: bool, *args) -> torch.Tensor:
-    device = args[4].device  # the cache's
+def _dispatch(wrapper, chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead,
+              k_scale, v_scale) -> torch.Tensor:
+    if chunked and cache_k.dtype == torch.int8:
+        raise TypeError(INT8_CHUNKED_NOT_PORTED)
+    args = (q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_scale)
+    device = cache_k.device
     if device.type == "cpu":
         return attention_step_plain(*args)
     if device.type != "cuda":
@@ -169,26 +243,29 @@ def _dispatch(wrapper, chunked: bool, *args) -> torch.Tensor:
     return out
 
 
-def attention_step(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int,
-                   nhead: int) -> torch.Tensor:
-    """K3, the whole-row kernel (counts one in ``attention_step.launches``)."""
-    return _dispatch(attention_step, False, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead)
+def attention_step(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int, nhead: int,
+                   k_scale=None, v_scale=None) -> torch.Tensor:
+    """K3, the whole-row kernel (counts one in ``attention_step.launches``);
+    int8 caches take their (L, N, U) scales, written at ``(layer, :, step)``."""
+    return _dispatch(attention_step, False, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead,
+                     k_scale, v_scale)
 
 
-def attention_step_chunked(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int,
-                           nhead: int) -> torch.Tensor:
-    """K4, the streamed kernel (counts one in ``attention_step_chunked.launches``)."""
+def attention_step_chunked(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int, nhead: int,
+                           k_scale=None, v_scale=None) -> torch.Tensor:
+    """K4, the streamed kernel (counts one in ``attention_step_chunked.launches``).
+    Refuses int8 caches: its int8 mode is the next slice of the port."""
     return _dispatch(attention_step_chunked, True, q, kh, vh, mask, cache_k, cache_v, step, layer,
-                     nhead)
+                     nhead, k_scale, v_scale)
 
 
 attention_step.launches = 0
 attention_step_chunked.launches = 0
 
 
-def cached_attention_step(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int,
-                          nhead: int) -> torch.Tensor:
+def cached_attention_step(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int, nhead: int,
+                          k_scale=None, v_scale=None) -> torch.Tensor:
     """K3 or K4 by the JAX rule: chunked when U > ``max_u_whole_row(M, max(itemsize, 2))``."""
     _, _, u, m = cache_k.shape
     kernel = attention_step_chunked if uses_chunked(u, m, cache_k.dtype) else attention_step
-    return kernel(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead)
+    return kernel(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_scale)

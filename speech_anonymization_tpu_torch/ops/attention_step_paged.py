@@ -29,11 +29,17 @@ Layouts (``make_kv_cache(paged=True)``), as a dict:
   fused: ``kv`` (L, N, 2U, M), each logical page stored as [K-page, V-page],
          and ``kv_act`` (L, N, 2, 2 * page, M);
   both:  ``table`` (N, U / page) int32, ``act_src`` (N,) int32.
+  int8:  ``k_scale``/``v_scale`` (L, N, U) f32 beside the int8 codes (split
+         layout, page 32: K5 only; K6's int8 mode is the next slice).
 q/kh/vh are (N, M) f32, mask (N, U) nonzero = valid key. f32 caches compute
 in f32; bf16 caches round q/kh/vh to bf16 and accumulate in f32; int8 caches
-are refused. :func:`attention_step_paged` launches K5 and
-:func:`attention_step_paged_chunked` K6 for CUDA tensors (either layout);
-both use the plain twins only for tensors on the CPU.
+follow ``ops/attention_step.py``'s int8 contract. The scales, like the mask,
+are indexed by the row's OWN logical position: paging moves only the code
+bytes, the beam reorder gathers the scales along N, and each launch writes
+the fresh row's scales at (layer, own row, step).
+:func:`attention_step_paged` launches K5 and :func:`attention_step_paged_chunked`
+K6 for CUDA tensors (either layout); both use the plain twins only for
+tensors on the CPU.
 :func:`cached_attention_step_paged` picks between them by the JAX rule.
 """
 
@@ -43,7 +49,15 @@ import ctypes
 
 import torch
 
-from .attention_step import _DTYPE_CODES, attend_plain, check_step_operands, uses_chunked
+from .attention_step import (
+    _DTYPE_CODES,
+    INT8_CHUNKED_NOT_PORTED,
+    attend_plain,
+    check_scales,
+    check_step_operands,
+    quantize_rows,
+    uses_chunked,
+)
 
 # Page sizes (``attention_step.py:403,407``): whole-row caches page by 32
 # positions, chunked (long) caches by 64, the chunked kernel's grain.
@@ -92,13 +106,19 @@ def _paged_plain(q, kh, vh, mask, cache: dict, step: int, layer: int, nhead: int
 
     k_buf, k_parent = logical(k_pages, k_act)
     v_buf, v_parent = logical(v_pages, v_act)
-    out = attend_plain(q, kh, vh, mask, k_buf, v_buf, step, nhead)
+    quant = k_buf.dtype == torch.int8
+    scales = ((cache["k_scale"][layer, :, :step + 1], cache["v_scale"][layer, :, :step + 1])
+              if quant else ())
+    out = attend_plain(q, kh, vh, mask, k_buf, v_buf, step, nhead, *scales)
     completes = o == page - 1
-    for pages, act, parent_page, fresh in ((k_pages, k_act, k_parent, kh),
-                                           (v_pages, v_act, v_parent, vh)):
+    for key, pages, act, parent_page, fresh in (("k_scale", k_pages, k_act, k_parent, kh),
+                                                ("v_scale", v_pages, v_act, v_parent, vh)):
         dst = pages[layer, :, p_act] if completes else act[layer, :, par_w]
-        dst[:, :o] = parent_page
-        dst[:, o] = fresh.to(dst.dtype)
+        dst[:, :o] = parent_page  # the parent's codes, as bytes
+        if quant:  # the fresh code at o, its scale at (layer, own row, step)
+            dst[:, o], cache[key][layer, :, step] = quantize_rows(fresh)
+        else:
+            dst[:, o] = fresh.to(dst.dtype)
     return out
 
 
@@ -135,7 +155,7 @@ def _check(q, kh, vh, mask, cache, step, layer, nhead) -> tuple[int, int, bool]:
     main_k, main_v, act_k, act_v, fused = _operands(cache)
     table, act_src = cache["table"], cache["act_src"]
     if main_k.dtype not in _DTYPE_CODES or {main_v.dtype, act_k.dtype, act_v.dtype} != {main_k.dtype}:
-        raise TypeError(f"paged attention takes float32 or bfloat16 caches, got "
+        raise TypeError(f"paged attention takes float32, bfloat16 or int8 caches, got "
                         f"{main_k.dtype}/{main_v.dtype}/{act_k.dtype}/{act_v.dtype}")
     if main_k.ndim != 4 or main_v.shape != main_k.shape:
         raise ValueError(f"main caches must be (L, N, U, M) of one shape, got "
@@ -153,9 +173,12 @@ def _check(q, kh, vh, mask, cache, step, layer, nhead) -> tuple[int, int, bool]:
         raise ValueError(f"active-page slots must be {slot}, got {tuple(act_k.shape)}")
     if act_src.dtype != torch.int32 or act_src.shape != (n,):
         raise ValueError(f"act_src must be ({n},) int32, got {tuple(act_src.shape)} {act_src.dtype}")
+    scales = {}
+    if main_k.dtype == torch.int8:
+        scales = check_scales(cache.get("k_scale"), cache.get("v_scale"), layers, n, u)
     check_step_operands(q, kh, vh, mask, {"main cache": main_k, "main v cache": main_v,
                                           "active slots": act_k, "active v slots": act_v,
-                                          "table": table, "act_src": act_src},
+                                          "table": table, "act_src": act_src, **scales},
                         main_k.element_size(), layers, n, u, m, step, layer, nhead)
     return u, page, fused
 
@@ -170,7 +193,7 @@ def _entry():
         from ..utils import cuda_build
 
         fn = cuda_build.load("attention_step").sa_attention_step_paged
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -182,9 +205,12 @@ def _launch(chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.
     n, m = q.shape
     out = torch.empty(n, m, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ks, vs = ((cache["k_scale"].data_ptr(), cache["v_scale"].data_ptr())
+              if main_k.dtype == torch.int8 else (0, 0))
     err = _entry()(q.data_ptr(), kh.data_ptr(), vh.data_ptr(), mask.data_ptr(), main_k.data_ptr(),
                    main_v.data_ptr(), act_k.data_ptr(), act_v.data_ptr(),
-                   cache["table"].data_ptr(), cache["act_src"].data_ptr(), out.data_ptr(), n, u, m,
+                   cache["table"].data_ptr(), cache["act_src"].data_ptr(), ks, vs,
+                   out.data_ptr(), n, u, m,
                    nhead, step, layer, page, int(fused), _DTYPE_CODES[main_k.dtype], int(chunked),
                    q.device.index or 0, stream)
     if err != 0:
@@ -193,6 +219,8 @@ def _launch(chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.
 
 
 def _dispatch(wrapper, chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.Tensor:
+    if chunked and (cache["kv"] if "kv" in cache else cache["k"]).dtype == torch.int8:
+        raise TypeError(INT8_CHUNKED_NOT_PORTED)
     device = cache["table"].device
     if device.type == "cpu":
         return _paged_plain(q, kh, vh, mask, cache, step, layer, nhead)
@@ -213,7 +241,8 @@ def attention_step_paged(q, kh, vh, mask, cache: dict, step: int, layer: int,
 def attention_step_paged_chunked(q, kh, vh, mask, cache: dict, step: int, layer: int,
                                  nhead: int) -> torch.Tensor:
     """K6, the streamed kernel over a paged cache, split or fused (counts one
-    in ``attention_step_paged_chunked.launches``)."""
+    in ``attention_step_paged_chunked.launches``). Refuses int8 caches: its
+    int8 mode is the next slice of the port."""
     return _dispatch(attention_step_paged_chunked, True, q, kh, vh, mask, cache, step, layer, nhead)
 
 

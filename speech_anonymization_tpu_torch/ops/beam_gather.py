@@ -4,7 +4,9 @@ Counterpart of ``speech_anonymization_tpu/ops/pallas/beam_gather.py``
 ``beam_gather_rows`` and its two TPU kernels, ``_dma_kernel`` (K2a, positions
 <= step) and ``_copy_kernel`` (K2b, whole rows). One CUDA kernel,
 ``csrc/beam_gather.cu``, serves both: whole rows are the case
-``step = U - 1``. Its header states the bound and the design. The wrapper
+``step = U - 1``. Its header states the bound and the design. It is a byte
+copy, so the int8 caches' codes move exactly as f32 or bf16 elements do (their
+(L, N, U) scales are gathered by ``beam_reorder_cache``). The wrapper
 :func:`beam_gather` launches it for CUDA tensors and uses
 :func:`beam_gather_plain` only for tensors on the CPU.
 
@@ -24,7 +26,7 @@ import ctypes
 
 import torch
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_DTYPES = (torch.float32, torch.bfloat16, torch.int8)  # a byte copy: any element type
 _MAX_PIECES = 65535  # grid y: 16 KB pieces of one row's live span
 _fn = None  # the bound C entry point, set on first launch
 _faults: dict[torch.device, torch.Tensor] = {}  # per-device count of out-of-range sources
@@ -87,7 +89,7 @@ def _check(a: torch.Tensor, src: torch.Tensor, out: torch.Tensor) -> None:
     if a.ndim != 4:
         raise ValueError(f"expected an (L, N, U, M) cache, got shape {tuple(a.shape)}")
     if a.dtype not in _DTYPES:
-        raise TypeError(f"beam_gather takes float32 or bfloat16 caches, got {a.dtype}")
+        raise TypeError(f"beam_gather takes float32, bfloat16 or int8 caches, got {a.dtype}")
     if out.shape != a.shape or out.dtype != a.dtype:
         raise ValueError("out must have the cache's shape and dtype")
     if src.dtype != torch.int32 or src.shape != (a.shape[1],):

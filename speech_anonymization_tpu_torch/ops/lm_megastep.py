@@ -14,8 +14,9 @@ product, f32 accumulation and f32 residuals.
 launch, counted in ``lm_megastep.launches``) and runs
 :func:`lm_megastep_plain`, which follows the kernel's rounding points, only
 for tensors on the CPU. Both refuse what the kernel does not take: int8
-caches, the split layout, a page other than 64, a ``d_model`` that is not a
-multiple of 128, a ``d_ffn`` that is not a multiple of ``d_model``,
+caches (their K7 mode is the next slice of the port; an int8 LM cache is
+whole-row in this slice, served by K5 or K3 per layer), the split layout, a
+page other than 64, a ``d_model`` that is not a multiple of 128, a ``d_ffn`` that is not a multiple of ``d_model``,
 misaligned or non-contiguous operands.
 """
 
@@ -26,7 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .attention_step import _DTYPE_CODES, check_step_operands
+from .attention_step import _DTYPE_CODES, INT8_CHUNKED_NOT_PORTED, check_step_operands
 from .attention_step_paged import PAGE_LONG, _paged_plain
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, inside the rsqrt
@@ -80,6 +81,8 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
 
 def _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead) -> tuple[int, int]:
     """Raises on what the kernel does not take; returns (layers, d_ffn)."""
+    if cache_kv.dtype == torch.int8:
+        raise TypeError(INT8_CHUNKED_NOT_PORTED)
     if cache_kv.dtype not in _DTYPE_CODES or act_kv.dtype != cache_kv.dtype:
         raise TypeError(f"the LM step kernel takes float32 or bfloat16 caches, got "
                         f"{cache_kv.dtype}/{act_kv.dtype}")

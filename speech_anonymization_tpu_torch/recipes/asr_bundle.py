@@ -26,6 +26,14 @@ weights are made once, here, and a fused paged LM cache on the card (U above
 arithmetic as the JAX package does on its accelerator (``decode_lm_megastep:
 false`` keeps the per-layer K6 path). The LM is a built module: loading its
 checkpoint is not ported.
+
+``decode_cache_dtype`` is ``float32`` (the default), ``bfloat16`` or ``int8``
+(the JAX package's quantized serving mode: int8 codes with a scale per
+layer, row and position, quantized as each step writes them). int8 is served
+up to the whole-row bound (``max_u_whole_row(d_model, 2)``, 426 positions at
+d_model 768), where K5 (paged) or K3 with K2 (physical) take it; a longer int8
+decode raises ``NotImplementedError`` when its cache is made, as the chunked
+int8 kernels (K4, K6, K7) are the next slice of the port.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from ..losses import cosine_similarity_loss, mse_loss
 from ..models.asr import ASRModel
 from ..models.transformer import TransformerLM, beam_reorder_cache, make_kv_cache, use_paged_cache
 
-_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
 
 class ASRBundle:
@@ -52,7 +60,8 @@ class ASRBundle:
         self.utility_kind = utility_kind
         self.beam_size = int(hparams.get("test_beam_size", 66))
         # the recipe default float32 keeps the scores stable against the
-        # reference's f32 decode; 'bfloat16' halves the cache traffic
+        # reference's f32 decode; 'bfloat16' halves the cache traffic and
+        # 'int8' (quantized serving, whole-row caches in this slice) halves it again
         self.cache_dtype = _CACHE_DTYPES[hparams.get("decode_cache_dtype", "float32")]
         self.paged_kv = bool(hparams.get("decode_paged_kv", True))
         self.lm_weight = float(hparams.get("lm_weight", 0.6)) if lm is not None else 0.0

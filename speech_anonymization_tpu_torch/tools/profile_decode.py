@@ -2,7 +2,8 @@
 
 Usage, on a machine with one NVIDIA card:
 
-    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical] [--lm] [--bf16]
+    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical] [--lm]
+        [--bf16 | --int8]
 
 D1 (default) is scripts/bench_decode.py's shape: 8 utterances of T = 504
 feature frames (126 encoder frames), 64 decode steps; D2 is bench.py's
@@ -17,7 +18,10 @@ test decode: at D2 paged its step is one K7 launch, elsewhere 12 attention
 launches of the ASR's kind. ``--bf16`` takes bf16 caches
 (``decode_cache_dtype: bfloat16``, the serving setting): D2 then pages by 32
 (U 256 is within the bf16 whole-row bound), so K5 serves every layer, the
-LM's too, and K7 does not run. After a warm-up,
+LM's too, and K7 does not run. ``--int8`` takes int8 caches
+(``decode_cache_dtype: int8``, the quantized serving mode): whole-row at D1
+and D2 (U 256 is within the int8 whole-row bound of 426), so K5 serves every
+paged layer and K3 with K2 every physical one. After a warm-up,
 one decode runs under ``torch.profiler``; the script prints one JSON line:
 the wall time with and without the profiler, summed device time, the
 device's busy share of the profiled wall time, the number of kernel launches,
@@ -55,8 +59,11 @@ def main(argv: list[str]) -> int:
         print("profile_decode: CUDA is not available", file=sys.stderr)
         return 1
     with_lm = "--lm" in argv
-    cache_dtype = "bfloat16" if "--bf16" in argv else "float32"
-    argv = [a for a in argv if a not in ("--lm", "--bf16")]
+    if "--bf16" in argv and "--int8" in argv:
+        print("profile_decode: --bf16 and --int8 exclude each other", file=sys.stderr)
+        return 2
+    cache_dtype = "bfloat16" if "--bf16" in argv else "int8" if "--int8" in argv else "float32"
+    argv = [a for a in argv if a not in ("--lm", "--bf16", "--int8")]
     name = argv[0] if argv else "D1"
     layout = argv[1] if len(argv) > 1 else "paged"
     if layout not in ("paged", "physical"):

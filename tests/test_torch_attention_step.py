@@ -102,3 +102,89 @@ def test_cpu_wrappers_take_the_plain_twin():
         got = kernel(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 5, 0, 4)
         assert torch.equal(got, want)
     assert (port.attention_step.launches, port.attention_step_chunked.launches) == counts
+
+
+def _int8_inputs(shape, step, seed, masked_fresh, bf16_fresh=False):
+    """int8 codes and (L, N, U) scales, NaN scales and code -128 (which the
+    quantizer never writes) beyond the step; ``bf16_fresh``: q/kh/vh that
+    bf16 represents exactly (the TPU kernel rounds them to bf16 on entry, so
+    both quantize the same kh/vh)."""
+    layers, n, u, m, _ = shape
+    q, kh, vh, mask, _, _ = _inputs(shape, step, seed, masked_fresh)
+    if bf16_fresh:
+        q, kh, vh = (np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+                     for x in (q, kh, vh))
+    rng = np.random.default_rng(seed + 1)
+    ck, cv = (rng.integers(-127, 128, (layers, n, u, m)).astype(np.int8) for _ in range(2))
+    ks, vs = (rng.uniform(0.002, 0.05, (layers, n, u)).astype(np.float32) for _ in range(2))
+    for c, s in ((ck, ks), (cv, vs)):
+        c[:, :, step + 1:] = -128
+        s[:, :, step + 1:] = np.nan
+    return q, kh, vh, mask, ck, cv, ks, vs
+
+
+INT8_CASES = [case for case in CASES if case[0] == "whole_row"]
+
+
+@pytest.mark.parametrize("name,step,masked_fresh", INT8_CASES)
+def test_int8_matches_attend_cached(name, step, masked_fresh):
+    """int8 caches: the twin against ``attend_cached`` + ``finalize_jnp`` (run
+    eagerly, as the reference's own division) at atol 1e-5, the written codes
+    and scales bit for bit."""
+    shape = SHAPES[name]
+    layers, n, u, m, nhead = shape
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_inputs(shape, step, 300 + step, masked_fresh)
+    d = m // nhead
+    cache = {"k": jnp.asarray(ck), "v": jnp.asarray(cv), "k_scale": jnp.asarray(ks),
+             "v_scale": jnp.asarray(vs)}
+    attends, finalize = _make_attends([None] * layers, [MultiHeadAttention(m, nhead)] * layers,
+                                      cache, jnp.asarray(mask), step, nhead)
+    want = np.asarray(attends[1](*(jnp.asarray(x).reshape(n, 1, nhead, d) for x in (q, kh, vh))))
+    new = finalize(*([jnp.asarray(x).reshape(n, 1, m)] * layers for x in (kh, vh)))
+
+    pk, pv, pks, pvs = t(ck), t(cv), t(ks), t(vs)
+    got = attention_step_plain(t(q), t(kh), t(vh), t(mask), pk, pv, step, 1, nhead, pks, pvs)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.reshape(n, m), atol=1e-5, rtol=0)
+    for port_cache, key in ((pk, "k"), (pv, "v"), (pks, "k_scale"), (pvs, "v_scale")):
+        np.testing.assert_array_equal(port_cache[1, :, :step + 1].numpy(),
+                                      np.asarray(new[key])[1, :, :step + 1], err_msg=key)
+    np.testing.assert_array_equal(pk[0].numpy(), ck[0])  # the other layer is untouched
+
+
+@pytest.mark.parametrize("name,step,masked_fresh", INT8_CASES)
+def test_int8_matches_tpu_kernel_interpret(name, step, masked_fresh):
+    """int8 caches: the twin against the TPU kernel in interpret mode at its
+    own int8 tolerance, 3e-2 relative to the largest output
+    (tests/test_attention_step_kernel.py:168; it rounds q and the dequantized
+    keys to bf16); codes equal, scales within one f32 ulp (the kernel's
+    ``amax * (1 / 127)``)."""
+    shape = SHAPES[name]
+    _, n, _, m, nhead = shape
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_inputs(shape, step, 400 + step, masked_fresh,
+                                                   bf16_fresh=True)
+    want, nck, ncv, kso, vso = cached_attention_step(
+        jnp.asarray(q), jnp.asarray(kh), jnp.asarray(vh), jnp.asarray(mask.astype(np.int8)),
+        jnp.asarray(ck), jnp.asarray(cv), step, 1, nhead, interpret=True,
+        k_scale=jnp.asarray(ks[1]), v_scale=jnp.asarray(vs[1]))
+    want = np.asarray(want)
+    pk, pv, pks, pvs = t(ck), t(cv), t(ks), t(vs)
+    got = attention_step_plain(t(q), t(kh), t(vh), t(mask), pk, pv, step, 1, nhead, pks, pvs)
+    rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert rel < 3e-2, rel
+    for port_cache, jax_cache in ((pk, nck), (pv, ncv)):
+        np.testing.assert_array_equal(port_cache[1, :, step].numpy(),
+                                      np.asarray(jax_cache[1, :, step]))
+    for port_scale, jax_scale in ((pks, kso), (pvs, vso)):
+        np.testing.assert_array_max_ulp(port_scale[1, :, step].numpy(),
+                                        np.asarray(jax_scale)[:, 0], 1)
+
+
+def test_int8_chunked_kernel_refuses():
+    """K4 has no int8 mode yet (the next slice); it refuses on either device."""
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_inputs(SHAPES["whole_row"], 3, 5, False)
+    with pytest.raises(TypeError, match="next slice"):
+        port.attention_step_chunked(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 3, 0, 4, t(ks),
+                                    t(vs))
+    with pytest.raises(TypeError, match="k_scale"):
+        port._check(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 3, 0, 4, None, None)

@@ -78,8 +78,29 @@ def test_make_kv_cache_rounds_u_like_jax(dtype, u_max):
 
 
 def test_refuses_int8_caches():
-    with pytest.raises(NotImplementedError):
-        make_kv_cache(4, 8, 2, 8, 96, dtype=torch.int8, device="cpu")
+    """int8 caches are served up to the whole-row bound (426 at M 768: U 424
+    after the rounding to 8); a longer one would need the chunked int8
+    kernels, not ported yet, and raises instead of taking another path."""
+    assert make_kv_cache(4, 424, 2, 8, 96, dtype=torch.int8, device="cpu")["k"].shape[2] == 424
+    for paged in (False, True):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            make_kv_cache(4, 425, 2, 8, 96, dtype=torch.int8, device="cpu", paged=paged)
+
+
+@pytest.mark.parametrize("step", [0, 5, 15, None])
+def test_plain_twin_matches_tpu_kernel_int8(step):
+    """int8 codes move as bytes, exactly, through K2's twin and the TPU kernel
+    (interpret mode), every code value -128..127 included."""
+    rng = np.random.default_rng(20 if step is None else 20 + step)
+    codes = rng.integers(-128, 128, size=(3, 12, 16, 128)).astype(np.int8)
+    src = rng.integers(0, 12, size=(12,)).astype(np.int32)
+    want = np.asarray(beam_gather_rows(jnp.asarray(codes), jnp.asarray(src), step, interpret=True))
+    out = torch.full(codes.shape, 99, dtype=torch.int8)
+    got = beam_gather(t(codes), t(src), step, out)
+    assert got is out and beam_gather.launches == 0
+    p = 16 if step is None else step + 1
+    np.testing.assert_array_equal(got[:, :, :p].numpy(), want[:, :, :p])
+    assert (got[:, :, p:] == 99).all()
 
 
 def test_plain_twin_copies_only_the_live_positions():

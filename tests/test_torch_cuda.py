@@ -1,7 +1,8 @@
 """The port on an NVIDIA card: K1 to K7 against their plain twins (K5 in its
-four configurations with identity, single-owner and mixed tables), and the
-anonymization and decode slices (physical and paged caches, with and without
-the LM) on the card against the CPU. Imports no JAX, so it runs on a machine without it:
+four configurations with identity, single-owner and mixed tables; K2, K3 and
+K5 on int8 caches too), and the anonymization and decode slices (physical and
+paged caches, f32, bf16 and int8, with and without the LM) on the card
+against the CPU. Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -142,11 +143,27 @@ def test_k2_matches_plain_twin(cuda, dtype, step):
     assert got[:, :, p:].isnan().all()  # later positions untouched
 
 
+@pytest.mark.parametrize("step", [0, 31, None])
+def test_k2_int8_matches_plain_twin(cuda, step):
+    """int8 codes (every value -128..127) at D1's row width, M 768 bytes:
+    the byte copy equals the twin exactly; positions after the step untouched."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randint(-128, 128, (2, 7, 72, 768), generator=g, device=cuda, dtype=torch.int8)
+    src = torch.tensor([3, 3, 0, 6, 1, 1, 2], dtype=torch.int32, device=cuda)
+    out = torch.full_like(a, 99)
+    before = beam_gather.launches
+    beam_gather(a, src, step, out)
+    torch.cuda.synchronize()
+    assert beam_gather.launches == before + 1
+    want = beam_gather_plain(a.cpu(), src.cpu(), step, torch.full_like(a.cpu(), 99))
+    assert torch.equal(out.cpu(), want)
+
+
 def test_k2_rejects_bad_operands(cuda):
     a = torch.zeros(2, 8, 16, 96, device=cuda)
     src = torch.arange(8, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        beam_gather(a.to(torch.int8), src, 3, torch.empty_like(a, dtype=torch.int8))
+        beam_gather(a.to(torch.int16), src, 3, torch.empty_like(a, dtype=torch.int16))
     with pytest.raises(TypeError):
         beam_gather(a.double(), src, 3, torch.empty_like(a, dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -227,10 +244,55 @@ def test_dispatch_follows_the_jax_rule(cuda, dtype, u, chunked):
         int(not chunked), int(chunked))
 
 
+def _int8_attention_inputs(n, u, m, step, seed, device):
+    """Seeded f32 q/kh/vh, int8 codes and (2, n, u) scales; code -128 (never
+    written by the quantizer) and NaN scales from the step on and at masked
+    positions, where no read may reach."""
+    q, kh, vh, mask, _, _ = _attention_inputs(n, u, m, torch.float32, step, seed, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    codes = [torch.randint(-127, 128, (2, n, u, m), generator=g, device=device, dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand(2, n, u, generator=g, device=device) * 0.05 + 1e-3 for _ in range(2)]
+    hidden = ~mask
+    hidden[:, step:] = True  # the step's own position holds stale bytes too
+    for c, s in zip(codes, scales):
+        c[:, hidden] = -128
+        s[:, hidden] = float("nan")
+    return q, kh, vh, mask, *codes, *scales
+
+
+@pytest.mark.parametrize("u,step_at", [(72, 0), (72, 31), (72, 71), (256, 125), (256, 255),
+                                       (424, 423)])
+@pytest.mark.parametrize("nhead", [8, 12])
+def test_k3_int8_matches_plain_twin(cuda, u, step_at, nhead):
+    """K3 on int8 caches at D1's U 72, D2's U 256 and the int8 whole-row
+    bound (U 424 <= 426), at the ASR's 8 x 96 heads and the LM's 12 x 64:
+    out within 1e-5 of the twin's, every code and scale equal."""
+    n, m = 9, 768
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(n, u, m, step_at, u + step_at, cuda)
+    twin = [x.clone() for x in (ck, cv, ks, vs)]
+    before = attention_step.launches
+    got = attention_step(q, kh, vh, mask, ck, cv, step_at, 1, nhead, ks, vs)
+    want = attention_step_plain(q, kh, vh, mask, *twin[:2], step_at, 1, nhead, *twin[2:])
+    torch.cuda.synchronize()
+    assert attention_step.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for a, b in zip((ck, cv, ks, vs), twin):
+        assert _same(a, b)
+
+
 def test_k3_k4_reject_bad_operands(cuda):
     q, kh, vh, mask, ck, cv = _attention_inputs(8, 16, 768, torch.float32, 3, seed=9, device=cuda)
+    scales = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(TypeError, match="next slice"):  # K4 in int8
+        attention_step_chunked(q, kh, vh, mask, ck.to(torch.int8), cv.to(torch.int8), 3, 0, 8,
+                               scales, scales)
+    with pytest.raises(ValueError):  # scales of another shape
+        attention_step(q, kh, vh, mask, ck.to(torch.int8), cv.to(torch.int8), 3, 0, 8,
+                       scales[:, :, :8], scales[:, :, :8])
     for kernel in (attention_step, attention_step_chunked):
-        with pytest.raises(TypeError):
+        with pytest.raises(TypeError):  # int8 codes without their scales
             kernel(q, kh, vh, mask, ck.to(torch.int8), cv.to(torch.int8), 3, 0, 8)
         with pytest.raises(TypeError):
             kernel(q, kh, vh, mask, ck.double(), cv.double(), 3, 0, 8)
@@ -253,7 +315,7 @@ class _Tok:
         return " ".join(str(i) for i in ids)
 
 
-@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
 def test_decode_on_card_matches_cpu(cuda, cache_dtype):
     """A small ASR decode (beam 4, CTC 0.4) through K2 and K3 on the card and
     through the plain paths on the CPU: the same hypotheses."""
@@ -331,12 +393,54 @@ def test_k5_k6_protocol_match_plain_twin(cuda, name, dtype):
     assert kernel.launches == before + 2 * steps
 
 
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("u_max", [80, 250])
+def test_k5_int8_protocol_matches_plain_twin(cuda, u_max, nhead):
+    """K5 on int8 caches (page 32: U 96 as D1's, U 256 as D2's) over 76
+    steps with a random beam reorder after each (pages complete at 31 and
+    63), at 8 x 96 and 12 x 64, from caches whose codes are all -128 and
+    scales NaN: out within 1e-5 of the twin's, finite, and every page, slot,
+    scale, table and act_src equal after every step."""
+    n = 8
+    cache = make_kv_cache(n, u_max, 2, nhead, 768 // nhead, torch.int8, device=cuda, paged=True)
+    for key in cache:
+        if key in ("k", "v", "k_act", "v_act"):
+            cache[key].fill_(-128)
+        elif key in ("k_scale", "v_scale"):
+            cache[key].fill_(float("nan"))
+    twin_cache = {k: v.clone() for k, v in cache.items()}
+    rng = np.random.default_rng(u_max + nhead)
+    u = cache["tokens"].shape[1]
+    assert u == (96 if u_max == 80 else 256) and cache["table"].shape[1] * 32 == u
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    before = attention_step_paged.launches
+    for step in range(76):
+        for layer in range(2):
+            q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                         for _ in range(3))
+            got = attention_step_paged(q, kh, vh, mask, cache, step, layer, nhead)
+            want = attention_step_paged_plain(q, kh, vh, mask, twin_cache, step, layer, nhead)
+            assert torch.isfinite(got).all(), (step, layer)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        for key in cache:
+            assert _same(cache[key], twin_cache[key]), (step, key)
+        parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
+        cache = beam_reorder_cache(cache, parent, step)
+        twin_cache = beam_reorder_cache(twin_cache, parent, step)
+    torch.cuda.synchronize()
+    assert attention_step_paged.launches == before + 2 * 76
+
+
 def test_paged_kernels_reject_bad_operands(cuda):
     cache = make_kv_cache(8, 80, 2, 8, 96, device=cuda, paged=True)
     q = torch.zeros(8, 768, device=cuda)
     mask = torch.ones(8, 96, dtype=torch.bool, device=cuda)
+    int8 = make_kv_cache(8, 80, 2, 8, 96, torch.int8, device=cuda, paged=True)
+    with pytest.raises(TypeError, match="next slice"):  # K6 in int8
+        attention_step_paged_chunked(q, q, q, mask, int8, 3, 0, 8)
     for kernel in (attention_step_paged, attention_step_paged_chunked):
-        with pytest.raises(TypeError):
+        with pytest.raises(TypeError):  # int8 codes without their scales
             kernel(q, q, q, mask, {k: v.to(torch.int8) if v.is_floating_point() else v
                                    for k, v in cache.items()}, 3, 0, 8)
         with pytest.raises(ValueError):  # a table without its row stride
@@ -354,14 +458,15 @@ def test_paged_kernels_reject_bad_operands(cuda):
             kernel(q, q, q, mask, cache, 3, 2, 8)
 
 
-@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("regime", ["page32", "page64_fused"])
 def test_paged_decode_on_card_matches_cpu(cuda, regime, cache_dtype):
     """A small ASR decode (beam 4 over 2 utterances: N = 8) that pages on the
     card (d_model % 128 == 0) and not on the CPU: the same hypotheses, scores
     within 1e-3; and the card's physical decode equal to its paged one.
     page32: d_model 128, 44 steps (a page completes at step 31); page64_fused:
-    d_model 768, 220 steps (U 256: fused K6 for f32, K5 at page 32 for bf16)."""
+    d_model 768, 220 steps (U 256: fused K6 for f32, K5 at page 32 for bf16
+    and int8)."""
     widths, frames, steps = ((dict(d_model=128, nhead=4, num_decoder_layers=2), 176, None)
                              if regime == "page32" else
                              (dict(d_model=768, nhead=8, num_decoder_layers=1), 900, 220))
@@ -670,7 +775,7 @@ def test_k7_refuses_bad_operands(cuda):
         names = ("x0", "mask", "kv", "act", "table", "src", "step", "wall", "vecs", "nhead")
         return tuple(kw.get(k, v) for k, v in zip(names, ok))
 
-    with pytest.raises(TypeError):  # int8 caches
+    with pytest.raises(TypeError, match="next slice"):  # int8 caches
         lm_megastep(*bad(kv=c["kv"].to(torch.int8), act=c["kv_act"].to(torch.int8)))
     with pytest.raises(ValueError):  # the split layout: k cache and k slots
         lm_megastep(*bad(kv=c["kv"][:, :, :u].contiguous(), act=c["kv_act"][:, :, :, :64].contiguous()))

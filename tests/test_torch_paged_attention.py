@@ -315,3 +315,112 @@ def test_twin_matches_jax_on_identity_and_single_owner_tables(table_kind, nan_ma
         assert torch.isfinite(got).all()
         np.testing.assert_allclose(got.numpy(), np.asarray(want[i]), atol=2e-4, rtol=0,
                                    err_msg=f"layer {i}")
+
+
+def _int8_state(rng, u, s0):
+    """Seeded int8 codes and (L, N, U) scales at page 32 (split), with the
+    table/act_src of a beam history of s0 steps."""
+    state = _mid_decode_state(rng, PAGE32, False, u, s0)
+    for key in ("k", "v", "k_act", "v_act"):
+        state[key] = rng.integers(-127, 128, state[key].shape).astype(np.int8)
+    for key in ("k_scale", "v_scale"):
+        state[key] = rng.uniform(0.002, 0.05, (L, N, u)).astype(np.float32)
+    return state
+
+
+PAGE32 = 32
+
+
+def test_int8_protocol_matches_jax():
+    """int8 caches, page 32 (the only int8 paging in this slice): the split
+    twin against ``_make_attends_paged_jnp(quant=True)`` + ``attend_cached``
+    (the reference math, run eagerly: jitted, XLA turns finalize's division
+    by 127 into a product) over 40 steps with a random beam reorder after
+    each, crossing the page completion at step 31. Every output within 1e-5;
+    at the end the logical codes and the scales equal JAX's bit for bit. The
+    scales move with the reorder while the codes do not, so a reorder that
+    left them behind fails here."""
+    steps, u = 40, 64
+    rng = np.random.default_rng(77)
+    mask = rng.random((N, u)) > 0.2
+    mask[:, 0] = True
+    zero = _zero_cache(PAGE32, False, u, np.int8)
+    zero["k_scale"], zero["v_scale"] = (np.zeros((L, N, u), np.float32) for _ in range(2))
+    jcache, pcache = _to_jax(zero), _to_port(zero)
+    attns = [MultiHeadAttention(M, H)] * L
+    d = M // H
+    for t in range(steps):
+        q, kh, vh = (rng.standard_normal((L, N, M)).astype(np.float32) for _ in range(3))
+        attends, finalize = _make_attends_paged_jnp(attns, jcache, jnp.asarray(mask), t, H, True)
+        want = [attends[i](*(jnp.asarray(x[i]).reshape(N, 1, H, d) for x in (q, kh, vh)))
+                for i in range(L)]
+        jcache = {**finalize([jnp.asarray(x).reshape(N, 1, M) for x in kh],
+                             [jnp.asarray(x).reshape(N, 1, M) for x in vh]),
+                  "tokens": jcache["tokens"]}
+        for i in range(L):
+            got = attention_step_paged_plain(*(torch.from_numpy(x[i]) for x in (q, kh, vh)),
+                                             torch.from_numpy(mask), pcache, t, i, H)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want[i]).reshape(N, M), atol=1e-5,
+                                       rtol=0, err_msg=f"step {t} layer {i}")
+        parent = rng.integers(0, K, (B, K))
+        jcache = jax_reorder(jcache, jnp.asarray(parent, jnp.int32), t)
+        pcache = beam_reorder_cache(pcache, torch.from_numpy(parent), t)
+    last = steps - 1
+    for got, want in zip(_logical(pcache, PAGE32, last), _logical(jcache, PAGE32, last)):
+        np.testing.assert_array_equal(got, want)
+    for key in ("k_scale", "v_scale"):
+        np.testing.assert_array_equal(pcache[key][:, :, :steps].numpy(),
+                                      np.asarray(jcache[key])[:, :, :steps], err_msg=key)
+
+
+def test_int8_matches_tpu_kernel_interpret():
+    """int8, page 32: the split twin against the TPU kernel
+    ``cached_attention_step_paged`` in interpret mode over steps 30-32 (a page
+    completes at 31) from a seeded mid-decode state, at the kernel's own int8
+    tolerance, 3e-2 relative to the largest output (it rounds q and the
+    dequantized keys to bf16); q/kh/vh that bf16 represents exactly, so both
+    quantize the same rows: the rebuilt codes equal the kernel's, and each
+    step's scales are within one f32 ulp (the kernel's ``amax * (1 / 127)``)."""
+    s0, u = 30, 64
+    rng = np.random.default_rng(31)
+    state = _int8_state(rng, u, s0)
+    jcache, pcache = _to_jax(state), _to_port(state)
+    mask = rng.random((N, u)) > 0.2
+    mask[:, 0] = True
+    for t in range(s0, s0 + 3):
+        for i in range(L):
+            q, kh, vh = (np.asarray(jnp.asarray(rng.standard_normal((N, M)), jnp.bfloat16),
+                                    np.float32) for _ in range(3))
+            (want, jcache["k"], jcache["v"], jcache["k_act"], jcache["v_act"], kso,
+             vso) = ats.cached_attention_step_paged(
+                jnp.asarray(q), jnp.asarray(kh), jnp.asarray(vh), jnp.asarray(mask.astype(np.int8)),
+                jcache["k"], jcache["v"], jcache["k_act"], jcache["v_act"], jcache["table"],
+                jcache["act_src"], t, i, H, interpret=True, k_scale=jcache["k_scale"][i],
+                v_scale=jcache["v_scale"][i])
+            jcache["k_scale"] = jcache["k_scale"].at[i, :, t].set(kso[:, 0])
+            jcache["v_scale"] = jcache["v_scale"].at[i, :, t].set(vso[:, 0])
+            got = attention_step_paged_plain(torch.from_numpy(q), torch.from_numpy(kh),
+                                             torch.from_numpy(vh), torch.from_numpy(mask), pcache,
+                                             t, i, H)
+            want = np.asarray(want)
+            rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+            assert rel < 3e-2, (t, i, rel)
+            for key in ("k_scale", "v_scale"):
+                np.testing.assert_array_max_ulp(pcache[key][i, :, t].numpy(),
+                                                np.asarray(jcache[key][i, :, t]), 1)
+        parent = rng.integers(0, K, (B, K))
+        jcache = jax_reorder(jcache, jnp.asarray(parent, jnp.int32), t)
+        pcache = beam_reorder_cache(pcache, torch.from_numpy(parent), t)
+    for got, want in zip(_logical(pcache, PAGE32, s0 + 2), _logical(jcache, PAGE32, s0 + 2)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_int8_chunked_kernel_refuses():
+    """K6 has no int8 mode yet (the next slice): it refuses an int8 cache,
+    scales and all, on either device."""
+    state = _int8_state(np.random.default_rng(5), 64, 40)
+    q = torch.zeros(N, M)
+    mask = torch.ones(N, 64, dtype=torch.bool)
+    with pytest.raises(TypeError, match="next slice"):
+        port.attention_step_paged_chunked(q, q, q, mask, _to_port(state), 40, 1, H)
+    assert port.attention_step_paged(q, q, q, mask, _to_port(state), 40, 1, H).shape == (N, M)
