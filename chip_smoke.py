@@ -46,10 +46,22 @@ failure raises and exits non-zero:
            (``<kernel>_int8``): K2 on D1's and D2's physical int8 caches
            (bit-exact), K3 at D1 (U 72) and D2 (U 256), K5 at D1's paged
            cache (U 96) and D2's page-32 one (U 256), at 8 x 96 and 12 x
-           64, with code -128 and NaN scales wherever the step may not read:
-           out within 1e-5, every written code, page, slot and scale equal
-           to the twin's; the library reference is two calls (torch.mul
-           dequantizing the stacked k/v codes, then SDPA);
+           64; and the chunked int8 modes at D3 (the 30 s shape, U 512): K4
+           on the physical cache, K6 on the fused page-64 one (simulated
+           beam history, ``page_sharing``) at 8 x 96 and 12 x 64, both at
+           steps 0, 63, 64 and 447, timed at 223; every int8 cache holds
+           what a decode writes (quantize_rows of N(0, 1) rows), with code
+           -128 and NaN scales wherever the step may not read: out within
+           1e-5, every written code, page, slot and scale equal to the
+           twin's; the library reference is two calls (torch.mul
+           dequantizing the stacked k/v codes, then SDPA); last K7 on D3's
+           int8 LM cache at
+           steps 0, 63, 64, 223 and 447, a layer at a time (x within
+           K7_LAYER_ATOL, written codes within one, their differing share
+           reported, scales within K7_INT8_SCALE_RTOL) and in one launch
+           (K7_ATOL, K7_MEAN_ATOL, the log-prob tolerance), timed at 223
+           beside its twin, the bf16 K7 and the int8 per-layer path (cuBLAS
+           + K6 int8 x 12) on the same shape;
   slice    the anonymization path at bench.py's shape (32 utterances of
            161,120 samples = 10.07 s, T = 1008 frames), seeded random weights:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
@@ -76,12 +88,18 @@ failure raises and exits non-zero:
            and for the LM's 12 too; no K7), without and with the LM; and the
            int8 serving decode (whole-row caches: K5 paged, K2 + K3
            physical): D1 paged and physical with the LM, D2 paged without
-           and with the LM and physical without. Launch counts
+           and with the LM and physical without; and D3, the JAX package's
+           30 s int8 serving shape (8 x 480,000 samples, 3,001 frames, 448
+           steps, U 512: the chunked int8 kernels): paged with the LM (K6 for
+           the ASR, one K7 launch a step for the LM), paged with the LM per
+           layer (K6 x 18), paged without it (K6 x 6) and physical (K4 + K2),
+           its timing 2 decodes after the launch check. Launch counts
            are reset right before each run and read right after; one more
            decode checks the launches of a single decode; then
-           ``_decode_test`` is timed. Paged and physical decodes on the card
-           give identical tokens, scores within 1e-4 (with the LM, and in
-           int8, too); for D2's K7 decode against its per-layer one, and for
+           ``_decode_test`` is timed (``run_s``: the whole run's wall).
+           Paged and physical decodes on the card give identical tokens,
+           scores within 1e-4 (with the LM, and in int8, D3's too); for D2's
+           and D3's K7 decode against its per-layer one, and for
            the bf16 and int8 decodes against the f32 (and bf16) ones, the
            share of identical hypotheses and the score gap are reported (bf16
            arithmetic, quantization);
@@ -94,8 +112,9 @@ failure raises and exits non-zero:
            features (K5 on the card, the twins' physical path on the CPU)
            alike.
 
-Then the card's name and power limit (nvidia-smi), the kernel table as one
-JSON object, and last ``{"ok": true, "device": {...}}``. Without CUDA the
+Then the whole run's wall time (``{"phase": "wall", ...}``), the card's name
+and power limit (nvidia-smi), the kernel table as one JSON object, and last
+``{"ok": true, "device": {...}}``. Without CUDA the
 script exits non-zero before printing any result. fp32 throughout, TF32 off
 (K7 computes with bf16 weights and activations, by its contract; K1's
 three-pass TF32 product keeps fp32 accuracy; the bf16 decodes keep bf16
@@ -184,8 +203,13 @@ ATTN_RTOL = ATTN_ATOL = 1e-5
 DECODE_HPARAMS = {"test_beam_size": 66, "ctc_weight_decode": 0.4, "temperature": 1.15,
                   "decode_cache_dtype": "float32"}
 # name: (utterances, samples, max_decode_steps); D1 is scripts/bench_decode.py's shape
-# (T = 504 frames, 126 encoder frames), D2 bench.py's length (T = 1008, 252 frames)
-DECODE_SHAPES = {"D1": (8, 80_480, 64), "D2": (8, 161_120, None)}
+# (T = 504 frames, 126 encoder frames), D2 bench.py's length (T = 1008, 252 frames),
+# D3 the JAX package's 30 s int8 serving shape (BENCHMARKS.md:223-229: T = 3001,
+# 751 encoder frames, 448 steps, U 512), decoded with int8 caches only
+DECODE_SHAPES = {"D1": (8, 80_480, 64), "D2": (8, 161_120, None), "D3": (8, 480_000, 448)}
+# (iters, warmup) of each shape's timed decodes; D3's launch-check decode
+# right before is its warm-up
+DECODE_TIMING = {"D1": (3, 1), "D2": (3, 1), "D3": (2, 0)}
 DECODE_PARITY_ATOL = 1e-3  # scores, card vs CPU: cuBLAS and the CPU sum in other orders
 # paged vs physical on the card: the same kernels' arithmetic on the same
 # content (K5 is K3's, K6 K4's, with other addresses)
@@ -209,6 +233,10 @@ K7_ATOL = 0.25
 K7_MEAN_ATOL = 0.03
 K7_ULP_SLACK = 1e-5
 K7_LOGP_RTOL, K7_LOGP_ATOL = 0.1, 0.12
+# int8 K7 a layer at a time: both quantize bf16-valued k/v from products
+# summed in other orders, so an element, and with it the row's amax, can
+# differ by one bf16 ulp: codes within one, scales within 2^-7 relative
+K7_INT8_SCALE_RTOL = 2.0 ** -7
 KERNEL_SOURCES = {
     "fused_fbank": ("speech_anonymization_tpu_torch/csrc/fbank.cu",
                     "speech_anonymization_tpu/ops/pallas/fbank_kernel.py:61"),
@@ -225,9 +253,11 @@ KERNEL_SOURCES = {
     "lm_megastep": ("speech_anonymization_tpu_torch/csrc/lm_megastep.cu",
                     "speech_anonymization_tpu/ops/pallas/lm_megastep.py:111"),
 }
-# the int8 modes of K2, K3 and K5: the same kernels' int8 instantiations, each
-# its own row of the table (launches counted over the int8 decodes)
-INT8_KERNELS = ("beam_gather", "attention_step", "attention_step_paged")
+# the int8 modes of every kernel but K1: the same kernels' int8
+# instantiations, each its own row of the table (launches counted over the
+# int8 decodes)
+INT8_KERNELS = ("beam_gather", "attention_step", "attention_step_chunked", "attention_step_paged",
+                "attention_step_paged_chunked", "lm_megastep")
 KERNEL_SOURCES.update({f"{name}_int8": KERNEL_SOURCES[name] for name in INT8_KERNELS})
 
 
@@ -523,20 +553,33 @@ def phase_attention(kernel, shape_name: str, steps, timed_step: int, gen: torch.
     return entry
 
 
+def _quantized(shape, gen: torch.Generator):
+    """Codes (L, ..., M) and scales (L, ...): ``quantize_rows`` of seeded
+    N(0, 1) rows, a layer at a time, the content a decode writes. (Codes
+    drawn uniformly in +-127 at scales up to 0.05 hold values twice as
+    large; over D3's 448 positions the f32 sums of K4 and its twin, taken in
+    other orders, then differed by 1.3e-5 on an H100, past ATTN_ATOL, with
+    every code and scale equal.)"""
+    codes = torch.empty(shape, dtype=torch.int8, device=DEVICE)
+    scales = torch.empty(shape[:-1], device=DEVICE)
+    for layer in range(shape[0]):
+        codes[layer], scales[layer] = quantize_rows(
+            torch.randn(shape[1:], generator=gen, device=DEVICE))
+    return codes, scales
+
+
 def _int8_attention_inputs(shape, step: int, gen: torch.Generator):
-    """Seeded f32 q/kh/vh, int8 codes and (L, N, U) scales; code -128 (which
-    the quantizer never writes) and NaN scales from the step on and at
-    masked positions, where no read may reach; odd rows' fresh token masked."""
-    layers, n, u, m = shape
+    """Seeded f32 q/kh/vh, int8 codes and (L, N, U) scales (:func:`_quantized`);
+    code -128 (which the quantizer never writes) and NaN scales from the step
+    on and at masked positions, where no read may reach; odd rows' fresh
+    token masked."""
+    _, n, u, m = shape
     q, kh, vh = (torch.randn(n, m, generator=gen, device=DEVICE) for _ in range(3))
     mask = torch.rand(n, u, generator=gen, device=DEVICE) > 0.2
     mask[:, 0] = True
     mask[0::2, step] = True
     mask[1::2, step] = False
-    codes = [torch.randint(-127, 128, (layers, n, u, m), generator=gen, device=DEVICE,
-                           dtype=torch.int8) for _ in range(2)]
-    scales = [torch.rand(layers, n, u, generator=gen, device=DEVICE) * 0.05 + 1e-3
-              for _ in range(2)]
+    codes, scales = zip(*(_quantized(shape, gen) for _ in range(2)))
     hidden = ~mask
     hidden[:, step:] = True
     for c, sc in zip(codes, scales):
@@ -562,21 +605,21 @@ def _dequant_sdpa_ms(q, codes, scales, mask, nhead: int) -> float:
                                                           attn_mask=live_mask))
 
 
-def phase_attention_int8(gen: torch.Generator) -> dict:
-    """K3 on int8 caches at D1 (U 72) and D2's physical int8 cache (U 256),
-    at the ASR's 8 x 96 heads, against attention_step_plain: out within
-    1e-5, every code and scale bit for bit; timed at step 31 (D1) and 125
-    (D2). The D1 timing is the kernels line's entry."""
+def phase_attention_int8(kernel, cases, gen: torch.Generator) -> dict:
+    """K3 or K4 on int8 caches at the ASR's 8 x 96 heads against
+    attention_step_plain: out within 1e-5, every code and scale bit for bit,
+    at each (shape, steps, timed step) of ``cases``, timed at its timed step.
+    The first case's timing is the kernels line's entry."""
     nhead, layer = 8, 3
-    checks, timed, max_err = [], {}, 0.0
-    for shape_name, steps, timed_step in (("D1", (0, 7, 8, 31, 63), 31),
-                                          ("D2", (0, 63, 64, 125, 251), 125)):
+    name = kernel.__name__ + "_int8"
+    checks, timed, max_err, result = [], {}, 0.0, None
+    for shape_name, steps, timed_step in cases:
         shape = _decode_cache_shape(shape_name)
         layers, n, u, m = shape
         for step in steps:
             q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(shape, step, gen)
             twin = [x.clone() for x in (ck, cv, ks, vs)]
-            got = attention_step(q, kh, vh, mask, ck, cv, step, layer, nhead, ks, vs)
+            got = kernel(q, kh, vh, mask, ck, cv, step, layer, nhead, ks, vs)
             want = attention_step_plain(q, kh, vh, mask, *twin[:2], step, layer, nhead, *twin[2:])
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -586,13 +629,12 @@ def phase_attention_int8(gen: torch.Generator) -> dict:
             checks.append({"shape": shape_name, "step": step, "max_abs_err": err, "allclose": ok,
                            "codes_and_scales_equal": written})
             if not (ok and written):
-                raise AssertionError(f"int8 K3 disagrees with its plain twin: {checks[-1]}")
+                raise AssertionError(f"{name} disagrees with its plain twin: {checks[-1]}")
             max_err = max(max_err, err)
             del q, kh, vh, mask, ck, cv, ks, vs, twin
         q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(shape, timed_step, gen)
         p, d = timed_step + 1, m // nhead
-        ms = cuda_ms(lambda: attention_step(q, kh, vh, mask, ck, cv, timed_step, layer, nhead,
-                                            ks, vs))
+        ms = cuda_ms(lambda: kernel(q, kh, vh, mask, ck, cv, timed_step, layer, nhead, ks, vs))
         plain_ms = cuda_ms(lambda: attention_step_plain(q, kh, vh, mask, ck, cv, timed_step,
                                                         layer, nhead, ks, vs))
         codes = torch.stack([c[layer, :, :p] for c in (ck, cv)])
@@ -604,19 +646,18 @@ def phase_attention_int8(gen: torch.Generator) -> dict:
         valid = valid_cached + int(mask[:, timed_step].sum())
         flops = 4 * valid * d * nhead + n * nhead * p + 2 * valid_cached * m
         nbytes = (4 * n * m * 4 + n * p + 2 * valid_cached * (m + 4) + 2 * n * (m + 4))
-        entry = kernel_entry("attention_step_int8", max_err, ms, plain_ms, flops, nbytes,
-                             library_ms)
+        entry = kernel_entry(name, max_err, ms, plain_ms, flops, nbytes, library_ms)
         timed[shape_name] = {"step": timed_step, "cache": list(shape),
                              "valid_cached_positions": valid_cached, "kernel_ms": ms,
                              "plain_ms": plain_ms, "library_ms": library_ms,
                              "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
                              "achieved_gbps": nbytes / ms / 1e6,
                              "share_of_bound": entry["bound_ms"] / ms}
-        if shape_name == "D1":
+        if result is None:
             result = entry
         del q, kh, vh, mask, ck, cv, ks, vs, codes, scales
     result["max_abs_err"] = max_err
-    emit({"phase": "kernels", "kernel": "attention_step_int8", "nhead": nhead, "checks": checks,
+    emit({"phase": "kernels", "kernel": name, "nhead": nhead, "checks": checks,
           "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "timed": timed,
           "library": "two calls: torch.mul dequantizing the stacked k/v codes, then SDPA"})
     return result
@@ -632,9 +673,11 @@ def _paged_inputs(shape_name: str, dtype, fused: bool, step: int, gen: torch.Gen
     and ``nhead``: the ASR decoder's by default, the LM's for K7."""
     _, n, _, m = _decode_cache_shape(shape_name)
     beams = DECODE_HPARAMS["test_beam_size"]
-    # the layout the decode takes for this dtype; the fused one is page 64's, built in f32
+    # the layout the decode takes for this dtype; the fused one is page 64's,
+    # built in f32 (int8: in int8, whose fused layout is D3's)
     cache = make_kv_cache(n, _decode_steps(shape_name) + 1, layers, nhead, m // nhead,
-                          torch.float32 if fused else dtype, device=DEVICE, paged=True, fused=fused)
+                          torch.float32 if fused and dtype != torch.int8 else dtype,
+                          device=DEVICE, paged=True, fused=fused)
     for t in range(step):
         r = torch.rand(n // beams, beams, generator=gen, device=DEVICE)
         cache = beam_reorder_cache(cache, (beams * r * r).long(), t)
@@ -660,15 +703,23 @@ def _paged_inputs(shape_name: str, dtype, fused: bool, step: int, gen: torch.Gen
 
 
 def _paged_int8_content(cache: dict, step: int, gen: torch.Generator):
-    """``_paged_inputs``' int8 content: seeded codes and scales, with code
-    -128 (never written by the quantizer) in the pages and slots the step may
-    not read and NaN scales from the step on and at masked positions."""
-    n, m = cache["k"].shape[1], cache["k"].shape[3]
-    for key in ("k", "v", "k_act", "v_act"):
-        cache[key].random_(-127, 128, generator=gen)
-    for key in ("k_scale", "v_scale"):
-        cache[key].uniform_(1e-3, 0.05, generator=gen)
+    """``_paged_inputs``' int8 content: :func:`_quantized` codes, each
+    main-cache row's scale at its position, with code -128 (never written by
+    the quantizer) in the pages and slots the step may not read and NaN
+    scales from the step on and at masked positions."""
+    n, m = cache["table"].shape[0], page_views(cache)[0].shape[-1]
     page = page_views(cache)[0].shape[3]
+    for key in ("k", "v", "k_act", "v_act", "kv", "kv_act"):
+        if key not in cache:
+            continue
+        codes, scales = _quantized(cache[key].shape, gen)
+        cache[key].copy_(codes)
+        if key in ("k", "v"):
+            cache[f"{key}_scale"].copy_(scales)
+        elif key == "kv":  # each page's rows are [K-page, V-page]
+            by_page = scales.view(*scales.shape[:2], -1, 2, page)
+            for j, sk in enumerate(("k_scale", "v_scale")):
+                cache[sk].copy_(by_page[:, :, :, j].reshape(cache[sk].shape))
     p_act, o = divmod(step, page)
     for pages, act in zip(page_views(cache)[:2], page_views(cache)[2:]):
         pages[:, :, p_act:] = -128
@@ -954,6 +1005,122 @@ def phase_k7(lm: TransformerLM, gen: torch.Generator) -> dict:
     return entry
 
 
+def _k7_run(kernel, x0, mask, cache, step, wall, vecs, nhead):
+    """x_out of one K7 (or twin) call on a fused int8 cache dict and its scales."""
+    return kernel(x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step,
+                  wall, vecs, nhead, k_scale=cache["k_scale"], v_scale=cache["v_scale"])[0]
+
+
+@torch.no_grad()
+def phase_k7_int8(lm: TransformerLM, gen: torch.Generator) -> dict:
+    """K7 on D3's int8 LM cache (U 512, fused page 64) against its plain twin
+    at steps 0, 63, 64, 223 and 447 of a simulated beam history, code -128
+    and NaN scales wherever the step may not read: a layer at a time, both
+    fed the kernel's x (x within K7_LAYER_ATOL; the written codes within
+    one of the twin's, the share that differs reported; the step's scales
+    within K7_INT8_SCALE_RTOL; every other code and scale equal), then in one
+    launch (K7_ATOL, K7_MEAN_ATOL, the log-prob tolerance); timed at step 223
+    beside the twin, the bf16 K7 and the int8 per-layer path."""
+    wall, vecs = lm.prepare_megastep()
+    nhead, layers, nf = lm.nhead, lm.num_layers, lm.d_ffn // lm.d_model
+    nb = 4 + 2 * nf
+    i8 = torch.int8
+    checks, max_err = [], 0.0
+
+    def layer_of(layer, c):
+        return {key: c[key][layer:layer + 1] for key in ("kv", "kv_act", "k_scale", "v_scale")} | {
+            "table": c["table"], "act_src": c["act_src"]}
+
+    for step in (0, 63, 64, 223, 447):
+        x0, _, _, mask, cache = _paged_inputs("D3", i8, True, step, gen, layers, nhead)
+        twin_cache = {k: v.clone() for k, v in cache.items()}
+        n, m = x0.shape
+        written = {"codes": 2 * layers * n * m, "codes_differing": 0, "codes_beyond_one": 0,
+                   "scale_max_rel_err": 0.0, "unwritten_equal": True}
+        x, layer_errs = x0, []
+        for layer in range(layers):
+            lw, lv = wall[layer * nb:(layer + 1) * nb], vecs[layer:layer + 1]
+            c, tc = layer_of(layer, cache), layer_of(layer, twin_cache)
+            got_l = _k7_run(lm_megastep, x, mask, c, step, lw, lv, nhead)
+            want_l = _k7_run(lm_megastep_plain, x, mask, tc, step, lw, lv, nhead)
+            layer_errs.append(float((got_l - want_l).abs().max()))
+            for key in ("kv", "kv_act"):
+                diff = (cache[key][layer].int() - twin_cache[key][layer].int()).abs()
+                written["codes_differing"] += int((diff > 0).sum())
+                written["codes_beyond_one"] += int((diff > 1).sum())
+            for key in ("k_scale", "v_scale"):
+                a, b = cache[key][layer], twin_cache[key][layer]
+                rel = float((a[:, step] / b[:, step] - 1).abs().max())
+                written["scale_max_rel_err"] = max(written["scale_max_rel_err"], rel)
+                written["unwritten_equal"] &= (_same_nan(a[:, :step], b[:, :step])
+                                               and _same_nan(a[:, step + 1:], b[:, step + 1:]))
+            x = got_l
+        got = _k7_run(lm_megastep, x0, mask, cache, step, wall, vecs, nhead)
+        want = _k7_run(lm_megastep_plain, x0, mask, twin_cache, step, wall, vecs, nhead)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        mean_err = float((got - want).abs().mean())
+        lp_got, lp_want = (torch.log_softmax(lm._head(y), -1) for y in (got, want))
+        lp_err = float((lp_got - lp_want).abs().max())
+        lp_ok = bool(torch.allclose(lp_got, lp_want, rtol=K7_LOGP_RTOL, atol=K7_LOGP_ATOL))
+        written["codes_differing_share"] = written["codes_differing"] / written["codes"]
+        ok = (bool(torch.isfinite(got).all()) and err <= K7_ATOL and mean_err <= K7_MEAN_ATOL
+              and lp_ok and max(layer_errs) <= K7_LAYER_ATOL and written["codes_beyond_one"] == 0
+              and written["scale_max_rel_err"] <= K7_INT8_SCALE_RTOL and written["unwritten_equal"])
+        checks.append({"step": step, "max_abs_err": err, "mean_abs_err": mean_err,
+                       "log_prob_max_abs_err": lp_err, "layer_by_layer_max_abs_err": layer_errs,
+                       "written": written, "ok": ok})
+        if not ok:
+            raise AssertionError(f"lm_megastep_int8 disagrees with its plain twin: {checks[-1]}")
+        max_err = max(max_err, err)
+        del x0, mask, cache, twin_cache, got, want
+        torch.cuda.empty_cache()
+
+    step = 223
+    x0, _, _, mask, cache = _paged_inputs("D3", i8, True, step, gen, layers, nhead)
+    ms = cuda_ms(lambda: _k7_run(lm_megastep, x0, mask, cache, step, wall, vecs, nhead), iters=10)
+    plain_ms = cuda_ms(lambda: _k7_run(lm_megastep_plain, x0, mask, cache, step, wall, vecs,
+                                       nhead), iters=3, warmup=1)
+    per_layer_ms = cuda_ms(lambda: lm.step_layers(x0, cache, mask, step), iters=10)
+    phases = profile_lm_megastep.stamped_phases(
+        lambda: _k7_run(lm_megastep, x0, mask, cache, step, wall, vecs, nhead), layers)
+    x0b, _, _, maskb, cacheb = _paged_inputs("D3", torch.bfloat16, True, step, gen, layers, nhead)
+    bf16_ms = cuda_ms(lambda: lm_megastep(x0b, maskb, cacheb["kv"], cacheb["kv_act"],
+                                          cacheb["table"], cacheb["act_src"], step, wall, vecs,
+                                          nhead)[0], iters=10)
+    del x0b, maskb, cacheb
+    n, m = x0.shape
+    d = m // nhead
+    valid = int(mask[:, :step + 1].sum())
+    valid_cached = int(mask[:, :step].sum())
+    # each cached code dequantized once a layer
+    flops = layers * (4 * valid * d * nhead + n * nhead * (step + 1) + 2 * valid_cached * m)
+    tc_flops = 2 * n * m * m * (4 + 2 * nf) * layers
+    # each layer's codes, its own-row scales read at the valid cached
+    # positions and written at the step (k and v), the mask and table once,
+    # the weights, and x in and out
+    nbytes = (layers * (_paged_cache_bytes(cache, mask, step, 1) + 8 * (valid_cached + n))
+              + _mask_table_bytes(cache, step) + wall.numel() * 2 + vecs.numel() * 4
+              + 2 * n * m * 4)
+    entry = kernel_entry("lm_megastep_int8", max_err, ms, plain_ms, flops, nbytes, None, tc_flops)
+    entry.update(per_layer_ms=per_layer_ms, bf16_ms=bf16_ms, barrier_us=phases["barrier_us"],
+                 us_per_layer=phases["us_per_layer"])
+    emit({"phase": "kernels", "kernel": "lm_megastep_int8", "cache": list(cache["kv"].shape),
+          "slots": list(cache["kv_act"].shape), "layers": layers, "nhead": nhead,
+          "d_ffn": lm.d_ffn, "checks": checks, "atol": K7_ATOL, "mean_atol": K7_MEAN_ATOL,
+          "layer_atol": K7_LAYER_ATOL, "scale_rtol": K7_INT8_SCALE_RTOL,
+          "log_prob_rtol_atol": [K7_LOGP_RTOL, K7_LOGP_ATOL], "timed_step": step,
+          "distinct_parents": int(torch.unique(cache["act_src"]).numel()),
+          "page_sharing": _page_sharing(cache, step), "kernel_ms": ms, "plain_ms": plain_ms,
+          "per_layer_ms": per_layer_ms, "bf16_ms": bf16_ms, **phases, "library_ms": None,
+          "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"], "mbytes": nbytes / 1e6,
+          "gflop_tensor_core": tc_flops / 1e9, "gflop_fp32": flops / 1e9,
+          "achieved_gbps": nbytes / ms / 1e6, "share_of_bound": entry["bound_ms"] / ms})
+    del x0, mask, cache
+    torch.cuda.empty_cache()
+    return entry
+
+
 def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     # timed at each shape's mean live step: 31 of 0..63 (D1), 125 of 0..251 (D2)
@@ -987,10 +1154,22 @@ def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
     i8 = torch.int8
     k5_int8_checks = [("D1", i8, (0, 31, 32, 50, 95)), ("D2", i8, (0, 31, 32, 125, 255))]
     k5_int8_timed = [("D1", i8, 31), ("D2", i8, 125)]
-    entries += [phase_k2_int8(gen), phase_attention_int8(gen),
+    k3_int8 = (("D1", (0, 7, 8, 31, 63), 31), ("D2", (0, 63, 64, 125, 251), 125))
+    entries += [phase_k2_int8(gen), phase_attention_int8(attention_step, k3_int8, gen),
                 phase_paged_attention(attention_step_paged, k5_int8_checks, k5_int8_timed, gen)]
     phase_paged_attention(attention_step_paged, k5_int8_checks, k5_int8_timed, gen, nhead=12)
     torch.cuda.empty_cache()
+    # the chunked int8 modes (K4, K6, K7) at D3, after the whole-row ones:
+    # steps before, on and after page 0's completion and the last, timed at
+    # the mean live step of a 448-step decode
+    d3_steps = (0, 63, 64, 447)
+    entries.append(phase_attention_int8(attention_step_chunked, (("D3", d3_steps, 223),), gen))
+    torch.cuda.empty_cache()
+    k6_int8 = ([("D3", i8, d3_steps)], [("D3", i8, 223)])
+    entries.append(phase_paged_attention(attention_step_paged_chunked, *k6_int8, gen))
+    phase_paged_attention(attention_step_paged_chunked, *k6_int8, gen, nhead=12)
+    torch.cuda.empty_cache()
+    entries.append(phase_k7_int8(lm, gen))
     return entries
 
 
@@ -1101,7 +1280,8 @@ class StubTokenizer:
 # JAX package's serving and benchmarks take): page 32, K5 in every layer. The
 # int8 runs are the quantized serving decode (whole-row at D1 and D2: K5
 # paged, K2 + K3 physical, in both stacks); D1's with the LM is the JAX
-# package's "5 s, 64 steps" int8 shape.
+# package's "5 s, 64 steps" int8 shape. D3's are the 30 s int8 serving
+# decode (U 512: K6 and K7, or K4 with K2).
 DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, True, "float32"),
                       ("paged", True, True, "float32"), ("physical", True, True, "float32"),
                       ("paged", True, True, "int8"), ("physical", True, True, "int8")),
@@ -1109,23 +1289,28 @@ DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, Tru
                       ("paged", True, True, "float32"), ("paged", True, False, "float32"),
                       ("paged", False, True, "bfloat16"), ("paged", True, True, "bfloat16"),
                       ("paged", False, True, "int8"), ("paged", True, True, "int8"),
-                      ("physical", False, True, "int8"))}
+                      ("physical", False, True, "int8")),
+               "D3": (("paged", True, True, "int8"), ("paged", True, False, "int8"),
+                      ("paged", False, True, "int8"), ("physical", False, True, "int8"))}
 # pairs of runs that must give identical tokens (scores within 1e-4), and
 # pairs that are only reported (K7 computes in bf16, the per-layer path in
 # f32; bf16 caches round what f32 ones keep)
 SAME_RUNS = {"D1": (("paged", "physical"), ("paged_lm", "physical_lm"),
                     ("paged_lm_int8", "physical_lm_int8")),
-             "D2": (("paged", "physical"), ("paged_int8", "physical_int8"))}
+             "D2": (("paged", "physical"), ("paged_int8", "physical_int8")),
+             "D3": (("paged_int8", "physical_int8"),)}
 REPORTED_RUNS = {"D1": (("paged_lm", "paged_lm_int8"),),
                  "D2": (("paged_lm", "paged_lm_per_layer"), ("paged", "paged_bf16"),
                         ("paged_lm", "paged_lm_bf16"), ("paged", "paged_int8"),
                         ("paged_bf16", "paged_int8"), ("physical", "physical_int8"),
-                        ("paged_lm", "paged_lm_int8"), ("paged_lm_bf16", "paged_lm_int8"))}
+                        ("paged_lm", "paged_lm_int8"), ("paged_lm_bf16", "paged_lm_int8")),
+                 "D3": (("paged_lm_int8", "paged_lm_int8_per_layer"),)}
 
 
 def _run_label(layout: str, with_lm: bool, mega: bool, dtype: str) -> str:
-    return (layout + ("_lm" if with_lm else "") + ("" if mega else "_per_layer")
-            + {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[dtype])
+    return (layout + ("_lm" if with_lm else "")
+            + {"float32": "", "bfloat16": "_bf16", "int8": "_int8"}[dtype]
+            + ("" if mega else "_per_layer"))
 
 
 def _expected_launches(name: str, layout: str, with_lm: bool, mega: bool, dtype: str,
@@ -1181,7 +1366,8 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
         # one input for every run: cuDNN's autoencoder is not bit-reproducible
         # run to run, and a 1e-6 input change can flip a near tie of the beam search
         _, _, recon, clean = recipe.eval_step(ae, fbank, normalizer, norm_state, wavs, lens, labels)
-        _finite(f"{name} recon", recon, (batch, t_frames, 80))
+        # eval_step pads the features to a multiple of recipe.features' 36 frames
+        _finite(f"{name} recon", recon, (batch, -(-t_frames // 36) * 36, 80))
         rerun = recipe.eval_step(ae, fbank, normalizer, norm_state, wavs, lens, labels)
         emit({"phase": "decode_input", "shape": name,
               "recon_rerun_max_abs_diff": float((rerun[2] - recon).abs().max()),
@@ -1189,6 +1375,7 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
         del rerun
         outputs = {}
         for layout, with_lm, mega, dtype in DECODE_RUNS[name]:
+            t_run = time.perf_counter()
             label = _run_label(layout, with_lm, mega, dtype)
             hp = {**DECODE_HPARAMS, "max_decode_steps": max_steps, "decode_cache_dtype": dtype,
                   "decode_paged_kv": layout == "paged", "decode_lm_megastep": mega}
@@ -1226,7 +1413,9 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
             outputs[label] = (toks, lengths, scores)
 
             torch.cuda.reset_peak_memory_stats()
-            median_s = host_median_s(lambda: bundle._decode_test(recon, lens), iters=3, warmup=1)
+            iters, warmup = DECODE_TIMING[name]
+            median_s = host_median_s(lambda: bundle._decode_test(recon, lens), iters=iters,
+                                     warmup=warmup)
             peak_gib = torch.cuda.max_memory_allocated() / 2**30
             audio_s = batch * n_samples / SAMPLE_RATE
             wer, wer_clean = metrics.wer_metric.summarize("WER"), metrics.wer_metric2.summarize("WER")
@@ -1249,7 +1438,8 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
                   "launches": launches, "launches_per_decode": per_decode,
                   "decode_median_s": median_s, "ms_per_step": 1e3 * median_s / steps,
                   "audio_s": audio_s, "audio_s_per_wall_s": audio_s / median_s,
-                  "peak_mem_gib": peak_gib, "wer_recon": wer, "wer_clean": wer_clean,
+                  "peak_mem_gib": peak_gib, "run_s": time.perf_counter() - t_run,
+                  "wer_recon": wer, "wer_clean": wer_clean,
                   "utility_similarity": metrics.utility_similarity.summarize(),
                   "distinct_hypotheses": distinct, "lengths": lengths.tolist(),
                   "scores": scores.tolist()})
@@ -1337,6 +1527,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
@@ -1367,6 +1558,7 @@ def main() -> int:
         entry["launches"] = decode_launches[entry["name"]]
     phase_decode_parity(asr, lm, parity_feats)
 
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [k1, *decode_kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,10 +51,9 @@
 // k in the scores is a concession to its matrix unit, not the contract.
 // bf16 caches follow the TPU kernel's contract: q, kh and vh are rounded to
 // bf16 on entry, the cache is read as bf16, and every product and sum is
-// f32. int8 caches (K3 and K5 only; K4's and K6's int8 mode is the next
-// slice of the port) hold codes with an f32 scale per (layer, row, position)
-// in separate (L, N, U) arrays, indexed by the row's own logical position in
-// both layouts (paging moves only the code bytes). They follow the JAX
+// f32. int8 caches (every kernel here) hold codes with an f32 scale per
+// (layer, row, position) in separate (L, N, U) arrays, indexed by the row's
+// own logical position in both layouts (paging moves only the code bytes). They follow the JAX
 // package's reference math (`attend_cached` + `finalize_jnp`), not the TPU
 // kernel's bf16 rounding of q and the dequantized keys: a cached element
 // reads as code * scale in f32 before any product, q and the fresh kh/vh stay
@@ -115,14 +114,16 @@
 //     block per page with a merge, and whole pages held in registers lost:
 //     each cut the blocks resident per SM or lengthened a block's chain of
 //     dependent loads.
-//   int8 (K3, K5): a 16-byte vector is 16 codes (d_head 96: 6 vectors, 64:
+//   int8 (K3-K6): a 16-byte vector is 16 codes (d_head 96: 6 vectors, 64:
 //     4), each lane dequantizing with its position's scale as it loads. The
 //     quantizer's amax spans the whole row while a block holds one head, so
 //     in every block warp 0 reads the row's M values of kh and warp 1 those of
 //     vh (3 KB each, from L2) and reduce max |x| themselves: a max is exact, so
 //     every head's block gets the same scale bit for bit, with no second
 //     launch. Each block writes its head's codes; the row's head-0 block
-//     writes the two scales. K5's groups are 8 lanes with 6 or 4 live.
+//     writes the two scales. K5's and K4/K6's score groups are 8 lanes with 6
+//     or 4 live, and K4/K6's value pass takes 21 or 32 groups of nvec
+//     threads (their partials in shared memory: 8 KB a block).
 // Limits checked by the Python wrappers: d_head a multiple of the vector
 // width (4 f32, 8 bf16 or 16 int8 elements) and at most 32 vectors, 16-byte aligned
 // operands, 0 <= step < U, 0 <= layer < L, a power-of-two page dividing U.
@@ -313,9 +314,10 @@ int launch_k5(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
 
 // K4 / K6: one block per (row, head); see attn_step_chunked_item. At least
 // 10 blocks an SM for f32 caches, 8 for bf16 (registers capped at 48 and
-// 64): the fastest of the counts tried on an H100 at D2's shapes.
+// 64): the fastest of the counts tried on an H100 at D2's shapes. int8: 5
+// (96 registers), where nvcc's report shows no spill (PERF.md).
 template <typename T>
-constexpr int kChunkedBlocks = sizeof(T) == 4 ? 10 : 8;
+constexpr int kChunkedBlocks = sizeof(T) == 4 ? 10 : (sizeof(T) == 2 ? 8 : 5);
 
 template <typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads, kChunkedBlocks<T>) attn_step_chunked(const Args<T> a) {
@@ -336,7 +338,7 @@ int launch_k3(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 (kPaged = false) and K6 (kPaged = true), f32 and bf16
+// K4 (kPaged = false) and K6 (kPaged = true), f32, bf16 and int8
 template <typename T, bool kPaged>
 int launch_streamed(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
   const int groups = kThreads / (a.d_head / Vec<T>::kN);
@@ -397,13 +399,7 @@ int launch_paged(const void* q, const void* kh, const void* vh, const void* mask
   a.page_pos = fused ? 2 * page : page;
   a.slot_pos = fused ? 2 * page : page;
   a.v_off = fused ? page : 0;
-  if (chunked) {
-    if constexpr (Vec<T>::kQuant) {
-      return static_cast<int>(cudaErrorInvalidValue);  // K6 in int8: the next slice
-    } else {
-      return launch_streamed<T, true>(a, nhead, device, stream);
-    }
-  }
+  if (chunked) return launch_streamed<T, true>(a, nhead, device, stream);
   const int nvec = a.d_head / Vec<T>::kN;  // lanes per position: nvec rounded up to 8, 16 or 32
   if (nvec <= 8) return launch_k5<T, 8>(a, nhead, device, stream);
   if (nvec <= 16) return launch_k5<T, 16>(a, nhead, device, stream);
@@ -416,7 +412,7 @@ extern "C" {
 
 // q, kh, vh, out: (n, m) f32; mask: (n, u) bytes, nonzero = valid key;
 // ck, cv: (L, n, u, m) caches, f32 (dtype 0), bf16 (dtype 1) or int8 codes
-// (dtype 2, K3 only) with ks, vs their (L, n, u) f32 scales (null
+// (dtype 2) with ks, vs their (L, n, u) f32 scales (null
 // otherwise); all contiguous on `device`. chunked = 0 launches the
 // whole-row kernel (K3), 1 the streamed one (K4). Writes out and the caches'
 // (layer, :, step) slices (int8: codes and scales). Launches on `stream` and
@@ -439,10 +435,11 @@ int sa_attention_step(const void* q, const void* kh, const void* vh, const void*
     return chunked ? launch_streamed<__nv_bfloat16, false>(a, nhead, device, s)
                    : launch_k3<__nv_bfloat16>(a, nhead, device, s);
   }
-  if (dtype == 2 && !chunked) {
-    return launch_k3<int8_t>(
-        make_args<int8_t>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer),
-        nhead, device, s);
+  if (dtype == 2) {
+    const Args<int8_t> a =
+        make_args<int8_t>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
+    return chunked ? launch_streamed<int8_t, false>(a, nhead, device, s)
+                   : launch_k3<int8_t>(a, nhead, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -454,10 +451,10 @@ int sa_attention_step(const void* q, const void* kh, const void* vh, const void*
 // cache and ak = av the (L, n, 2, 2 page, m) slots. table: (n, u / page)
 // int32; act_src: (n,) int32. Writes out and this layer's merged active page
 // of every row (its parity slot step % 2, or its main page step / page when
-// the page completes). int8 codes (dtype 2; K5 on the split layout only):
-// ks, vs are the (L, n, u) f32 scales by own row and logical position, and
-// the launch writes each row's fresh scales at (layer, row, step); null
-// otherwise. Returns cudaGetLastError(); does not synchronise.
+// the page completes). int8 codes (dtype 2, either layout): ks, vs are the
+// (L, n, u) f32 scales by own row and logical position, and the launch
+// writes each row's fresh scales at (layer, row, step); null otherwise.
+// Returns cudaGetLastError(); does not synchronise.
 int sa_attention_step_paged(const void* q, const void* kh, const void* vh, const void* mask,
                             void* ck, void* cv, void* ak, void* av, const void* table,
                             const void* act_src, void* ks, void* vs, void* out, int n, int u,
@@ -475,7 +472,7 @@ int sa_attention_step_paged(const void* q, const void* kh, const void* vh, const
                                        out, n, u, m, nhead, step, layer, page, fused, chunked,
                                        device, s);
   }
-  if (dtype == 2 && !fused) {
+  if (dtype == 2) {
     return launch_paged<int8_t>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs, out, n,
                                 u, m, nhead, step, layer, page, fused, chunked, device, s);
   }

@@ -457,6 +457,13 @@ __host__ __device__ constexpr int chunked_smem_floats(int groups, int d_head) {
 // too), so the active page crosses L2 once where a copy ahead of the passes
 // read it twice.
 //
+// int8 (K4, K6, K7 on int8 caches): each thread reads the own-row scale of a
+// position beside its 16 codes, only where the position is valid and before
+// the step (a masked or later position's scale may be NaN), and dequantizes
+// code * scale before any product; the parent's active codes go to the
+// merged page as bytes, and no scale moves (the beam reorder gathers them
+// along N). Head's constructor quantizes the fresh k/v into the merged page.
+//
 // Every sum is taken in the order of the design before it (one warp per
 // position, every thread scanning the chunk), so K4 and K6 give the same bits
 // as before: a dot product is per-lane fmaf chains then the xor butterfly
@@ -508,6 +515,7 @@ __device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigne
     float lmax = -INFINITY;
     for (int i0 = 0; i0 < cn; i0 += per_pass * kUnroll) {
       uint4 kr[kUnroll];
+      float ksc[kUnroll];  // int8: the positions' scales
       bool ok[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -516,6 +524,9 @@ __device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigne
         ok[u] = i < cn && hd.mrow[p];  // masked positions never reach the sums
         if (live && (ok[u] || (i < cn && p >= act_start)) && p != step) {
           kr[u] = *reinterpret_cast<const uint4*>(hd.at(p, false) + js * V);
+        }
+        if constexpr (Vec<T>::kQuant) {
+          if (live && ok[u] && p != step) ksc[u] = hd.ksrow[p];  // never a masked one's
         }
       }
 #pragma unroll
@@ -530,6 +541,8 @@ __device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigne
           float kx[V];
           if (c0 + i == step) {
             load_fresh<T>(a.kh + hd.qoff + js * V, kx);
+          } else if constexpr (Vec<T>::kQuant) {
+            unpack(kr[u], kx, ksc[u]);
           } else {
             unpack(kr[u], kx);
           }
@@ -568,6 +581,7 @@ __device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigne
     if (g < groups) {
       for (int i0 = g; i0 < cn; i0 += groups * kUnroll) {
         uint4 vr[kUnroll];
+        float vsc[kUnroll];  // int8: the positions' scales
         float w[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
@@ -576,6 +590,9 @@ __device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigne
           w[u] = i < cn ? s[i] : 0.f;  // 0 where masked: skipped
           if ((w[u] != 0.f || (i < cn && p >= act_start)) && p != step) {
             vr[u] = *reinterpret_cast<const uint4*>(hd.at(p, true) + jv * V);
+          }
+          if constexpr (Vec<T>::kQuant) {
+            if (w[u] != 0.f && p != step) vsc[u] = hd.vsrow[p];
           }
         }
 #pragma unroll
@@ -589,6 +606,8 @@ __device__ __forceinline__ void attn_step_chunked_item(const Args<T>& a, unsigne
             float vx[V];
             if (c0 + i0 + u * groups == step) {
               load_fresh<T>(a.vh + hd.qoff + jv * V, vx);
+            } else if constexpr (Vec<T>::kQuant) {
+              unpack(vr[u], vx, vsc[u]);
             } else {
               unpack(vr[u], vx);
             }

@@ -34,7 +34,14 @@
 // bf16-representable k/v. The attention is K6's arithmetic, bit for bit, on
 // those operands: f32 products and sums (the TPU kernel's bf16 rounding of
 // per-element q.k products is a concession to its matrix unit, and is not
-// kept). f32 and bf16 caches; int8 is refused by the wrapper.
+// kept). f32, bf16 and int8 caches. int8 (the JAX package's quantized
+// serving mode, ops/attention_step.py's contract): codes, with (L, N, U) f32
+// k and v scales by own row and logical position; each layer's attention
+// items quantize the row's fresh k/v (the bf16-valued f32 q/k/v scratch,
+// complete for every head after the q/k/v phase's grid barrier) on writeback
+// into the merged page and write the scales at (layer, row, step) in place,
+// and dequantize each cached code as code * scale in f32 before any product
+// (K6's int8 body). The weights and the products are as for f32 caches.
 //
 // Bound: at the D2 decode shape (N 528, U 256, M 768, 12 layers, d_ffn 3072)
 // a step must read 12 layers' live cache (the positions its rows hold valid,
@@ -42,6 +49,8 @@
 // row's merged active page, and read 170 MB of bf16 weights: ~4 GB, ~1.2 ms
 // at 3.35 TB/s. Its 89.7 GFLOP of products take 0.09 ms at the bf16 tensor
 // cores' peak. So it is bound by device-memory bytes, mostly the cache's.
+// An int8 cache holds a quarter of f32's bytes, plus 8 bytes of scales a
+// row and position.
 //
 // Design: the TPU kernel is one grid step on one core walking all N rows in
 // VMEM; its point is one dispatch for a whole LM step, the layers' matmuls
@@ -148,6 +157,8 @@ struct Mega {
   const int* table;           // (n, u / 64)
   const int* act_src;         // (n,)
   const float* vecs;          // (layers, nv, m)
+  float* ks;                  // int8: (layers, n, u) k and v scales; null otherwise
+  float* vs;
   float* xs;                  // (n, m): x after each layer; the output
   bf16* xb;                   // (n, m): bf16(x), the projections' operand
   float* qkv;                 // (3, n, m): bf16-valued q, k, v
@@ -406,6 +417,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) lm_mega(const __grid_con
   a.kh = p.qkv + nm;
   a.vh = p.qkv + 2 * nm;
   a.mask = p.mask;
+  a.ks = p.ks;
+  a.vs = p.vs;
   a.ck = a.cv = p.kv;
   a.ak = a.av = p.kv_act;
   a.table = p.table;
@@ -565,9 +578,10 @@ int encode_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols) {
 
 template <typename T>
 int launch_typed(const void* x0, const void* mask, void* kv, void* kv_act, const void* table,
-                 const void* act_src, const void* wall, const void* vecs, void* xs, void* xb,
-                 void* qkv, void* ctx, void* part, void* hid, int n, int u, int m, int nhead,
-                 int layers, int d_ffn, int step, int exact_gelu, int device, cudaStream_t stream) {
+                 const void* act_src, const void* wall, const void* vecs, void* ks, void* vs,
+                 void* xs, void* xb, void* qkv, void* ctx, void* part, void* hid, int n, int u,
+                 int m, int nhead, int layers, int d_ffn, int step, int exact_gelu, int device,
+                 cudaStream_t stream) {
   Mega<T> p = {};
   p.x0 = static_cast<const float*>(x0);
   p.mask = static_cast<const unsigned char*>(mask);
@@ -576,6 +590,8 @@ int launch_typed(const void* x0, const void* mask, void* kv, void* kv_act, const
   p.table = static_cast<const int*>(table);
   p.act_src = static_cast<const int*>(act_src);
   p.vecs = static_cast<const float*>(vecs);
+  p.ks = static_cast<float*>(ks);
+  p.vs = static_cast<float*>(vs);
   p.xs = static_cast<float*>(xs);
   p.xb = static_cast<bf16*>(xb);
   p.qkv = static_cast<float*>(qkv);
@@ -605,29 +621,38 @@ extern "C" {
 
 // One TransformerLM decode step. x0: (n, m) f32; mask: (n, u) bytes,
 // nonzero = valid key; kv: (layers, n, 2u, m) and kv_act (layers, n, 2, 128,
-// m), f32 (dtype 0) or bf16 (dtype 1); table: (n, u / 64) int32; act_src:
-// (n,) int32; wall: (layers * (4 + 2 d_ffn / m), m, m) bf16; vecs: (layers,
-// 9 + d_ffn / m, m) f32. Scratch the caller allocates: xs (n, m) f32, xb and
-// ctx (n, m) bf16, qkv (3, n, m) f32, part (max(d_ffn / m, 2), n, m) f32, hid
-// (n, d_ffn) bf16. Writes x_out into xs and every layer's merged active page
+// m), f32 (dtype 0), bf16 (dtype 1) or int8 codes (dtype 2) with ks, vs
+// their (layers, n, u) f32 scales (null otherwise; the launch writes each
+// layer's fresh scales at (layer, :, step)); table: (n, u / 64) int32;
+// act_src: (n,) int32; wall: (layers * (4 + 2 d_ffn / m), m, m) bf16; vecs:
+// (layers, 9 + d_ffn / m, m) f32. Scratch the caller allocates: xs (n, m)
+// f32, xb and ctx (n, m) bf16, qkv (3, n, m) f32, part (max(d_ffn / m, 2), n,
+// m) f32, hid (n, d_ffn) bf16. Writes x_out into xs and every layer's merged active page
 // (slot step % 2, or main page step / 64 when it completes). All contiguous
 // on `device`, 16-byte aligned. One cooperative launch on `stream`; returns
 // its cudaError_t (0 on success). Does not synchronise.
 int sa_lm_megastep(const void* x0, const void* mask, void* kv, void* kv_act, const void* table,
-                   const void* act_src, const void* wall, const void* vecs, void* xs, void* xb,
-                   void* qkv, void* ctx, void* part, void* hid, int n, int u, int m, int nhead,
-                   int layers, int d_ffn, int step, int dtype, int exact_gelu, int device,
-                   void* stream) {
+                   const void* act_src, const void* wall, const void* vecs, void* ks, void* vs,
+                   void* xs, void* xb, void* qkv, void* ctx, void* part, void* hid, int n, int u,
+                   int m, int nhead, int layers, int d_ffn, int step, int dtype, int exact_gelu,
+                   int device, void* stream) {
   const int err = use_device(device);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_typed<float>(x0, mask, kv, kv_act, table, act_src, wall, vecs, xs, xb, qkv, ctx,
-                               part, hid, n, u, m, nhead, layers, d_ffn, step, exact_gelu, device, s);
+    return launch_typed<float>(x0, mask, kv, kv_act, table, act_src, wall, vecs, ks, vs, xs, xb,
+                               qkv, ctx, part, hid, n, u, m, nhead, layers, d_ffn, step,
+                               exact_gelu, device, s);
   }
   if (dtype == 1) {
-    return launch_typed<bf16>(x0, mask, kv, kv_act, table, act_src, wall, vecs, xs, xb, qkv, ctx,
-                              part, hid, n, u, m, nhead, layers, d_ffn, step, exact_gelu, device, s);
+    return launch_typed<bf16>(x0, mask, kv, kv_act, table, act_src, wall, vecs, ks, vs, xs, xb,
+                              qkv, ctx, part, hid, n, u, m, nhead, layers, d_ffn, step,
+                              exact_gelu, device, s);
+  }
+  if (dtype == 2) {
+    return launch_typed<int8_t>(x0, mask, kv, kv_act, table, act_src, wall, vecs, ks, vs, xs, xb,
+                                qkv, ctx, part, hid, n, u, m, nhead, layers, d_ffn, step,
+                                exact_gelu, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,8 +27,9 @@ to avoid copying it every step.
 
 int8 caches (``decode_cache_dtype: int8``, the JAX package's quantized
 serving mode) hold int8 codes and (L, N, U) f32 ``k_scale``/``v_scale``, by
-the contract of ``ops/attention_step.py``; this slice serves them at U <=
-``max_u_whole_row(M, 2)`` (K3 physical, K5 paged, their twins on the CPU).
+the contract of ``ops/attention_step.py``, at any U: K3/K5 up to
+``max_u_whole_row(M, 2)``, K4/K6 (and K7 for the LM) above it, their twins on
+the CPU.
 """
 
 from __future__ import annotations
@@ -292,20 +293,16 @@ def make_kv_cache(batch: int, u_max: int, num_layers: int, nhead: int, d_head: i
     ``kv_act`` (L, N, 2, 2 * page, M). All zeros.
 
     int8 (either layout): the buffers hold codes, and ``k_scale``/``v_scale``
-    (L, N, U) f32 zeros the scales, by each row's own logical position. Served
-    up to ``max_u_whole_row(M, 2)`` (426 at M 768), where K3/K5 take them;
-    longer int8 caches raise ``NotImplementedError``, since the chunked int8
-    kernels (K4, K6, K7) are the next slice of the port.
+    (L, N, U) f32 zeros the scales, by each row's own logical position. The
+    rounding and layout rules are bf16's (itemsize floored at 2, as in JAX):
+    up to ``max_u_whole_row(M, 2)`` (426 at M 768) K3/K5 take them, above it
+    U rounds to 64 and pages by 64, fused (K4/K6/K7).
     """
     if dtype not in (torch.float32, torch.bfloat16, torch.int8):
         raise NotImplementedError(f"{dtype} caches are not ported (float32, bfloat16 and int8 are)")
     m = nhead * d_head
     u = -(-u_max // 8) * 8
     page = PAGE
-    if dtype == torch.int8 and u > max_u_whole_row(m, 2):
-        raise NotImplementedError(
-            f"an int8 cache of {u} positions exceeds the whole-row bound {max_u_whole_row(m, 2)} "
-            f"at d_model {m}: the chunked int8 kernels (K4, K6, K7) are not ported yet")
     if u > max_u_whole_row(m, max(dtype.itemsize, 2)):
         u = -(-u // 64) * 64
         page = PAGE_LONG
@@ -601,7 +598,8 @@ class TransformerLM(nn.Module):
         if mega is not None and "kv" in cache and _use_kernel(cache):
             out, _, _ = lm_megastep(x, mask_nu, cache["kv"], cache["kv_act"], cache["table"],
                                     cache["act_src"], step, mega[0], mega[1], self.nhead,
-                                    exact_gelu=self.sb_compat)
+                                    exact_gelu=self.sb_compat, k_scale=cache.get("k_scale"),
+                                    v_scale=cache.get("v_scale"))
             return out, {key: cache[key] for key in cache if key != "tokens"}
         attends, finalize = make_attends([layer.attn for layer in self.layers], cache, mask_nu,
                                          step, self.nhead)

@@ -18,8 +18,8 @@ the fresh kh/vh) and writes kh/vh into the cache at ``(layer, :, step)`` in
 place. f32 caches compute in f32; bf16 caches round q/kh/vh to bf16 and
 accumulate in f32.
 
-int8 caches (the JAX package's ``decode_cache_dtype: int8``; K3 only, K4's
-int8 mode is the next slice of the port) are the reference math of
+int8 caches (the JAX package's ``decode_cache_dtype: int8``; K3 and K4, and
+K5-K7 on the paged caches) are the reference math of
 ``MultiHeadAttention.attend_cached`` and ``finalize_jnp``:
 
 * the caches hold int8 codes; ``k_scale``/``v_scale`` (L, N, U) f32 hold one
@@ -54,9 +54,6 @@ import torch
 # kernel, though on the card the boundary is still to be re-tuned.
 _VMEM_BUDGET = 10 * 2**20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# K4, K6 and K7 have no int8 mode yet: the chunked half of the quantized decode
-INT8_CHUNKED_NOT_PORTED = ("int8 caches above the whole-row bound (K4, K6, K7) are the next "
-                           "slice of the port; this slice serves int8 at U <= max_u_whole_row")
 _MAX_VECS = 32  # 16-byte vectors of one head: one warp lane each
 
 
@@ -230,8 +227,6 @@ def _launch(chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead
 
 def _dispatch(wrapper, chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead,
               k_scale, v_scale) -> torch.Tensor:
-    if chunked and cache_k.dtype == torch.int8:
-        raise TypeError(INT8_CHUNKED_NOT_PORTED)
     args = (q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_scale)
     device = cache_k.device
     if device.type == "cpu":
@@ -253,8 +248,8 @@ def attention_step(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int, nhe
 
 def attention_step_chunked(q, kh, vh, mask, cache_k, cache_v, step: int, layer: int, nhead: int,
                            k_scale=None, v_scale=None) -> torch.Tensor:
-    """K4, the streamed kernel (counts one in ``attention_step_chunked.launches``).
-    Refuses int8 caches: its int8 mode is the next slice of the port."""
+    """K4, the streamed kernel (counts one in ``attention_step_chunked.launches``);
+    int8 caches take their (L, N, U) scales, written at ``(layer, :, step)``."""
     return _dispatch(attention_step_chunked, True, q, kh, vh, mask, cache_k, cache_v, step, layer,
                      nhead, k_scale, v_scale)
 

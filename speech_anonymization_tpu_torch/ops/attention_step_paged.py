@@ -29,8 +29,8 @@ Layouts (``make_kv_cache(paged=True)``), as a dict:
   fused: ``kv`` (L, N, 2U, M), each logical page stored as [K-page, V-page],
          and ``kv_act`` (L, N, 2, 2 * page, M);
   both:  ``table`` (N, U / page) int32, ``act_src`` (N,) int32.
-  int8:  ``k_scale``/``v_scale`` (L, N, U) f32 beside the int8 codes (split
-         layout, page 32: K5 only; K6's int8 mode is the next slice).
+  int8:  ``k_scale``/``v_scale`` (L, N, U) f32 beside the int8 codes (either
+         layout: K5 at page 32, K6 at page 64, split or fused).
 q/kh/vh are (N, M) f32, mask (N, U) nonzero = valid key. f32 caches compute
 in f32; bf16 caches round q/kh/vh to bf16 and accumulate in f32; int8 caches
 follow ``ops/attention_step.py``'s int8 contract. The scales, like the mask,
@@ -51,7 +51,6 @@ import torch
 
 from .attention_step import (
     _DTYPE_CODES,
-    INT8_CHUNKED_NOT_PORTED,
     attend_plain,
     check_scales,
     check_step_operands,
@@ -219,8 +218,6 @@ def _launch(chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.
 
 
 def _dispatch(wrapper, chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.Tensor:
-    if chunked and (cache["kv"] if "kv" in cache else cache["k"]).dtype == torch.int8:
-        raise TypeError(INT8_CHUNKED_NOT_PORTED)
     device = cache["table"].device
     if device.type == "cpu":
         return _paged_plain(q, kh, vh, mask, cache, step, layer, nhead)
@@ -241,8 +238,8 @@ def attention_step_paged(q, kh, vh, mask, cache: dict, step: int, layer: int,
 def attention_step_paged_chunked(q, kh, vh, mask, cache: dict, step: int, layer: int,
                                  nhead: int) -> torch.Tensor:
     """K6, the streamed kernel over a paged cache, split or fused (counts one
-    in ``attention_step_paged_chunked.launches``). Refuses int8 caches: its
-    int8 mode is the next slice of the port."""
+    in ``attention_step_paged_chunked.launches``); int8 caches carry their
+    scales in the dict, as for K5."""
     return _dispatch(attention_step_paged_chunked, True, q, kh, vh, mask, cache, step, layer, nhead)
 
 

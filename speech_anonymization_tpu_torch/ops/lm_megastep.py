@@ -8,16 +8,19 @@ bound and the design. In short, per layer: q/k/v projections, K6's attention
 over the fused-KV paged cache (writing the merged active page in place), the
 out-projection, residual + LayerNorm, the feed-forward, residual +
 LayerNorm, with bf16 weights and activations rounded to bf16 before each
-product, f32 accumulation and f32 residuals.
+product, f32 accumulation and f32 residuals. int8 caches
+(``ops/attention_step.py``'s contract) take their (L, N, U) ``k_scale``/
+``v_scale``: each layer quantizes its fresh k/v on writeback and writes their
+scales at ``(layer, :, step)`` in place; cached codes read as ``code *
+scale`` in f32.
 
 :func:`lm_megastep` launches the kernel for CUDA tensors (one cooperative
 launch, counted in ``lm_megastep.launches``) and runs
 :func:`lm_megastep_plain`, which follows the kernel's rounding points, only
 for tensors on the CPU. Both refuse what the kernel does not take: int8
-caches (their K7 mode is the next slice of the port; an int8 LM cache is
-whole-row in this slice, served by K5 or K3 per layer), the split layout, a
-page other than 64, a ``d_model`` that is not a multiple of 128, a ``d_ffn`` that is not a multiple of ``d_model``,
-misaligned or non-contiguous operands.
+codes without their scales, the split layout, a page other than 64, a
+``d_model`` that is not a multiple of 128, a ``d_ffn`` that is not a multiple
+of ``d_model``, misaligned or non-contiguous operands.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .attention_step import _DTYPE_CODES, INT8_CHUNKED_NOT_PORTED, check_step_operands
+from .attention_step import _DTYPE_CODES, check_scales, check_step_operands
 from .attention_step_paged import PAGE_LONG, _paged_plain
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, inside the rsqrt
@@ -79,12 +82,11 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead) -> tuple[int, int]:
+def _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead, k_scale,
+           v_scale) -> tuple[int, int]:
     """Raises on what the kernel does not take; returns (layers, d_ffn)."""
-    if cache_kv.dtype == torch.int8:
-        raise TypeError(INT8_CHUNKED_NOT_PORTED)
     if cache_kv.dtype not in _DTYPE_CODES or act_kv.dtype != cache_kv.dtype:
-        raise TypeError(f"the LM step kernel takes float32 or bfloat16 caches, got "
+        raise TypeError(f"the LM step kernel takes float32, bfloat16 or int8 caches, got "
                         f"{cache_kv.dtype}/{act_kv.dtype}")
     if cache_kv.ndim != 4 or act_kv.ndim != 5:
         raise ValueError(f"the LM step kernel takes the fused layout: kv (L, N, 2U, M) and kv_act "
@@ -114,29 +116,37 @@ def _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead) 
     if vecs.dtype != torch.float32 or vecs.shape != (layers, 9 + nf, m):
         raise ValueError(f"vecs must be ({layers}, {9 + nf}, {m}) float32, got "
                          f"{tuple(vecs.shape)} {vecs.dtype}")
+    scales = (check_scales(k_scale, v_scale, layers, n, u) if cache_kv.dtype == torch.int8
+              else {})
     # x0 stands for q/kh/vh: the fresh operands are (N, M) f32 like it
     check_step_operands(x0, x0, x0, mask, {"kv cache": cache_kv, "kv slots": act_kv,
                                            "table": table, "act_src": act_src, "wall": wall,
-                                           "vecs": vecs},
+                                           "vecs": vecs, **scales},
                         cache_kv.element_size(), layers, n, u, m, step, 0, nhead)
     return layers, nf * m
 
 
 def lm_megastep_plain(x0, mask, cache_kv, act_kv, table, act_src, step: int, wall, vecs,
-                      nhead: int, exact_gelu: bool = False):
+                      nhead: int, exact_gelu: bool = False, k_scale=None, v_scale=None):
     """The kernel's function in plain PyTorch, at the kernel's rounding points.
 
     x0 (N, M) f32; mask (N, U) nonzero = valid key; cache_kv (L, N, 2U, M) and
     act_kv (L, N, 2, 128, M) the fused paged cache with its ``table`` and
-    ``act_src``; ``wall``/``vecs`` from :func:`prepare_lm_megastep`. Returns
-    ``(x_out (N, M) f32, cache_kv, act_kv)``: the caches are the operands,
-    with every layer's merged active page written in place.
+    ``act_src``; ``wall``/``vecs`` from :func:`prepare_lm_megastep`. int8
+    caches: ``k_scale``/``v_scale`` (L, N, U) f32; each layer's fresh k/v
+    (the bf16-rounded projections) go through ``quantize_rows``, cached codes
+    dequantize element by element. Returns ``(x_out (N, M) f32, cache_kv,
+    act_kv)``: the caches are the operands, with every layer's merged active
+    page (and, int8, its scales at ``step``) written in place.
     """
-    layers, d_ffn = _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead)
+    layers, d_ffn = _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead,
+                           k_scale, v_scale)
     m = x0.shape[1]
     nf = d_ffn // m
     nb = _nb(nf)
     cache = {"kv": cache_kv, "kv_act": act_kv, "table": table, "act_src": act_src}
+    if cache_kv.dtype == torch.int8:
+        cache.update(k_scale=k_scale, v_scale=v_scale)
     x = x0
     for layer in range(layers):
         w = wall[layer * nb:(layer + 1) * nb].float()
@@ -163,14 +173,14 @@ def _entry():
         from ..utils import cuda_build
 
         fn = cuda_build.load("lm_megastep").sa_lm_megastep
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
 def _launch(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead, exact_gelu,
-            layers, d_ffn) -> torch.Tensor:
+            k_scale, v_scale, layers, d_ffn) -> torch.Tensor:
     n, m = x0.shape
     u = cache_kv.shape[2] // 2
     dev = x0.device
@@ -182,8 +192,10 @@ def _launch(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead,
     part = torch.empty(max(d_ffn // m, 2), n, m, dtype=torch.float32, device=dev)
     hid = torch.empty(n, d_ffn, dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ks, vs = ((k_scale.data_ptr(), v_scale.data_ptr()) if cache_kv.dtype == torch.int8
+              else (0, 0))
     err = _entry()(x0.data_ptr(), mask.data_ptr(), cache_kv.data_ptr(), act_kv.data_ptr(),
-                   table.data_ptr(), act_src.data_ptr(), wall.data_ptr(), vecs.data_ptr(),
+                   table.data_ptr(), act_src.data_ptr(), wall.data_ptr(), vecs.data_ptr(), ks, vs,
                    xs.data_ptr(), xb.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), part.data_ptr(),
                    hid.data_ptr(),
                    n, u, m, nhead, layers, d_ffn, step, _DTYPE_CODES[cache_kv.dtype],
@@ -194,18 +206,17 @@ def _launch(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead,
 
 
 def lm_megastep(x0, mask, cache_kv, act_kv, table, act_src, step: int, wall, vecs, nhead: int,
-                exact_gelu: bool = False):
+                exact_gelu: bool = False, k_scale=None, v_scale=None):
     """K7 (counts one in ``lm_megastep.launches``); arguments and outputs as
     :func:`lm_megastep_plain`, which it runs only for CPU tensors."""
+    operands = (x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead)
     device = cache_kv.device
     if device.type == "cpu":
-        return lm_megastep_plain(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs,
-                                 nhead, exact_gelu)
+        return lm_megastep_plain(*operands, exact_gelu, k_scale, v_scale)
     if device.type != "cuda":
         raise ValueError(f"lm_megastep runs on cuda or cpu, not {device}")
-    layers, d_ffn = _check(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead)
-    x = _launch(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead, exact_gelu,
-                layers, d_ffn)
+    layers, d_ffn = _check(*operands, k_scale, v_scale)
+    x = _launch(*operands, exact_gelu, k_scale, v_scale, layers, d_ffn)
     lm_megastep.launches += 1
     return x, cache_kv, act_kv
 

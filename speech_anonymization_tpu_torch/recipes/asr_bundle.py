@@ -29,11 +29,10 @@ checkpoint is not ported.
 
 ``decode_cache_dtype`` is ``float32`` (the default), ``bfloat16`` or ``int8``
 (the JAX package's quantized serving mode: int8 codes with a scale per
-layer, row and position, quantized as each step writes them). int8 is served
+layer, row and position, quantized as each step writes them), at any length:
 up to the whole-row bound (``max_u_whole_row(d_model, 2)``, 426 positions at
-d_model 768), where K5 (paged) or K3 with K2 (physical) take it; a longer int8
-decode raises ``NotImplementedError`` when its cache is made, as the chunked
-int8 kernels (K4, K6, K7) are the next slice of the port.
+d_model 768) K5 (paged) or K3 with K2 (physical) take it, above it K6 on the
+fused page-64 cache (the LM's step one K7 launch) or K4 with K2.
 """
 
 from __future__ import annotations
@@ -61,7 +60,7 @@ class ASRBundle:
         self.beam_size = int(hparams.get("test_beam_size", 66))
         # the recipe default float32 keeps the scores stable against the
         # reference's f32 decode; 'bfloat16' halves the cache traffic and
-        # 'int8' (quantized serving, whole-row caches in this slice) halves it again
+        # 'int8' (quantized serving, codes with per-position scales) halves it again
         self.cache_dtype = _CACHE_DTYPES[hparams.get("decode_cache_dtype", "float32")]
         self.paged_kv = bool(hparams.get("decode_paged_kv", True))
         self.lm_weight = float(hparams.get("lm_weight", 0.6)) if lm is not None else 0.0

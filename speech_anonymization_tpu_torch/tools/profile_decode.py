@@ -2,12 +2,14 @@
 
 Usage, on a machine with one NVIDIA card:
 
-    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2] [paged|physical] [--lm]
-        [--bf16 | --int8]
+    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2|D3] [paged|physical]
+        [--lm] [--bf16 | --int8]
 
 D1 (default) is scripts/bench_decode.py's shape: 8 utterances of T = 504
 feature frames (126 encoder frames), 64 decode steps; D2 is bench.py's
-length: T = 1008 (252 encoder frames), 252 steps. The full-width
+length: T = 1008 (252 encoder frames), 252 steps; D3 is the JAX package's
+30 s int8 serving shape, run with ``--int8``: T = 3001 (751 encoder frames),
+448 steps (U 512). The full-width
 ``ASRModel()`` with seeded random weights decodes seeded features at beam 66,
 CTC 0.4, temperature 1.15, f32 caches, fp32 with TF32 off, with paged caches
 (the default: K5 at D1, K6 at D2) or physical ones (``decode_paged_kv:
@@ -21,7 +23,9 @@ launches of the ASR's kind. ``--bf16`` takes bf16 caches
 LM's too, and K7 does not run. ``--int8`` takes int8 caches
 (``decode_cache_dtype: int8``, the quantized serving mode): whole-row at D1
 and D2 (U 256 is within the int8 whole-row bound of 426), so K5 serves every
-paged layer and K3 with K2 every physical one. After a warm-up,
+paged layer and K3 with K2 every physical one; chunked at D3 (U 512), so K6
+on the fused page-64 cache serves every paged layer (the LM's step one K7
+launch) and K4 with K2 every physical one. After a warm-up,
 one decode runs under ``torch.profiler``; the script prints one JSON line:
 the wall time with and without the profiler, summed device time, the
 device's busy share of the profiled wall time, the number of kernel launches,
@@ -45,7 +49,8 @@ from ..models.asr import ASRModel
 from ..recipes.asr_bundle import ASRBundle
 from ..utils.seeded_init import seeded_init_
 
-SHAPES = {"D1": (8, 504, 64), "D2": (8, 1008, None)}  # utterances, frames, max_decode_steps
+# utterances, frames, max_decode_steps
+SHAPES = {"D1": (8, 504, 64), "D2": (8, 1008, None), "D3": (8, 3001, 448)}
 TOP = 15
 
 

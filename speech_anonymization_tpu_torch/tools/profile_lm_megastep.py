@@ -2,7 +2,7 @@
 
 Usage, on a machine with one NVIDIA card:
 
-    python -m speech_anonymization_tpu_torch.tools.profile_lm_megastep [step ...] [--bf16]
+    python -m speech_anonymization_tpu_torch.tools.profile_lm_megastep [step ...] [--bf16 | --int8]
 
 K7 runs every layer of a TransformerLM decode step as seven phases separated
 by grid-wide barriers (q/k/v, attention, out-projection, add + LayerNorm 1,
@@ -13,7 +13,8 @@ which block 0 reads the card's global timer after two back-to-back grid
 barriers (``barrier_us``: one barrier's cost) and after every barrier of the
 step, and runs it on a seeded ``TransformerLM()`` at its published widths
 (12 layers, d_model 768, 12 heads, d_ffn 3072) over D2's fused paged LM cache
-(N 528 = 8 utterances x beam 66, U 256, page 64, f32 or bf16) after ``step``
+(N 528 = 8 utterances x beam 66, U 256, page 64, f32 or bf16), or with
+``--int8`` D3's (U 512, int8 codes with seeded scales), after ``step``
 reorders of a simulated beam history (default steps 0 and 125). One JSON
 line per step: the launch's CUDA-event time (K7 itself, median of 10), and
 the microseconds a layer spends in each phase, averaged over the layers (a
@@ -39,23 +40,34 @@ from ..utils.seeded_init import seeded_init_
 
 PHASES = ("qkv", "attention", "out_proj", "add_ln1", "w1_gelu", "w2", "add_ln2")
 N, U, BEAM = 528, 256, 66
+U_INT8 = 512  # D3's LM cache: int8 caches are fused page 64 only above 426 positions
 STAMPS = 1024  # kStamps of the source
 LEAD = 3  # stamps before the first layer's: two lone barriers, then the prologue
 
 
 def _state(lm: TransformerLM, step: int, dtype: torch.dtype, gen: torch.Generator):
-    """x0, mask and D2's fused LM cache after ``step`` reorders (parents drawn
-    towards the best beams, so beams share them), seeded content."""
-    cache = make_kv_cache(N, U, lm.num_layers, lm.nhead, lm.d_model // lm.nhead, device="cuda",
-                          paged=True, fused=True)
+    """x0, mask and D2's fused LM cache (D3's for int8) after ``step``
+    reorders (parents drawn towards the best beams, so beams share them),
+    seeded content."""
+    quant = dtype == torch.int8
+    u = U_INT8 if quant else U
+    cache = make_kv_cache(N, u, lm.num_layers, lm.nhead, lm.d_model // lm.nhead,
+                          torch.int8 if quant else torch.float32, device="cuda", paged=True,
+                          fused=True)
     for t in range(step):
         r = torch.rand(N // BEAM, BEAM, generator=gen, device="cuda")
         cache = beam_reorder_cache(cache, (BEAM * r * r).long(), t)
-    cache = {k: v.to(dtype) if v.is_floating_point() else v for k, v in cache.items()}
-    cache["kv"].normal_(generator=gen)
-    cache["kv_act"].normal_(generator=gen)
+    if quant:
+        for key in ("kv", "kv_act"):
+            cache[key].random_(-127, 128, generator=gen)
+        for key in ("k_scale", "v_scale"):
+            cache[key].uniform_(1e-3, 0.05, generator=gen)
+    else:
+        cache = {k: v.to(dtype) if v.is_floating_point() else v for k, v in cache.items()}
+        cache["kv"].normal_(generator=gen)
+        cache["kv_act"].normal_(generator=gen)
     x0 = torch.randn(N, lm.d_model, generator=gen, device="cuda")
-    mask = torch.rand(N, U, generator=gen, device="cuda") > 0.2
+    mask = torch.rand(N, u, generator=gen, device="cuda") > 0.2
     mask[:, 0] = True
     return x0, mask, cache
 
@@ -119,8 +131,9 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("profile_lm_megastep: CUDA is not available", file=sys.stderr)
         return 1
-    dtype = torch.bfloat16 if "--bf16" in argv else torch.float32
-    steps = [int(a) for a in argv if a != "--bf16"] or [0, 125]
+    dtype = (torch.bfloat16 if "--bf16" in argv else torch.int8 if "--int8" in argv
+             else torch.float32)
+    steps = [int(a) for a in argv if a not in ("--bf16", "--int8")] or [0, 125]
     cuda_build.build(["lm_megastep"], also=(("lm_megastep", STAMPED),))
     lm = seeded_init_(TransformerLM(device="cuda"), 4)
     wall, vecs = lm.prepare_megastep()
@@ -130,7 +143,8 @@ def main(argv: list[str]) -> int:
 
         def run():
             return k7.lm_megastep(x0, mask, cache["kv"], cache["kv_act"], cache["table"],
-                                  cache["act_src"], step, wall, vecs, lm.nhead)[0]
+                                  cache["act_src"], step, wall, vecs, lm.nhead,
+                                  k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))[0]
 
         ms = _ms(run)
         try:

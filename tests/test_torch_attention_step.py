@@ -7,7 +7,9 @@ bf16 caches: against the TPU kernel itself, ``cached_attention_step`` in
 interpret mode, at 2e-2 relative to the largest output
 (tests/test_attention_step_kernel.py:52). Shapes: whole-row (L 2, N 8, U 16,
 M 256) and the chunked shape of the JAX kernel test (M 768, U 448). Inputs
-include a masked fresh token and NaN/Inf beyond the step.
+include a masked fresh token and NaN/Inf beyond the step. int8 caches: the
+whole-row shape, and the chunked one at U 512 (the 30 s shape's U, above the
+int8 whole-row bound of 426), where the JAX kernel is ``_kernel_chunked``.
 """
 
 import jax.numpy as jnp
@@ -21,7 +23,8 @@ from speech_anonymization_tpu_torch.ops import attention_step as port
 from speech_anonymization_tpu_torch.ops.attention_step import attention_step_plain
 from tests.torch_port_helpers import t
 
-SHAPES = {"whole_row": (2, 8, 16, 256, 4), "chunked": (2, 8, 448, 768, 8)}
+SHAPES = {"whole_row": (2, 8, 16, 256, 4), "chunked": (2, 8, 448, 768, 8),
+          "int8_chunked": (2, 8, 512, 768, 8)}
 
 
 def _inputs(shape, step, seed, masked_fresh):
@@ -123,7 +126,10 @@ def _int8_inputs(shape, step, seed, masked_fresh, bf16_fresh=False):
     return q, kh, vh, mask, ck, cv, ks, vs
 
 
+# int8: the whole-row cases; against the TPU kernel also two chunked ones
+# (K4's twin against ``_kernel_chunked``), one with the fresh token masked
 INT8_CASES = [case for case in CASES if case[0] == "whole_row"]
+INT8_KERNEL_CASES = INT8_CASES + [("int8_chunked", 64, True), ("int8_chunked", 447, False)]
 
 
 @pytest.mark.parametrize("name,step,masked_fresh", INT8_CASES)
@@ -152,7 +158,7 @@ def test_int8_matches_attend_cached(name, step, masked_fresh):
     np.testing.assert_array_equal(pk[0].numpy(), ck[0])  # the other layer is untouched
 
 
-@pytest.mark.parametrize("name,step,masked_fresh", INT8_CASES)
+@pytest.mark.parametrize("name,step,masked_fresh", INT8_KERNEL_CASES)
 def test_int8_matches_tpu_kernel_interpret(name, step, masked_fresh):
     """int8 caches: the twin against the TPU kernel in interpret mode at its
     own int8 tolerance, 3e-2 relative to the largest output
@@ -181,10 +187,23 @@ def test_int8_matches_tpu_kernel_interpret(name, step, masked_fresh):
 
 
 def test_int8_chunked_kernel_refuses():
-    """K4 has no int8 mode yet (the next slice); it refuses on either device."""
-    q, kh, vh, mask, ck, cv, ks, vs = _int8_inputs(SHAPES["whole_row"], 3, 5, False)
-    with pytest.raises(TypeError, match="next slice"):
-        port.attention_step_chunked(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 3, 0, 4, t(ks),
-                                    t(vs))
+    """K4 on int8 CPU tensors: ``cached_attention_step`` takes it above the
+    int8 whole-row bound (U 512) and it runs the twin, codes and scales
+    written alike, no launch counted; it refuses int8 codes without their
+    scales."""
+    shape = SHAPES["int8_chunked"]
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_inputs(shape, 100, 5, False)
+    assert port.uses_chunked(shape[2], shape[3], torch.int8)
+    want_buffers = [t(x) for x in (ck, cv, ks, vs)]
+    want = attention_step_plain(t(q), t(kh), t(vh), t(mask), *want_buffers[:2], 100, 1, 8,
+                                *want_buffers[2:])
+    launches = port.attention_step_chunked.launches
+    for kernel in (port.attention_step_chunked, port.cached_attention_step):
+        buffers = [t(x) for x in (ck, cv, ks, vs)]
+        got = kernel(t(q), t(kh), t(vh), t(mask), *buffers[:2], 100, 1, 8, *buffers[2:])
+        assert torch.equal(got, want)
+        for x, y in zip(buffers, want_buffers):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
+    assert port.attention_step_chunked.launches == launches
     with pytest.raises(TypeError, match="k_scale"):
-        port._check(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 3, 0, 4, None, None)
+        port._check(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 3, 0, 8, None, None)

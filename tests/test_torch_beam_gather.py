@@ -78,13 +78,29 @@ def test_make_kv_cache_rounds_u_like_jax(dtype, u_max):
 
 
 def test_refuses_int8_caches():
-    """int8 caches are served up to the whole-row bound (426 at M 768: U 424
-    after the rounding to 8); a longer one would need the chunked int8
-    kernels, not ported yet, and raises instead of taking another path."""
-    assert make_kv_cache(4, 424, 2, 8, 96, dtype=torch.int8, device="cpu")["k"].shape[2] == 424
-    for paged in (False, True):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_kv_cache(4, 425, 2, 8, 96, dtype=torch.int8, device="cpu", paged=paged)
+    """A physical int8 cache above the whole-row bound (u_max 449: U 512, the
+    30 s shape's) reorders like JAX's: K2's twin gathers the codes at
+    positions <= step, the scales move whole along N, into the spare pair."""
+    b, k, step = 2, 4, 300
+    rng = np.random.default_rng(11)
+    jc = jax_make_kv_cache(b * k, 449, 2, 8, 96, dtype=jnp.int8)
+    pc = make_kv_cache(b * k, 449, 2, 8, 96, dtype=torch.int8, device="cpu")
+    assert pc["k"].shape == (2, b * k, 512, 768) and pc["k_scale"].shape == (2, b * k, 512)
+    for key in ("k", "v", "k_scale", "v_scale"):
+        values = (rng.integers(-128, 128, jc[key].shape).astype(np.int8) if key in ("k", "v")
+                  else rng.uniform(1e-3, 0.05, jc[key].shape).astype(np.float32))
+        jc[key] = jnp.asarray(values)
+        pc[key].copy_(t(values))
+    parent = np.array([[3, 3, 0, 1], [2, 0, 0, 3]])
+    want = jax_reorder(jc, jnp.asarray(parent, jnp.int32), step)
+    spare = pc["k_spare"]
+    got = beam_reorder_cache(pc, t(parent), step)
+    assert got["k"] is spare and beam_gather.launches == 0
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(got[key][:, :, :step + 1].numpy(),
+                                      np.asarray(want[key])[:, :, :step + 1])
+    for key in ("k_scale", "v_scale"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
 
 
 @pytest.mark.parametrize("step", [0, 5, 15, None])

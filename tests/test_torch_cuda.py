@@ -1,6 +1,7 @@
 """The port on an NVIDIA card: K1 to K7 against their plain twins (K5 in its
-four configurations with identity, single-owner and mixed tables; K2, K3 and
-K5 on int8 caches too), and the anonymization and decode slices (physical and
+four configurations with identity, single-owner and mixed tables; every
+kernel on int8 caches too: K2, K3 and K5 whole-row, K4, K6 and K7 above the
+whole-row bound), and the anonymization and decode slices (physical and
 paged caches, f32, bf16 and int8, with and without the LM) on the card
 against the CPU. Imports no JAX, so it runs on a machine without it:
 
@@ -285,9 +286,14 @@ def test_k3_int8_matches_plain_twin(cuda, u, step_at, nhead):
 def test_k3_k4_reject_bad_operands(cuda):
     q, kh, vh, mask, ck, cv = _attention_inputs(8, 16, 768, torch.float32, 3, seed=9, device=cuda)
     scales = torch.zeros(2, 8, 16, device=cuda)
-    with pytest.raises(TypeError, match="next slice"):  # K4 in int8
-        attention_step_chunked(q, kh, vh, mask, ck.to(torch.int8), cv.to(torch.int8), 3, 0, 8,
-                               scales, scales)
+    # K4 takes int8 codes with their scales, as its twin does
+    i8 = [c.nan_to_num(0.0).clamp(-127, 127).to(torch.int8) for c in (ck, cv)] + [
+        scales + 0.01, scales + 0.02]
+    twin = [x.clone() for x in i8]
+    got = attention_step_chunked(q, kh, vh, mask, *i8[:2], 3, 0, 8, *i8[2:])
+    want = attention_step_plain(q, kh, vh, mask, *twin[:2], 3, 0, 8, *twin[2:])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(i8, twin))
     with pytest.raises(ValueError):  # scales of another shape
         attention_step(q, kh, vh, mask, ck.to(torch.int8), cv.to(torch.int8), 3, 0, 8,
                        scales[:, :, :8], scales[:, :, :8])
@@ -436,9 +442,19 @@ def test_paged_kernels_reject_bad_operands(cuda):
     cache = make_kv_cache(8, 80, 2, 8, 96, device=cuda, paged=True)
     q = torch.zeros(8, 768, device=cuda)
     mask = torch.ones(8, 96, dtype=torch.bool, device=cuda)
+    # K6 takes an int8 cache with its scales, as its twin does
+    g = torch.Generator(device=cuda).manual_seed(3)
     int8 = make_kv_cache(8, 80, 2, 8, 96, torch.int8, device=cuda, paged=True)
-    with pytest.raises(TypeError, match="next slice"):  # K6 in int8
-        attention_step_paged_chunked(q, q, q, mask, int8, 3, 0, 8)
+    for key in ("k", "v", "k_act", "v_act"):
+        int8[key].random_(-127, 128, generator=g)
+    for key in ("k_scale", "v_scale"):
+        int8[key].uniform_(1e-3, 0.05, generator=g)
+    twin = {k: v.clone() for k, v in int8.items()}
+    qr = torch.randn(8, 768, generator=g, device=cuda)
+    got = attention_step_paged_chunked(qr, qr, qr, mask, int8, 40, 0, 8)
+    want = attention_step_paged_plain(qr, qr, qr, mask, twin, 40, 0, 8)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert all(_same(int8[k], twin[k]) for k in int8)
     for kernel in (attention_step_paged, attention_step_paged_chunked):
         with pytest.raises(TypeError):  # int8 codes without their scales
             kernel(q, q, q, mask, {k: v.to(torch.int8) if v.is_floating_point() else v
@@ -535,10 +551,10 @@ def _fused_history(n, u, step, dtype, device, rng, layers=2, m=768):
     return cache
 
 
-def _physical_of(cache, step):
+def _physical_of(cache, step, stale=float("nan")):
     """The (L, N, U, M) physical k and v caches holding the fused paged
     cache's logical content at positions < step (the parent's slot for the
-    active page), NaN at and beyond the step."""
+    active page), ``stale`` (NaN; int8: code -128) at and beyond the step."""
     k_pages, v_pages, k_act, v_act = page_views(cache)
     layers, n, up, page, m = k_pages.shape
     p_act, o = divmod(step, page)
@@ -548,7 +564,7 @@ def _physical_of(cache, step):
     for pages, act in ((k_pages, k_act), (v_pages, v_act)):
         c = pages[:, owners, cols].reshape(layers, n, up * page, m).clone()
         c[:, :, p_act * page:p_act * page + o] = act[:, parent, (step + 1) % 2, :o]
-        c[:, :, step:] = float("nan")
+        c[:, :, step:] = stale
         out.append(c.contiguous())
     return out
 
@@ -775,8 +791,17 @@ def test_k7_refuses_bad_operands(cuda):
         names = ("x0", "mask", "kv", "act", "table", "src", "step", "wall", "vecs", "nhead")
         return tuple(kw.get(k, v) for k, v in zip(names, ok))
 
-    with pytest.raises(TypeError, match="next slice"):  # int8 caches
+    with pytest.raises(TypeError, match="k_scale"):  # int8 codes without their scales
         lm_megastep(*bad(kv=c["kv"].to(torch.int8), act=c["kv_act"].to(torch.int8)))
+    # with their scales, int8 is taken and held to the twin
+    g = torch.Generator(device=cuda).manual_seed(4)
+    i8 = _int8_fused_cache(2, n, u, m, cuda, g)
+    _int8_fill(i8, g)
+    twin = {k: v.clone() for k, v in i8.items()}
+    x0 = torch.randn(n, m, generator=g, device=cuda)
+    got = lm_megastep(*_k7_args(x0, mask, i8, 3, wall, vecs, 4))[0]
+    want = lm_megastep_plain(*_k7_args(x0, mask, twin, 3, wall, vecs, 4))[0]
+    _k7_int8_close(got, want, i8, twin, 3)
     with pytest.raises(ValueError):  # the split layout: k cache and k slots
         lm_megastep(*bad(kv=c["kv"][:, :, :u].contiguous(), act=c["kv_act"][:, :, :, :64].contiguous()))
     with pytest.raises(ValueError):  # page 32
@@ -818,3 +843,168 @@ def test_lm_fused_decode_on_card(cuda):
     same = torch.equal(outs[True][0], outs[False][0])
     print(f"K7 vs per-layer LM decode: tokens identical {same}, score gap "
           f"{float((outs[True][2] - outs[False][2]).abs().max())}")
+
+
+# int8 caches above the whole-row bound (U > 426 at M 768): K4, K6 (fused and
+# split) and K7 against their twins, with code -128 (never written by the
+# quantizer) and NaN scales wherever a step may not read
+
+
+def _int8_fill(cache, g):
+    """Seeded codes in every k/v buffer of ``cache``, scales in [1e-3, 0.05]."""
+    for key in ("k", "v", "kv", "k_act", "v_act", "kv_act"):
+        if key in cache:
+            cache[key].random_(-127, 128, generator=g)
+    for key in ("k_scale", "v_scale"):
+        cache[key].uniform_(1e-3, 0.05, generator=g)
+
+
+def _int8_fused_cache(layers, n, u, m, device, g):
+    """A fused page-64 int8 cache (any U) whose codes are all -128 and scales NaN."""
+    cache = _fused_nan_cache(layers, n, u, m, torch.float32, device)
+    cache["kv"] = torch.full(cache["kv"].shape, -128, dtype=torch.int8, device=device)
+    cache["kv_act"] = torch.full(cache["kv_act"].shape, -128, dtype=torch.int8, device=device)
+    for key in ("k_scale", "v_scale"):
+        cache[key] = torch.full((layers, n, u), float("nan"), device=device)
+    return cache
+
+
+@pytest.mark.parametrize("u,step_at", [(448, 0), (448, 447), (512, 63), (512, 64), (512, 300)])
+@pytest.mark.parametrize("nhead", [8, 12])
+def test_k4_int8_matches_plain_twin(cuda, u, step_at, nhead):
+    """K4 on int8 caches above the whole-row bound (U 448 and 512 > 426), at
+    the ASR's 8 x 96 heads and the LM's 12 x 64: out within 1e-5 of the
+    twin's, every code and scale equal; one launch counted."""
+    n, m = 9, 768
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(n, u, m, step_at, u + step_at, cuda)
+    twin = [x.clone() for x in (ck, cv, ks, vs)]
+    before = attention_step_chunked.launches
+    got = attention_step_chunked(q, kh, vh, mask, ck, cv, step_at, 1, nhead, ks, vs)
+    want = attention_step_plain(q, kh, vh, mask, *twin[:2], step_at, 1, nhead, *twin[2:])
+    torch.cuda.synchronize()
+    assert attention_step_chunked.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for a, b in zip((ck, cv, ks, vs), twin):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("nhead", [8, 12])
+def test_k6_int8_protocol_matches_plain_twin(cuda, nhead, fused):
+    """K6 on int8 caches above the whole-row bound (u_max 449: U 512, page
+    64), fused and split, over 70 steps with a random beam reorder after each
+    (page 0 completes at 63), at 8 x 96 and 12 x 64, from caches whose codes
+    are all -128 and scales NaN: out within 1e-5 of the twin's, finite, and
+    every page, slot, scale, table and act_src equal after every step."""
+    n = 8
+    cache = make_kv_cache(n, 449, 2, nhead, 768 // nhead, torch.int8, device=cuda, paged=True,
+                          fused=fused)
+    assert ("kv" in cache) == fused and cache["tokens"].shape[1] == 512
+    assert cache["table"].shape[1] * 64 == 512 and cache["k_scale"].shape == (2, n, 512)
+    for key in cache:
+        if key in ("k", "v", "kv", "k_act", "v_act", "kv_act"):
+            cache[key].fill_(-128)
+        elif key in ("k_scale", "v_scale"):
+            cache[key].fill_(float("nan"))
+    twin_cache = {k: v.clone() for k, v in cache.items()}
+    twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
+    rng = np.random.default_rng(nhead + fused)
+    mask = torch.from_numpy(rng.random((n, 512)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    before = attention_step_paged_chunked.launches
+    steps = 70
+    for step in range(steps):
+        for layer in range(2):
+            q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                         for _ in range(3))
+            got = attention_step_paged_chunked(q, kh, vh, mask, cache, step, layer, nhead)
+            want = twin(q, kh, vh, mask, twin_cache, step, layer, nhead)
+            assert torch.isfinite(got).all(), (step, layer)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        for key in cache:
+            assert _same(cache[key], twin_cache[key]), (step, key)
+        parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
+        cache = beam_reorder_cache(cache, parent, step)
+        twin_cache = beam_reorder_cache(twin_cache, parent, step)
+    torch.cuda.synchronize()
+    assert attention_step_paged_chunked.launches == before + 2 * steps
+
+
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [0, 63, 64, 127])
+def test_k4_k6_int8_bit_identical(cuda, step, nhead):
+    """int8 K4 (physical) and K6 (fused paged) on the same logical content
+    (codes of a beam history's pages and the parent's active page, the same
+    own-row scales) give equal outputs bit for bit, and write equal scales."""
+    rng = np.random.default_rng(step + nhead)
+    g = torch.Generator(device=cuda).manual_seed(step + nhead)
+    n, u, layer = 16, 192, 1
+    cache = _int8_fused_cache(2, n, u, 768, cuda, g)
+    for t in range(step):
+        cache = beam_reorder_cache(cache, torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda), t)
+    _int8_fill(cache, g)
+    ck, cv = _physical_of(cache, step, stale=-128)
+    ks, vs = cache["k_scale"].clone(), cache["v_scale"].clone()
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    mask[::3, step] = False
+    q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    paged = attention_step_paged_chunked(q, kh, vh, mask, cache, step, layer, nhead)
+    physical = attention_step_chunked(q, kh, vh, mask, ck, cv, step, layer, nhead, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(paged).all()
+    assert torch.equal(paged, physical), float((paged - physical).abs().max())
+    assert torch.equal(cache["k_scale"], ks) and torch.equal(cache["v_scale"], vs)
+
+
+def _k7_args(x0, mask, cache, step, wall, vecs, nhead):
+    return (x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step, wall,
+            vecs, nhead, False, cache["k_scale"], cache["v_scale"])
+
+
+# K7 int8 against its twin: both quantize bf16-valued k/v from products summed
+# in other orders, so a k/v element, and with it the row's amax, can differ by
+# one bf16 ulp: the first layer's codes within 1, its scales within 2^-7
+# relative; later layers carry the x gap (scales within 5e-2 relative)
+K7_INT8_SCALE_RTOL = 2.0 ** -7
+
+
+def _k7_int8_close(got, want, cache, twin, step):
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=K7_ATOL)
+    for key in ("kv", "kv_act"):
+        assert int((cache[key][0].int() - twin[key][0].int()).abs().max()) <= 1, key
+    for key in ("k_scale", "v_scale"):
+        a, b = cache[key][:, :, step], twin[key][:, :, step]
+        torch.testing.assert_close(a[0], b[0], rtol=K7_INT8_SCALE_RTOL, atol=0)
+        torch.testing.assert_close(a, b, rtol=5e-2, atol=0)
+        assert _same(cache[key][:, :, :step], twin[key][:, :, :step])
+
+
+def test_k7_int8_protocol_matches_plain_twin(cuda):
+    """K7 on a fused page-64 int8 cache over 76 steps with a random reorder
+    after each (page 0 completes at 63), from codes -128 and NaN scales: x_out
+    within K7_ATOL of the twin's from the same state, the written codes and
+    scales as ``_k7_int8_close`` states; one launch a step. The run goes on
+    from the kernel's state."""
+    lm = seeded_init_(TransformerLM(**LM_SMALL, device=cuda), 0)
+    wall, vecs = lm.prepare_megastep()
+    n, u, m = 8, 128, LM_SMALL["d_model"]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    cache = _int8_fused_cache(LM_SMALL["num_layers"], n, u, m, cuda, g)
+    rng = np.random.default_rng(8)
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    for step in range(76):
+        x0 = torch.from_numpy(rng.standard_normal((n, m)).astype(np.float32)).to(cuda)
+        twin = {k: v.clone() for k, v in cache.items()}
+        before = lm_megastep.launches
+        got = lm_megastep(*_k7_args(x0, mask, cache, step, wall, vecs, LM_SMALL["nhead"]))[0]
+        torch.cuda.synchronize()
+        assert lm_megastep.launches == before + 1
+        want = lm_megastep_plain(*_k7_args(x0, mask, twin, step, wall, vecs, LM_SMALL["nhead"]))[0]
+        _k7_int8_close(got, want, cache, twin, step)
+        parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
+        cache = beam_reorder_cache(cache, parent, step)

@@ -1,6 +1,7 @@
 """The int8 cache plumbing of the port (``decode_cache_dtype: int8``) against
-the JAX package (CPU): the quantizer, the cache's keys and shapes, the beam
-reorder of the scales, and the refusal above the whole-row bound.
+the JAX package (CPU): the quantizer, the cache's keys and shapes (whole-row,
+and above the whole-row bound, where U rounds to 64 and a paged cache is
+fused by 64), and the beam reorder of the scales.
 
 The quantizer (``ops.attention_step.quantize_rows``, which the K3/K5 twins
 and ``make_attends``' finalize run, and which the kernels compute on the card)
@@ -94,13 +95,27 @@ def test_make_kv_cache_int8_matches_jax(paged, u_max):
             assert not got[key].any(), key
 
 
-@pytest.mark.parametrize("u_max,paged", [(425, False), (425, True), (1000, True)])
+@pytest.mark.parametrize("u_max,paged", [(425, False), (425, True), (1000, True), (1000, False)])
 def test_int8_above_the_whole_row_bound_raises(u_max, paged):
-    """Above ``max_u_whole_row(M, 2)`` the chunked int8 kernels would serve
-    the cache; they are not ported, so making it raises."""
+    """Above ``max_u_whole_row(M, 2)`` (426 at M 768) an int8 cache is made,
+    as JAX's: U rounds to a multiple of 64 (448, 1024), a paged one takes
+    the fused page-64 layout K6 and K7 read, and the scales are (L, N, U);
+    keys, shapes and dtypes equal JAX's (the physical layout adds its spare
+    pair). Nothing raises."""
     assert max_u_whole_row(768, 2) == 426
-    with pytest.raises(NotImplementedError, match="K4, K6, K7"):
-        make_kv_cache(N, u_max, L, 8, 96, torch.int8, device="cpu", paged=paged)
+    want = jax_make_kv_cache(N, u_max, L, 8, 96, dtype=jnp.int8, paged=paged)
+    got = make_kv_cache(N, u_max, L, 8, 96, torch.int8, device="cpu", paged=paged)
+    u = 448 if u_max == 425 else 1024
+    assert set(got) - {"k_spare", "v_spare"} == set(want)
+    for key, value in want.items():
+        assert tuple(got[key].shape) == value.shape, key
+    assert got["k_scale"].shape == got["v_scale"].shape == (L, N, u)
+    assert got["k_scale"].dtype == torch.float32 and got["tokens"].shape == (N, u)
+    if paged:
+        assert got["kv"].shape == (L, N, 2 * u, 768) and got["kv"].dtype == torch.int8
+        assert got["kv_act"].shape == (L, N, 2, 128, 768) and got["table"].shape == (N, u // 64)
+    else:
+        assert got["k"].shape == got["k_spare"].shape == (L, N, u, 768)
 
 
 @pytest.mark.parametrize("paged", [False, True])

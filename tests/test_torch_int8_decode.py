@@ -20,6 +20,14 @@ physical, 2.4e-7 page 32, 4.8e-7 with the LM; 1e-4 is the f32 decodes'
 tolerance and leaves room for a flipped code at these widths.
 Against the port's own f32 decode: identical hypotheses, scores within
 0.15, the JAX package's int8-vs-f32 bound (``tests/test_cached_decode.py``).
+
+The chunked layouts (U above the int8 whole-row bound, the 30 s decode's):
+both packages' whole-row bound is shrunk to 40 positions at d_model 128 (each
+side's ``_VMEM_BUDGET``, which ``max_u_whole_row`` reads at call time), so a
+70-step decode (U 71 -> 128, page 64 completing at step 63) takes them on
+both sides: physical through K4's twin (and K2's), and paged by 64 with the
+fused layout and the LM (K6's twin for both stacks; the LM per layer on both
+sides, as off the accelerator). Same tolerances.
 """
 
 import jax
@@ -29,13 +37,17 @@ import pytest
 import torch
 
 import speech_anonymization_tpu.models.transformer as jax_transformer
+import speech_anonymization_tpu.ops.pallas.attention_step as jax_attention_step
 from speech_anonymization_tpu.models.asr import ASRModel as JaxASRModel
 from speech_anonymization_tpu.models.transformer import TransformerLM as JaxLM
 from speech_anonymization_tpu.recipes.asr_bundle import ASRBundle as JaxASRBundle
 from speech_anonymization_tpu_torch.decoding import hyps_to_lists
 from speech_anonymization_tpu_torch.models import TransformerLM
 from speech_anonymization_tpu_torch.models.asr import ASRModel
+from speech_anonymization_tpu_torch.models import transformer as port_transformer
 from speech_anonymization_tpu_torch.models.transformer import use_paged_cache
+from speech_anonymization_tpu_torch.ops import attention_step as port_attention_step
+from speech_anonymization_tpu_torch.ops import attention_step_paged as port_paged
 from speech_anonymization_tpu_torch.recipes import asr_bundle as port_bundle
 from speech_anonymization_tpu_torch.utils.convert import (
     asr_state_dict,
@@ -125,3 +137,53 @@ def test_int8_decode_matches_port_f32(weights):
     assert hyps_to_lists(*runs["int8"][:2]) == hyps_to_lists(*runs["float32"][:2])
     np.testing.assert_allclose(runs["int8"][2].numpy(), runs["float32"][2].numpy(), atol=0.15,
                                rtol=0)
+
+
+# max_u_whole_row(128, 2) == 40 on both sides; name: (paged, with the LM, the
+# cache keys that layout holds)
+CHUNKED_BUDGET = 40 * 2 * 8 * 128 * 2
+CHUNKED_STEPS = 70
+CHUNKED_RUNS = {"physical": (False, False, ("k", "k_spare", "k_scale", "v_scale")),
+                "page64_fused_lm": (True, True, ("kv", "kv_act", "table", "k_scale", "v_scale"))}
+
+
+@pytest.mark.parametrize("name", list(CHUNKED_RUNS))
+def test_int8_chunked_decode_matches_jax(name, weights, monkeypatch):
+    jm, v, jl, lv, pm, pl = weights
+    paged, with_lm, keys = CHUNKED_RUNS[name]
+    monkeypatch.setattr(jax_attention_step, "_VMEM_BUDGET", CHUNKED_BUDGET)
+    monkeypatch.setattr(port_attention_step, "_VMEM_BUDGET", CHUNKED_BUDGET)
+    assert port_attention_step.max_u_whole_row(128, 2) == 40
+    # count the chunked kernels' calls (their twins run: the tensors are on the CPU)
+    calls = []
+    kernel_module, kernel_name = ((port_paged, "attention_step_paged_chunked") if paged
+                                  else (port_attention_step, "attention_step_chunked"))
+    kernel = getattr(kernel_module, kernel_name)
+    monkeypatch.setattr(kernel_module, kernel_name,
+                        lambda *a, **k: calls.append(1) or kernel(*a, **k))
+    if paged:
+        monkeypatch.setattr(jax_transformer, "use_paged_cache", lambda *a: True)
+        monkeypatch.setattr(port_bundle, "use_paged_cache", _card_rule)
+    else:  # the physical kernel branch (K4, K2), as on the card
+        monkeypatch.setattr(port_transformer, "_use_kernel", lambda cache: True)
+    feats, lens = _feats()
+    hp = {**HPARAMS, "max_decode_steps": CHUNKED_STEPS, "decode_paged_kv": paged}
+    lm_args = dict(lm=jl, lm_variables=lv) if with_lm else {}
+    want = JaxASRBundle(jm, v, _Tok(), hp, **lm_args)._decode_test(jnp.asarray(feats),
+                                                                   jnp.asarray(lens))
+    bundle = port_bundle.ASRBundle(pm, _Tok(), hp, lm=pl if with_lm else None)
+    caches = [bundle.make_cache(8, CHUNKED_STEPS + 1, "cpu")]
+    if with_lm:
+        caches.append(bundle.make_lm_cache(8, CHUNKED_STEPS + 1, "cpu"))
+    for cache in caches:
+        assert all(key in cache for key in keys) and ("table" in cache) == paged
+        assert cache["tokens"].shape[1] == 128 and cache["k_scale"].shape[2] == 128
+        assert (cache["kv"] if paged else cache["k"]).dtype == torch.int8
+        assert not paged or cache["table"].shape[1] == 2  # page 64
+    got = bundle._decode_test(t(feats), t(lens))
+    layers = WIDTHS["num_decoder_layers"] + (LM_WIDTHS["num_layers"] if with_lm else 0)
+    assert len(calls) == layers * CHUNKED_STEPS
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2], np.float32), atol=1e-4, rtol=0)
+    assert len({tuple(h) for h in hyps_to_lists(got[0], got[1])}) == 2  # input-dependent logits

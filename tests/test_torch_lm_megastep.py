@@ -17,6 +17,17 @@
   x gap); the parent's copied positions and the slot the step reads
   exactly equal;
 * one ``exact_gelu`` case (sb_compat LMs);
+* int8 caches (codes with (L, N, U) scales, K7's int8 mode) at steps 63
+  (mixed) and 64 (uniform), the content ``quantize_rows`` makes of the
+  bf16 cases' (a real decode's codes and scales): x_out at X_ATOL (gap
+  0.012-0.014; codes drawn uniformly in +-127 at scales to 0.05 give twice
+  the magnitude and 0.027-0.043, as the TPU kernel's bf16 roundings of
+  products and weights grow with the scores); the fresh codes at the JAX
+  package's own tolerance for its megastep (``tests/test_lm_megastep.py``
+  ``_codes_close``: within 3, more than 1 apart on under 2%) and the fresh
+  scales at its rtol 0.02 (the two quantize k/v from bf16 products summed in
+  other orders); the parent's copied codes and the slot the step reads
+  exactly equal;
 * the twin against the port's per-layer ``decode_step`` (f32 products) on the
   fused layout, through beam reorders and a page completion, at the JAX
   package's own megastep tolerance (log-probs rtol 0.1, atol 0.12);
@@ -36,6 +47,7 @@ from speech_anonymization_tpu.ops.pallas.lm_megastep import lm_megastep as jax_m
 from speech_anonymization_tpu_torch.models import TransformerLM
 from speech_anonymization_tpu_torch.models.transformer import beam_reorder_cache
 from speech_anonymization_tpu_torch.ops import lm_megastep as port
+from speech_anonymization_tpu_torch.ops.attention_step import quantize_rows
 from speech_anonymization_tpu_torch.ops.lm_megastep import lm_megastep_plain
 from speech_anonymization_tpu_torch.utils.convert import lm_state_dict, load_numpy_state
 from tests.torch_port_helpers import perturbed, t
@@ -136,6 +148,47 @@ def test_exact_gelu_matches_jax_interpret():
     _compare_with_jax(64, "mixed", "bf16", exact_gelu=True)
 
 
+def _codes_close(got, want):
+    """``tests/test_lm_megastep.py``'s int8 code tolerance."""
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 3, diff.max()
+    assert (diff > 1).mean() < 0.02, (diff > 1).mean()
+
+
+@pytest.mark.parametrize("step,history", [(63, "mixed"), (64, "uniform")])
+def test_int8_matches_jax_interpret(step, history):
+    jl, v, pl = _models()
+    wj, vj = jl.prepare_megastep(v["params"])
+    wp, vp = pl.prepare_megastep()
+    kvf, actf, table, src, x0, mask = _state(step, history, seed=step)
+    (kv, kv_scales), (act, _) = (quantize_rows(torch.from_numpy(x)) for x in (kvf, actf))
+    kv, act = kv.numpy(), act.numpy()
+    # each fused page is [K-page, V-page]: its rows' scales split into k's and v's
+    paged = kv_scales.numpy().reshape(L, N, U // PAGE, 2, PAGE)
+    ks, vs = (paged[:, :, :, j].reshape(L, N, U).copy() for j in (0, 1))
+    x_j, kv_j, act_j, kso, vso = jax_megastep(
+        jnp.asarray(x0), jnp.asarray(mask), jnp.asarray(kv), jnp.asarray(act), jnp.asarray(table),
+        jnp.asarray(src), step, wj, vj, H, interpret=True, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs))
+    kv_p, act_p, ks_p, vs_p = t(kv), t(act), t(ks), t(vs)
+    x_p, _, _ = lm_megastep_plain(t(x0), t(mask), kv_p, act_p, t(table), t(src), step, wp, vp, H,
+                                  k_scale=ks_p, v_scale=vs_p)
+    np.testing.assert_allclose(x_p.numpy(), np.asarray(x_j), atol=X_ATOL, rtol=0)
+    got, want = _written(kv_p.numpy(), act_p.numpy(), step), _written(np.asarray(kv_j),
+                                                                      np.asarray(act_j), step)
+    o = step % PAGE
+    for half in (0, PAGE):  # K then V: copied parent codes, then the fresh token's
+        np.testing.assert_array_equal(got[:, :, half:half + o], want[:, :, half:half + o])
+        _codes_close(got[:, :, half + o], want[:, :, half + o])
+    read = (step + 1) % 2
+    np.testing.assert_array_equal(act_p[:, :, read].numpy(), np.asarray(act_j)[:, :, read])
+    for port_scale, jax_scale, before in ((ks_p, kso, ks), (vs_p, vso, vs)):
+        np.testing.assert_allclose(port_scale[:, :, step].numpy(), np.asarray(jax_scale)[:, :, 0],
+                                   rtol=0.02, atol=1e-6)
+        np.testing.assert_array_equal(np.delete(port_scale.numpy(), step, axis=2),
+                                      np.delete(before, step, axis=2))
+
+
 def test_plain_matches_per_layer_decode():
     """The JAX package's own check of its kernel (``test_lm_megastep.py``),
     with the port's per-layer path as the reference: drive the state with
@@ -185,7 +238,7 @@ def _operands(case):
     _, _, pl = _models()
     wall, vecs = pl.prepare_megastep()
     kv, act, table, src, x0, mask = (t(x) for x in _state(5, "mixed", seed=1))
-    if case == "int8":
+    if case == "int8":  # int8 codes without their scales
         kv, act = kv.to(torch.int8), act.to(torch.int8)
     elif case == "split":  # the split layout's k cache and its k slots
         kv, act = kv[:, :, :U].contiguous(), act[:, :, :, :PAGE].contiguous()
@@ -206,6 +259,27 @@ def _operands(case):
 def test_refusals(case, error):
     with pytest.raises(error):
         port.lm_megastep(*_operands(case))
+
+
+def test_int8_with_scales_accepted():
+    """int8 codes with their (L, N, U) scales: the wrapper on CPU tensors runs
+    the twin (x_out, codes and scales alike) and counts nothing."""
+    x0, mask, kv, act, table, src, step, wall, vecs, _ = _operands("none")
+    rng = np.random.default_rng(9)
+    codes = [torch.from_numpy(rng.integers(-127, 128, x.shape).astype(np.int8)) for x in (kv, act)]
+    scales = [torch.from_numpy(rng.uniform(0.002, 0.05, (L, N, U)).astype(np.float32))
+              for _ in range(2)]
+    before = port.lm_megastep.launches
+    outs = []
+    for fn in (port.lm_megastep, lm_megastep_plain):
+        bufs = [x.clone() for x in (*codes, *scales)]
+        x, _, _ = fn(x0, mask, *bufs[:2], table, src, step, wall, vecs, H, k_scale=bufs[2],
+                     v_scale=bufs[3])
+        outs.append((x, *bufs))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    assert port.lm_megastep.launches == before
+    assert not torch.equal(outs[0][3][:, :, step], scales[0][:, :, step])  # written in place
 
 
 def test_prepare_refuses_ffn_not_in_model_blocks():

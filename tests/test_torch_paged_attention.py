@@ -415,12 +415,104 @@ def test_int8_matches_tpu_kernel_interpret():
         np.testing.assert_array_equal(got, want)
 
 
+def _int8_chunked_state(rng, fused, u, s0, uniform):
+    """Seeded int8 codes and (L, N, U) scales at page 64, split or fused, with
+    the table/act_src of a beam history of s0 steps: ``uniform`` coalesces
+    every row onto row 0 each step (one utterance of N beams, so the TPU
+    kernel's 8-row tiles share their owners: its uniform-page path), else
+    random parents within utterances of K beams."""
+    state = _zero_cache(64, fused, u, np.int8)
+    for key in ("k", "v", "k_act", "v_act", "kv", "kv_act"):
+        if key in state:
+            state[key] = rng.integers(-127, 128, state[key].shape).astype(np.int8)
+    for key in ("k_scale", "v_scale"):
+        state[key] = rng.uniform(0.002, 0.05, (L, N, u)).astype(np.float32)
+    table, src = state["table"], state["act_src"]
+    for t in range(s0):
+        src = (np.zeros(N) if uniform else
+               (np.arange(B)[:, None] * K + rng.integers(0, K, (B, K))).reshape(-1)).astype(np.int32)
+        table = table[src]
+        if t % 64 == 63:
+            table[:, t // 64] = src
+    state["table"], state["act_src"] = table, src
+    return state
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("history", ["uniform", "mixed"])
+def test_int8_chunked_matches_tpu_kernel_interpret(fused, history, monkeypatch):
+    """int8, page 64 (K6's int8 mode), fused and split: the twin against the
+    TPU kernel ``_kernel_chunked_paged`` in interpret mode over steps 62-64
+    (a page completes at 63), at layer 1 (each layer is a compile of the
+    interpreted kernel), from a seeded mid-decode state whose table is
+    uniform (every row owns the same pages: the kernel's path that factors
+    the K scale out of the dot) or mixed, at the kernel's own int8
+    tolerance, 3e-2 relative to the largest output (it rounds q and the
+    dequantized keys to bf16); q/kh/vh that bf16 represents exactly, so both
+    quantize the same rows: each step's scales within one f32 ulp (the
+    kernel's ``amax * (1 / 127)``), and after the steps the rebuilt logical
+    codes (merged pages and slots included) equal the kernel's."""
+    monkeypatch.setattr(ats, "max_u_whole_row", lambda m, itemsize: 8)
+    s0, u = 62, 128
+    rng = np.random.default_rng(62 + fused + 2 * (history == "uniform"))
+    state = _int8_chunked_state(rng, fused, u, s0, history == "uniform")
+    jcache, pcache = _to_jax(state), _to_port(state)
+    mask = rng.random((N, u)) > 0.2
+    mask[:, 0] = True
+    twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
+    for t in range(s0, s0 + 3):
+        for i in (1,):
+            q, kh, vh = (np.asarray(jnp.asarray(rng.standard_normal((N, M)), jnp.bfloat16),
+                                    np.float32) for _ in range(3))
+            jargs = (jnp.asarray(q), jnp.asarray(kh), jnp.asarray(vh),
+                     jnp.asarray(mask.astype(np.int8)))
+            scales = dict(k_scale=jcache["k_scale"][i], v_scale=jcache["v_scale"][i])
+            if fused:
+                want, jcache["kv"], jcache["kv_act"], kso, vso = ats.cached_attention_step_paged_fused(
+                    *jargs, jcache["kv"], jcache["kv_act"], jcache["table"], jcache["act_src"], t,
+                    i, H, interpret=True, **scales)
+            else:
+                (want, jcache["k"], jcache["v"], jcache["k_act"], jcache["v_act"], kso,
+                 vso) = ats.cached_attention_step_paged(
+                    *jargs, jcache["k"], jcache["v"], jcache["k_act"], jcache["v_act"],
+                    jcache["table"], jcache["act_src"], t, i, H, interpret=True, **scales)
+            jcache["k_scale"] = jcache["k_scale"].at[i, :, t].set(kso[:, 0])
+            jcache["v_scale"] = jcache["v_scale"].at[i, :, t].set(vso[:, 0])
+            got = twin(torch.from_numpy(q), torch.from_numpy(kh), torch.from_numpy(vh),
+                       torch.from_numpy(mask), pcache, t, i, H)
+            want = np.asarray(want)
+            rel = np.abs(got.numpy() - want).max() / np.abs(want).max()
+            assert rel < 3e-2, (t, i, rel)
+            for key in ("k_scale", "v_scale"):
+                np.testing.assert_array_max_ulp(pcache[key][i, :, t].numpy(),
+                                                np.asarray(jcache[key][i, :, t]), 1)
+        parent = np.zeros((1, N), int) if history == "uniform" else rng.integers(0, K, (B, K))
+        jcache = jax_reorder(jcache, jnp.asarray(parent, jnp.int32), t)
+        pcache = beam_reorder_cache(pcache, torch.from_numpy(parent), t)
+    for got, want in zip(_logical(pcache, 64, s0 + 2), _logical(jcache, 64, s0 + 2)):
+        np.testing.assert_array_equal(got, want)
+
+
 def test_int8_chunked_kernel_refuses():
-    """K6 has no int8 mode yet (the next slice): it refuses an int8 cache,
-    scales and all, on either device."""
-    state = _int8_state(np.random.default_rng(5), 64, 40)
-    q = torch.zeros(N, M)
-    mask = torch.ones(N, 64, dtype=torch.bool)
-    with pytest.raises(TypeError, match="next slice"):
-        port.attention_step_paged_chunked(q, q, q, mask, _to_port(state), 40, 1, H)
-    assert port.attention_step_paged(q, q, q, mask, _to_port(state), 40, 1, H).shape == (N, M)
+    """K6 on int8 CPU tensors, page 64, fused and split: the wrapper and the
+    dispatcher run the twin (output, codes and scales alike; no launch
+    counted); int8 codes without their scales are refused."""
+    rng = np.random.default_rng(5)
+    q, kh, vh = (torch.from_numpy(rng.standard_normal((N, M)).astype(np.float32))
+                 for _ in range(3))
+    mask = torch.from_numpy(rng.random((N, 128)) > 0.2)
+    launches = port.attention_step_paged_chunked.launches
+    for fused in (True, False):
+        state = _int8_chunked_state(rng, fused, 128, 70, False)
+        twin = attention_step_paged_fused_plain if fused else attention_step_paged_plain
+        want_cache = _to_port(state)
+        want = twin(q, kh, vh, mask, want_cache, 70, 1, H)
+        for kernel in (port.attention_step_paged_chunked, port.cached_attention_step_paged):
+            cache = _to_port(state)
+            assert torch.equal(kernel(q, kh, vh, mask, cache, 70, 1, H), want)
+            for key in want_cache:
+                assert torch.equal(cache[key], want_cache[key]), key
+        unscaled = {k: v for k, v in _to_port(state).items() if "scale" not in k}
+        with pytest.raises(TypeError, match="k_scale"):
+            port._check(q, kh, vh, mask, unscaled, 70, 1, H)
+    assert port.attention_step_paged_chunked.launches == launches
