@@ -67,6 +67,23 @@ failure raises and exits non-zero:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
            clean and reconstructed features). Launch counts are reset right
            before and read right after; then the path is timed;
+  train    the anonymizer's training step at convae.yaml's configuration
+           (ConvAutoencoder + TDNN head, 533,123 seeded parameters, the frozen
+           full-width ASRModel()'s utility term, SpecAugment from a seeded
+           generator, accumulation 3, clip 5, Noam): 8 x 10.07 s (D2's
+           waveforms) with 40 seeded tokens each, 6 micro-batches of the
+           "generator" phase then 6 of "sex_classifier". Checks finite losses,
+           K1 once a micro-batch (counts reset and read around the run), the
+           masks (the frozen group bit-equal to its start, some trained
+           parameter moved) and the BatchNorm statistics moving on every
+           micro-batch, and K1 against its plain version on the path's own
+           frames; reports ms per micro-batch and per update cycle (medians),
+           audio seconds trained per wall second (summed walls after the
+           first), peak memory and K1's time beside its plain version's;
+  train_parity  one accumulation cycle on the card and on the CPU from the
+           same weights, batches and draws (tools/train_parity.py): the
+           generator phase and a recon + utility one, 4 speech-like
+           utterances of 2 s, a small ASR, at the CPU tests' tolerances;
   parity   the same weights and two utterances on the card and on the CPU;
   decode   the decode path at the full published ASR width (ASRModel(), 161 M
            parameters), beam 66, CTC 0.4, temperature 1.15, f32 caches:
@@ -180,6 +197,12 @@ from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
 )
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle  # noqa: E402
 from speech_anonymization_tpu_torch.tools import profile_lm_megastep  # noqa: E402
+from speech_anonymization_tpu_torch.tools.train_parity import (  # noqa: E402
+    compare_cycle,
+    convae_hparams,
+    train_batch,
+)
+from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler  # noqa: E402
 from speech_anonymization_tpu_torch.utils import cuda_build  # noqa: E402
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_  # noqa: E402
 
@@ -214,6 +237,13 @@ DECODE_PARITY_ATOL = 1e-3  # scores, card vs CPU: cuBLAS and the CPU sum in othe
 # paged vs physical on the card: the same kernels' arithmetic on the same
 # content (K5 is K3's, K6 K4's, with other addresses)
 LAYOUT_PARITY_ATOL = 1e-4
+TRAIN_BATCH = 8  # D2's waveforms: 8 x 161,120 samples
+TRAIN_TOKENS = 40  # tokens_bos per utterance for the utility term
+TRAIN_MICRO_BATCHES = 6  # per phase: 2 updates at gradient_accumulation 3
+TRAIN_PARITY_BATCH = 4
+TRAIN_PARITY_SAMPLES = 32_000  # 2 s
+TRAIN_PARITY_ASR = dict(d_model=64, nhead=4, num_encoder_layers=2, num_decoder_layers=2,
+                        d_ffn=128, output_neurons=100)
 DECODE_LAYERS = 6  # ASRModel()'s decoder layers: one attention launch each per step
 LM_LAYERS = 12  # TransformerLM()'s layers
 # K7 vs its twin on the card: the same rounding points, products summed in
@@ -1244,6 +1274,129 @@ def phase_slice(wavs, lens, labels, fbank, normalizer, models, card: str) -> dic
     return launches
 
 
+def phase_train(asr: ASRModel, card: str) -> dict:
+    """The adversarial training step at convae.yaml's configuration: the
+    ConvAutoencoder (533,123 parameters, seeded) with the frozen full-width
+    ASR's utility term, 8 utterances of 10.07 s, TRAIN_MICRO_BATCHES of the
+    "generator" phase (epoch 0), then as many of the "sex_classifier" phase
+    (epoch 1). Checks: finite losses, K1 once a micro-batch, the masks (after
+    the generator phase every sex-head parameter is bit-equal to its start
+    and some generator parameter moved; after the classifier phase the
+    reverse), the BatchNorm running statistics moving on every micro-batch,
+    and K1 against its plain version on this path's frames (K1_RTOL,
+    K1_ATOL). Reports the median wall per micro-batch and per update (each
+    ended by a synchronise), audio seconds trained per wall second over the
+    micro-batches after the first (their audio over their summed wall), peak
+    memory, and K1's and its plain version's device times at this shape."""
+    t_phase = time.perf_counter()
+    batch = train_batch(TRAIN_BATCH, N_SAMPLES, SEED + 9, DEVICE, tokens=TRAIN_TOKENS, speech=False)
+    bundle = ASRBundle(asr, StubTokenizer(), DECODE_HPARAMS)
+    trainer = recipe.AnonymizerTrainer(convae_hparams(DEVICE), asr_bundle=bundle,
+                                       device=DEVICE)
+    seeded_init_(trainer.model, SEED)
+    params = dict(trainer.model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    stats = [b for name, b in trainer.model.named_buffers() if name.endswith(("running_mean", "running_var"))]
+
+    def snapshot(head: bool) -> dict:
+        return {k: p.detach().clone() for k, p in params.items() if recipe.is_classifier_param(k) == head}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_fbank.launches = 0
+    walls, stepped, terms = [], [], []
+    for epoch, frozen_head in ((0, True), (1, False)):
+        frozen, trained = snapshot(frozen_head), snapshot(not frozen_head)
+        for _ in range(TRAIN_MICRO_BATCHES):
+            before = [b.clone() for b in stats]
+            t0 = time.perf_counter()
+            trainer.fit_batch(batch, epoch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            stepped.append(trainer.metrics["stepped"])
+            terms.append({k: float(v) for k, v in trainer.metrics.items() if k != "stepped"})
+            if not all(np.isfinite(v) for v in terms[-1].values()):
+                raise AssertionError(f"non-finite loss terms {terms[-1]}")
+            if any(torch.equal(a, b) for a, b in zip(before, stats)):
+                raise AssertionError("a BatchNorm running statistic did not move")
+        moved = [k for k, p in frozen.items() if not torch.equal(p, params[k])]
+        if moved:
+            raise AssertionError(f"epoch {epoch}: frozen parameters moved: {moved[:4]}")
+        if all(torch.equal(p, params[k]) for k, p in trained.items()):
+            raise AssertionError(f"epoch {epoch}: no trained parameter moved")
+    torch.cuda.synchronize()
+    launches = {"fused_fbank": fused_fbank.launches}
+    if launches["fused_fbank"] != len(walls):
+        raise AssertionError(f"K1 launched {launches['fused_fbank']} times in {len(walls)} micro-batches")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # K1 against its plain version on this path's own frames (8 x 10.07 s)
+    frames = frame_signal(batch[0]).contiguous()
+    fb = trainer.fbank
+    got = fused_fbank(frames, fb.dft, fb.mel, fb.dft_frag)
+    want = mel_power_plain(frames, fb.dft, fb.mel)
+    k1_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL):
+        raise AssertionError(f"K1 disagrees with its plain twin at the train shape: max abs {k1_err}")
+    k1_ms = cuda_ms(lambda: fused_fbank(frames, fb.dft, fb.mel, fb.dft_frag))
+    k1_plain_ms = cuda_ms(lambda: mel_power_plain(frames, fb.dft, fb.mel))
+    step_walls = [w for w, s in zip(walls, stepped) if s]
+    cycles = [sum(walls[i:i + 3]) for i in range(0, len(walls), 3)]
+    median_s = statistics.median(walls)
+    audio_s = TRAIN_BATCH * N_SAMPLES / SAMPLE_RATE
+    # the rate over every micro-batch after the first (which holds cuDNN's
+    # algorithm search): their audio over their summed wall, stalls included
+    steady = walls[1:]
+    emit({"phase": "train", "card": card, "model": "convae", "params": n_params,
+          "batch": TRAIN_BATCH, "samples": N_SAMPLES, "tokens": TRAIN_TOKENS,
+          "micro_batches": len(walls), "updates": sum(stepped), "launches": launches,
+          "ms_per_micro_batch": 1e3 * median_s,
+          "ms_per_stepping_micro_batch": 1e3 * statistics.median(step_walls),
+          "ms_per_update_cycle": 1e3 * statistics.median(cycles),
+          "ms_first_micro_batch": 1e3 * walls[0], "walls_ms": [1e3 * w for w in walls],
+          "audio_s_per_wall_s": audio_s * len(steady) / sum(steady), "peak_mem_gib": peak_gib,
+          "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_max_abs_err": k1_err,
+          "k1_rtol": K1_RTOL, "k1_atol": K1_ATOL, "k1_rows": frames.shape[0] * frames.shape[1],
+          "noam_lr": trainer.noam.current_lr, "loss_terms_first": terms[0], "loss_terms_last": terms[-1],
+          "seconds": time.perf_counter() - t_phase})
+    del trainer, bundle, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+TRAIN_PARITY_SCHEDULES = {
+    "generator": recipe.DEFAULT_SCHEDULE,  # sex 0.8, utility 0.2: the sex term's tolerances
+    "recon_utility": [{"weights": {"recon": 1.0, "utility": 1.0}, "train": "all"}],  # the tight ones
+}
+
+
+def phase_train_parity() -> None:
+    """One accumulation cycle on the card and on the CPU, TF32 off, for each
+    of TRAIN_PARITY_SCHEDULES: TRAIN_PARITY_BATCH speech-like utterances of
+    2 s, a small seeded ASR for the utility term, the same weights, batches
+    and SpecAugment draws; Noam at lr 1e-3 so that the update shows in f32
+    weights. ``tools/train_parity.py`` holds the loss terms, gradients, Adam
+    moments and updated parameters at the CPU parity tests' tolerances and
+    counts the sign-only elements it excludes (trap e). Four utterances, not
+    two: over a batch of two the sex head's BatchNorm of pooled features
+    leaves the sex term's f32 gradients 20-40% apart card vs CPU on an H100."""
+    asr = {d: seeded_init_(ASRModel(**TRAIN_PARITY_ASR, device=d), SEED + 5) for d in (DEVICE, "cpu")}
+    batches = [train_batch(TRAIN_PARITY_BATCH, TRAIN_PARITY_SAMPLES, SEED + 20 + i, "cpu",
+                           TRAIN_PARITY_ASR["output_neurons"], TRAIN_TOKENS) for i in range(3)]
+    for name, schedule in TRAIN_PARITY_SCHEDULES.items():
+        def make(device, schedule=schedule):
+            hp = convae_hparams(device, schedule, NoamScheduler(1e-3, 1, 1))
+            trainer = recipe.AnonymizerTrainer(
+                hp, asr_bundle=ASRBundle(asr[device], StubTokenizer(), {}), device=device)
+            seeded_init_(trainer.model, SEED)
+            return trainer
+
+        t0 = time.perf_counter()
+        report = compare_cycle(make, batches, 0, device=DEVICE)
+        emit({"phase": "train_parity", "weights": schedule[0]["weights"], "mode": schedule[0]["train"],
+              "utterances": TRAIN_PARITY_BATCH, "samples": TRAIN_PARITY_SAMPLES,
+              "asr": TRAIN_PARITY_ASR, "seconds": time.perf_counter() - t0, **report})
+
+
 def phase_parity(wavs, lens, labels, fbank, normalizer, models) -> None:
     wavs2, lens2, labels2 = wavs[:2], lens[:2], labels[:2]
     _, state_gpu = normalizer(normalizer.init_state(DEVICE), fbank(wavs2), lens2, 0, training=True)
@@ -1548,11 +1701,14 @@ def main() -> int:
     k1 = phase_kernels(wavs, fbank)
     decode_kernels = phase_decode_kernels(lm)
     launches = phase_slice(wavs, lens, labels, fbank, normalizer, models, card)
-    k1["launches"] = launches["fused_fbank"]
+    asr = seeded_init_(ASRModel(device=DEVICE), SEED + 3)
+    train_launches = phase_train(asr, card)
+    phase_train_parity()
+    k1["launches"] = launches["fused_fbank"] + train_launches["fused_fbank"]
+    k1["launches_by_path"] = {"slice": launches["fused_fbank"], "train": train_launches["fused_fbank"]}
     phase_parity(wavs, lens, labels, fbank, normalizer, models)
     del wavs
 
-    asr = seeded_init_(ASRModel(device=DEVICE), SEED + 3)
     decode_launches, parity_feats = phase_decode(asr, lm, models[0], fbank, normalizer, card)
     for entry in decode_kernels:
         entry["launches"] = decode_launches[entry["name"]]

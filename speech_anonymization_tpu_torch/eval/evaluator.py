@@ -3,7 +3,9 @@
 Counterpart of ``speech_anonymization_tpu/eval/evaluator.py``
 ``FeatureClassifier`` (normalize -> Xvector -> classifier over fbank
 features). Loading from a checkpoint directory belongs to a later slice; here
-it is built from modules or from converted flax variables.
+it is built from modules or from converted flax variables. ``log_probs`` is
+the differentiable path (the JAX recipe's ``_external_log_probs``),
+``classify_feats`` the scoring one.
 """
 
 from __future__ import annotations
@@ -59,12 +61,17 @@ class FeatureClassifier:
         load_numpy_state(clf, indexed_state_dict(classifier_variables))
         return cls(emb, clf, norm_state, InputNormalizer(dim=n_mels), renormalize)
 
+    def log_probs(self, feats: torch.Tensor, lens: torch.Tensor | None = None) -> torch.Tensor:
+        """(B, T, D) fbanks -> (B, C) log-probs, differentiable in ``feats``
+        (the endtoend anonymizer's sex signal; the evaluator stays frozen)."""
+        if self.renormalize:
+            feats, _ = self.normalizer(self.norm_state, feats, lens, training=False)
+        return self.classifier(self.embedding_model(feats, lens))
+
     @torch.no_grad()
     def classify_feats(self, feats: torch.Tensor, lens: torch.Tensor | None = None):
         """(B, T, D) fbanks -> (log_probs (B, C), score (B,), index (B,))."""
-        if self.renormalize:
-            feats, _ = self.normalizer(self.norm_state, feats, lens, training=False)
-        log_probs = self.classifier(self.embedding_model(feats, lens))
+        log_probs = self.log_probs(feats, lens)
         score, index = torch.max(log_probs, dim=-1)
         return log_probs, score, index
 

@@ -1,18 +1,22 @@
-"""The convolutional anonymizer.
+"""The anonymizer autoencoders: ``apply(feats) -> (reconstruction, sex log-probs)``.
 
-Counterpart of ``speech_anonymization_tpu/models/autoencoders.py``
-``ConvAutoencoder`` (reference models/ConvAutoEncoder.py:136-200). It runs
+Counterparts of ``speech_anonymization_tpu/models/autoencoders.py``:
+``ConvAutoencoder`` (reference models/ConvAutoEncoder.py:136-200), which runs
 over the flattened feature signal, (B, T, 80) -> (B, 1, T*80) in NCW, and
-returns the reconstruction in the (B, T, 80) layout. Module names mirror the
-flax ones so the weight bridge (``utils/convert.py``) maps them one to one.
+the per-frame ``FullyConnectedAutoencoder`` and its debug twin
+``DummyFullyConnectedAutoencoder`` (models/FullyConnected.py:118-209). Each
+returns the reconstruction in the (B, T, 80) layout and (B, 2) sex log-probs.
+Module names mirror the flax ones so the weight bridge (``utils/convert.py``)
+maps them one to one. ``model.train()`` gives flax's ``train=True``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .classifiers import TDNNSexClassifier
+from .classifiers import FullyConnSexClassifier, TDNNSexClassifier
 from .components import glu, instance_norm
 
 
@@ -71,3 +75,61 @@ class ConvAutoencoder(nn.Module):
     def anonymize(self, feats: torch.Tensor) -> torch.Tensor:
         """Inference path: encoder and decoder without the adversarial head."""
         return self._decode(self._encode(feats), feats.shape)
+
+
+_FC_WIDTHS = ((None, 60), (60, 40), (40, 20), (20, 40), (40, 60), (60, None))
+
+
+def _fc_stack(feature_dim: int) -> nn.ModuleList:
+    """flax's ``Dense_0`` ... ``Dense_5``: 80->60->40->20 and 20->40->60->80."""
+    return nn.ModuleList(nn.Linear(i or feature_dim, o or feature_dim) for i, o in _FC_WIDTHS)
+
+
+def _fc_encode(dense: nn.ModuleList, feats: torch.Tensor) -> torch.Tensor:
+    return dense[2](F.relu(dense[1](F.relu(dense[0](feats)))))
+
+
+def _fc_decode(dense: nn.ModuleList, bottleneck: torch.Tensor) -> torch.Tensor:
+    return dense[5](F.relu(dense[4](F.relu(dense[3](bottleneck)))))
+
+
+class FullyConnectedAutoencoder(nn.Module):
+    """Per-frame MLP 80->60->40->20 / 20->40->60->80 (ReLU between); the
+    ``FullyConnSexClassifier`` reads the (B, T, 20) bottleneck."""
+
+    def __init__(self, feature_dim: int = 80, num_classes: int = 2, grl_scale: float = 1.0,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        self.dense = _fc_stack(feature_dim)
+        self.sex_classifier = FullyConnSexClassifier(num_classes, grl_scale=grl_scale, device=device)
+        self.to(device)
+
+    def forward(self, feats: torch.Tensor, lengths: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        bottleneck = _fc_encode(self.dense, feats)
+        sex_log_probs = self.sex_classifier(bottleneck, lengths)
+        return _fc_decode(self.dense, bottleneck), sex_log_probs
+
+
+class DummyFullyConnectedAutoencoder(nn.Module):
+    """Debug AE: the FC stack, and "log-probs" that are ``uniform(0, 1)`` draws
+    of shape (B, 2), copied as they are (the reference emits ``torch.rand``).
+
+    The draws come from ``generator`` (on the CPU, so a card run and a CPU
+    run from one seed draw alike), or from the caller (``sex_draws``).
+    """
+
+    def __init__(self, feature_dim: int = 80, num_classes: int = 2,
+                 generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
+        super().__init__()
+        self.num_classes = num_classes
+        self.generator = generator
+        self.dense = _fc_stack(feature_dim)
+        self.to(device)
+
+    def forward(self, feats: torch.Tensor, sex_draws: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        if sex_draws is None:
+            sex_draws = torch.rand((feats.shape[0], self.num_classes), generator=self.generator)
+        recon = _fc_decode(self.dense, _fc_encode(self.dense, feats))
+        return recon, sex_draws.to(feats.device)

@@ -89,10 +89,10 @@ class ASRBundle:
 
     def utility_loss(self, clean, recon, lens, tokens_bos):
         """Utility term of the anonymizer's train step; gradients reach only
-        the reconstruction branch."""
-        _, dec_o = self._forward_dec(clean, lens, tokens_bos)
+        the reconstruction branch (the clean one runs without a graph)."""
+        with torch.no_grad():
+            _, dec_o = self._forward_dec(clean, lens, tokens_bos)
         _, dec_r = self._forward_dec(recon, lens, tokens_bos)
-        dec_o = dec_o.detach()
         if self.utility_kind == "cosine":
             return cosine_similarity_loss(dec_r, dec_o)
         return mse_loss(dec_r, dec_o)

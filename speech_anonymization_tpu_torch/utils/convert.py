@@ -13,6 +13,15 @@ package). Inputs are flax variable trees as nested dicts of numpy arrays,
   BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running_mean/running_var
   InstanceNorm scale/bias              -> weight/bias
 
+Every anonymizer family (:func:`anonymizer_state_dict`: the ConvAutoencoder,
+the fully connected pair, the CycleGAN generator, ConvReconstruction) maps
+flax's auto-named layers by index (``Conv_i`` -> ``convs.i``, ``BatchNorm_i``
+and ``InstanceNorm_i`` -> ``norms.i``, ``Dense_i`` -> ``dense.i``,
+``DownSampleGenerator_i`` -> ``down.i``, ``ConvTranspose1dTorch_0`` -> ``up``);
+a 4-D flax Conv kernel (kh, kw, in, out) becomes a Conv2d weight (out, in, kh,
+kw). A tree without ``batch_stats`` (an optimizer's moments, laid out as the
+params) converts to the parameters alone.
+
 and, for the ASR model (:func:`asr_state_dict`) and the LM (:func:`lm_state_dict`):
 
   flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
@@ -44,14 +53,13 @@ def conv_transpose1d_from_flax(p: Mapping) -> dict:
     return {"weight": np.transpose(kernel[::-1], (1, 2, 0)), "bias": np.asarray(p["bias"])}
 
 
-def batchnorm_from_flax(p: Mapping, stats: Mapping) -> dict:
-    return {
-        "weight": np.asarray(p["scale"]),
-        "bias": np.asarray(p["bias"]),
-        "running_mean": np.asarray(stats["mean"]),
-        "running_var": np.asarray(stats["var"]),
-        "num_batches_tracked": np.zeros((), np.int64),
-    }
+def batchnorm_from_flax(p: Mapping, stats: Mapping | None) -> dict:
+    """``stats`` None (a moment tree): the affine parameters only."""
+    out = {"weight": np.asarray(p["scale"]), "bias": np.asarray(p["bias"])}
+    if stats is not None:
+        out.update(running_mean=np.asarray(stats["mean"]), running_var=np.asarray(stats["var"]),
+                   num_batches_tracked=np.zeros((), np.int64))
+    return out
 
 
 def instancenorm_from_flax(p: Mapping) -> dict:
@@ -64,19 +72,27 @@ def _put(out: dict, prefix: str, tensors: dict) -> None:
 
 
 def _indexed_layers(params: Mapping, stats: Mapping, prefix: str) -> dict:
-    """Flax auto-named ``Conv_i``/``Conv1dTorch_i``/``BatchNorm_i``/``Dense_i``
-    -> ``{prefix}convs.i`` / ``norms.i`` / ``dense.i``."""
+    """Flax auto-named ``Conv_i``/``Conv1dTorch_i``/``BatchNorm_i``/``InstanceNorm_i``/
+    ``Dense_i``/``DownSampleGenerator_i``/``ConvTranspose1dTorch_0`` -> ``{prefix}convs.i``
+    / ``norms.i`` / ``dense.i`` / ``down.i`` / ``up``."""
     out: dict = {}
     for name, p in params.items():
         kind, idx = name.rsplit("_", 1)
         if kind == "Conv":
-            _put(out, f"{prefix}convs.{idx}", conv1d_from_flax(p))
+            conv = conv2d_from_flax if np.ndim(p["kernel"]) == 4 else conv1d_from_flax
+            _put(out, f"{prefix}convs.{idx}", conv(p))
         elif kind == "Conv1dTorch":
             _put(out, f"{prefix}convs.{idx}", conv1d_from_flax(p["Conv_0"]))
         elif kind == "BatchNorm":
-            _put(out, f"{prefix}norms.{idx}", batchnorm_from_flax(p, stats[name]))
+            _put(out, f"{prefix}norms.{idx}", batchnorm_from_flax(p, stats.get(name)))
+        elif kind == "InstanceNorm":
+            _put(out, f"{prefix}norms.{idx}", instancenorm_from_flax(p))
         elif kind == "Dense":
             _put(out, f"{prefix}dense.{idx}", linear_from_flax(p))
+        elif kind == "DownSampleGenerator":
+            out.update(_indexed_layers(p, {}, f"{prefix}down.{idx}."))
+        elif name == "ConvTranspose1dTorch_0":
+            _put(out, f"{prefix}up", conv_transpose1d_from_flax(p["ConvTranspose_0"]))
         else:
             raise KeyError(f"no conversion rule for flax layer {name!r}")
     return out
@@ -88,7 +104,7 @@ def convae_state_dict(variables: Mapping) -> dict:
     out: dict = {}
     for name, p in params.items():
         if name == "sex_classifier":
-            out.update(_indexed_layers(p, stats["sex_classifier"], "sex_classifier."))
+            out.update(_indexed_layers(p, stats.get("sex_classifier", {}), "sex_classifier."))
         elif name.startswith(("enc_conv", "dec_conv")):
             _put(out, name, conv1d_from_flax(p["Conv_0"]))
         elif name.startswith("dec_up"):
@@ -97,6 +113,25 @@ def convae_state_dict(variables: Mapping) -> dict:
             _put(out, name, instancenorm_from_flax(p))
         else:
             raise KeyError(f"no conversion rule for flax layer {name!r}")
+    return out
+
+
+def anonymizer_state_dict(variables: Mapping) -> dict:
+    """Any anonymizer family's variables (or a moment tree laid out as its
+    params) -> the port model's state_dict (numpy values)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    if "enc_conv0" in params:
+        return convae_state_dict(variables)
+    out: dict = {}
+    indexed: dict = {}
+    for name, p in params.items():
+        if name == "sex_classifier":
+            out.update(_indexed_layers(p, stats.get(name, {}), "sex_classifier."))
+        elif name == "sex_head_proj":
+            _put(out, name, linear_from_flax(p))
+        else:
+            indexed[name] = p
+    out.update(_indexed_layers(indexed, stats, ""))
     return out
 
 

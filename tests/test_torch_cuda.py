@@ -1,9 +1,11 @@
 """The port on an NVIDIA card: K1 to K7 against their plain twins (K5 in its
 four configurations with identity, single-owner and mixed tables; every
 kernel on int8 caches too: K2, K3 and K5 whole-row, K4, K6 and K7 above the
-whole-row bound), and the anonymization and decode slices (physical and
+whole-row bound), the anonymization and decode slices (physical and
 paged caches, f32, bf16 and int8, with and without the LM) on the card
-against the CPU. Imports no JAX, so it runs on a machine without it:
+against the CPU, and the anonymizer's training step (one convae
+accumulation cycle on the card against the CPU; K1 once a micro-batch).
+Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -43,6 +45,8 @@ from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_pow
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle
+from speech_anonymization_tpu_torch.tools.train_parity import compare_cycle, convae_hparams, train_batch
+from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_
 
 pytestmark = pytest.mark.cuda
@@ -1008,3 +1012,53 @@ def test_k7_int8_protocol_matches_plain_twin(cuda):
         _k7_int8_close(got, want, cache, twin, step)
         parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
         cache = beam_reorder_cache(cache, parent, step)
+
+
+TRAIN_ASR = dict(d_model=64, nhead=4, num_encoder_layers=2, num_decoder_layers=2, d_ffn=128,
+                 output_neurons=100)
+
+
+def _trainer_factory(schedule, seed=0):
+    """-> make(device): a trainer at convae.yaml's training (SpecAugment from
+    its seeded generator) with Noam at lr 1e-3 and a small seeded ASR's
+    utility term, its weights from ``seed``."""
+    asr = {d: seeded_init_(ASRModel(**TRAIN_ASR, device=d), 5) for d in ("cuda", "cpu")}
+
+    def make(device):
+        hp = convae_hparams(device, schedule, NoamScheduler(1e-3, 1, 1))
+        tr = recipe.AnonymizerTrainer(hp, asr_bundle=ASRBundle(asr[device], _Tok(), {}), device=device)
+        seeded_init_(tr.model, seed)
+        return tr
+
+    return make
+
+
+def _train_batches(n, b=4, samples=32_000, seed=0):
+    """Speech-like utterances: over near-equal ones (white noise), or a batch
+    of two, the sex head's pooled BatchNorm leaves the f32 gradients of the
+    sex term far apart on any two devices."""
+    return [train_batch(b, samples, seed + i, vocab=TRAIN_ASR["output_neurons"], tokens=12)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("phase", ["generator", "sex_classifier", "recon_utility"])
+def test_convae_update_on_card_matches_cpu(cuda, phase):
+    """One accumulation cycle (3 micro-batches of 4 x 2 s) on the card and on
+    the CPU from the same weights, batches and draws: the loss terms, the
+    accumulated gradients, BatchNorm and normalizer state, the Adam state and
+    the updated parameters at ``tools/train_parity.py``'s tolerances."""
+    schedule = {"generator": recipe.DEFAULT_SCHEDULE, "sex_classifier": recipe.DEFAULT_SCHEDULE[::-1],
+                "recon_utility": [{"weights": {"recon": 1.0, "utility": 1.0}, "train": "all"}]}[phase]
+    report = compare_cycle(_trainer_factory(schedule), _train_batches(3), 0)
+    assert report["sign_only"] <= 0.01 * report["params"], report
+
+
+def test_train_step_launches_k1_once_per_micro_batch(cuda):
+    tr = _trainer_factory(recipe.DEFAULT_SCHEDULE)("cuda")
+    batches = _train_batches(4, seed=1)
+    fused_fbank.launches = 0
+    losses = [tr.fit_batch(b, 0) for b in batches]
+    torch.cuda.synchronize()
+    assert fused_fbank.launches == len(batches)
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    assert tr.state.opt_state["gen"].count == 1 and tr.state.accum_count == 1

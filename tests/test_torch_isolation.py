@@ -30,7 +30,11 @@ def test_import_pulls_in_no_jax():
         "speech_anonymization_tpu_torch.ops.beam_gather, speech_anonymization_tpu_torch.ops.lm_megastep, "
         "speech_anonymization_tpu_torch.tools.profile_decode, "
         "speech_anonymization_tpu_torch.tools.profile_lm_megastep, "
-        "speech_anonymization_tpu_torch.utils.cuda_build, speech_anonymization_tpu_torch.utils.seeded_init\n"
+        "speech_anonymization_tpu_torch.utils.cuda_build, speech_anonymization_tpu_torch.utils.seeded_init, "
+        "speech_anonymization_tpu_torch.train, speech_anonymization_tpu_torch.train.schedulers, "
+        "speech_anonymization_tpu_torch.train.state, speech_anonymization_tpu_torch.ops.specaugment, "
+        "speech_anonymization_tpu_torch.models.cyclegan, speech_anonymization_tpu_torch.models.endtoend, "
+        "speech_anonymization_tpu_torch.tools.train_parity\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'speech_anonymization_tpu') if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
