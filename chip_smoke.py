@@ -61,7 +61,12 @@ failure raises and exits non-zero:
            reported, scales within K7_INT8_SCALE_RTOL) and in one launch
            (K7_ATOL, K7_MEAN_ATOL, the log-prob tolerance), timed at 223
            beside its twin, the bf16 K7 and the int8 per-layer path (cuBLAS
-           + K6 int8 x 12) on the same shape;
+           + K6 int8 x 12) on the same shape; last K3 at every whole-row
+           physical shape of the decode (tools/profile_k3.py ``K3_CASES``:
+           f32 at D1, bf16 and int8 at D1 and D2, at 8 x 96 and 12 x 64),
+           each held to its twin and timed beside its twin, the library
+           yardstick and its bound, with its ring, shared memory and
+           registers (``"case": "k3"`` lines);
   slice    the anonymization path at bench.py's shape (32 utterances of
            161,120 samples = 10.07 s, T = 1008 frames), seeded random weights:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
@@ -110,7 +115,12 @@ failure raises and exits non-zero:
            steps, U 512: the chunked int8 kernels): paged with the LM (K6 for
            the ASR, one K7 launch a step for the LM), paged with the LM per
            layer (K6 x 18), paged without it (K6 x 6) and physical (K4 + K2),
-           its timing 2 decodes after the launch check. Launch counts
+           its timing 2 decodes after the launch check; and B3,
+           configs/convae.yaml's evaluation batch (3 utterances x beam 66:
+           N 198) at D1's length with the LM and f32 caches, once with the
+           default hparams (no decode_paged_kv override: the paging rule
+           must keep N 198 physical, K3 + K2 and no paged kernel) and once
+           with decode_paged_kv false, the two held token for token. Launch counts
            are reset right before each run and read right after; one more
            decode checks the launches of a single decode; then
            ``_decode_test`` is timed (``run_s``: the whole run's wall).
@@ -142,6 +152,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -170,6 +181,7 @@ from speech_anonymization_tpu_torch.ops.attention_step import (  # noqa: E402
     attention_step_plain,
     max_u_whole_row,
     quantize_rows,
+    whole_row_layout,
 )
 from speech_anonymization_tpu_torch.ops.attention_step_paged import (  # noqa: E402
     attention_step_paged,
@@ -197,6 +209,7 @@ from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
 )
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle  # noqa: E402
 from speech_anonymization_tpu_torch.tools import profile_lm_megastep  # noqa: E402
+from speech_anonymization_tpu_torch.tools.profile_k3 import K3_CASES, k3_inputs  # noqa: E402
 from speech_anonymization_tpu_torch.tools.train_parity import (  # noqa: E402
     compare_cycle,
     convae_hparams,
@@ -229,10 +242,14 @@ DECODE_HPARAMS = {"test_beam_size": 66, "ctc_weight_decode": 0.4, "temperature":
 # (T = 504 frames, 126 encoder frames), D2 bench.py's length (T = 1008, 252 frames),
 # D3 the JAX package's 30 s int8 serving shape (BENCHMARKS.md:223-229: T = 3001,
 # 751 encoder frames, 448 steps, U 512), decoded with int8 caches only
-DECODE_SHAPES = {"D1": (8, 80_480, 64), "D2": (8, 161_120, None), "D3": (8, 480_000, 448)}
+# B3 is configs/convae.yaml's evaluation batch (batch_size 3, test_beam_size
+# 66: N 198, not a multiple of 8, so the paging rule keeps its caches
+# physical) at D1's length
+DECODE_SHAPES = {"D1": (8, 80_480, 64), "D2": (8, 161_120, None), "D3": (8, 480_000, 448),
+                 "B3": (3, 80_480, 64)}
 # (iters, warmup) of each shape's timed decodes; D3's launch-check decode
 # right before is its warm-up
-DECODE_TIMING = {"D1": (3, 1), "D2": (3, 1), "D3": (2, 0)}
+DECODE_TIMING = {"D1": (3, 1), "D2": (3, 1), "D3": (2, 0), "B3": (3, 1)}
 DECODE_PARITY_ATOL = 1e-3  # scores, card vs CPU: cuBLAS and the CPU sum in other orders
 # paged vs physical on the card: the same kernels' arithmetic on the same
 # content (K5 is K3's, K6 K4's, with other addresses)
@@ -345,11 +362,14 @@ def kernel_entry(name: str, max_abs_err: float, ms: float, plain_ms: float, flop
             "bound_by": "operations" if op_ms >= bytes_ms else "bytes", "library_ms": library_ms}
 
 
+BUILD_REPORT: dict = {}  # phase_build's: nvcc's time and -Xptxas -v report by source
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     # and K7's stamped build, for its time by phase (phase_k7)
-    report = cuda_build.build(also=(("lm_megastep", profile_lm_megastep.STAMPED),))
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": report})
+    BUILD_REPORT.update(cuda_build.build(also=(("lm_megastep", profile_lm_megastep.STAMPED),)))
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": BUILD_REPORT})
 
 
 def phase_kernels(wavs: torch.Tensor, fbank: Fbank) -> dict:
@@ -1151,6 +1171,93 @@ def phase_k7_int8(lm: TransformerLM, gen: torch.Generator) -> dict:
     return entry
 
 
+def _k3_registers() -> dict:
+    """Registers of each K3 instantiation (cache type, score lanes a
+    position), from phase_build's -Xptxas -v report."""
+    types = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8"}
+    regs, name = {}, None
+    for line in BUILD_REPORT.get("attention_step", {}).get("ptxas", "").splitlines():
+        m = re.search(r"Compiling entry function '\S*attn_step_whole_rowI(f|13__nv_bfloat16|a)Li(\d+)E", line)
+        if m:
+            name = f"{types[m[1]]} group {m[2]}"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            regs[name], name = int(m[1]), None
+    return regs
+
+
+def phase_k3() -> list[dict]:
+    """K3 at the decode's whole-row physical shapes (tools/profile_k3.py
+    ``K3_CASES``: f32 at D1, bf16 and int8 at D1 and D2, at 8 x 96 and 12 x
+    64, N 528, on that tool's seeded inputs): out within 1e-5 of the plain
+    twin's and the caches (codes, scales) written alike; then K3's time, the
+    twin's, the library's (SDPA; int8 two calls), the
+    bound and its share, the launch's shared memory and the registers nvcc
+    reports. Its own generator, so every earlier phase keeps its inputs."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    regs = _k3_registers()
+    rows = []
+    for case in K3_CASES:
+        dtype_name, shape_name, u, step, nhead = case
+        q, kh, vh, mask, ck, cv, ks, vs = k3_inputs(case, gen, DEVICE)
+        n, m = q.shape
+        d, p, int8 = m // nhead, step + 1, dtype_name == "int8"
+        twin = [None if x is None else x.clone() for x in (ck, cv, ks, vs)]
+        got = attention_step(q, kh, vh, mask, ck, cv, step, 3, nhead, ks, vs)
+        want = attention_step_plain(q, kh, vh, mask, *twin[:2], step, 3, nhead, *twin[2:])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = bool(torch.isfinite(got).all()) and bool(
+            torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+        written = all(_same_nan(x, y) for x, y in zip((ck, cv, ks, vs), twin) if x is not None)
+        if not (ok and written):
+            raise AssertionError(f"K3 {case} disagrees with its plain twin: max abs {err}, "
+                                 f"caches equal {written}")
+        run = lambda: attention_step(q, kh, vh, mask, ck, cv, step, 3, nhead, ks, vs)  # noqa: E731
+        ms = cuda_ms(run)
+        plain_ms = cuda_ms(lambda: attention_step_plain(q, kh, vh, mask, ck, cv, step, 3, nhead,
+                                                        ks, vs))
+        if int8:
+            codes = torch.stack([c[3, :, :p] for c in (ck, cv)])
+            scales = torch.stack([sc[3, :, :p] for sc in (ks, vs)])
+            library_ms = _dequant_sdpa_ms(q, codes, scales, mask, nhead)
+            del codes, scales
+        else:
+            live = [c[3, :, :p].view(n, p, nhead, d).transpose(1, 2) for c in (ck, cv)]
+            q4, live_mask = q.view(n, nhead, 1, d).to(ck.dtype), mask[:, None, None, :p]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, *live,
+                                                                        attn_mask=live_mask))
+        # valid cached positions before the step are read (int8 with their
+        # own-row scales); the step's k/v come from kh/vh and are written
+        valid_cached = int(mask[:, :step].sum())
+        valid = valid_cached + int(mask[:, step].sum())
+        flops = 4 * valid * d * nhead + n * nhead * p
+        if int8:
+            flops += 2 * valid_cached * m
+            nbytes = 4 * n * m * 4 + n * p + 2 * valid_cached * (m + 4) + 2 * n * (m + 4)
+        else:
+            itemsize = ck.element_size()
+            nbytes = 4 * n * m * 4 + n * p + 2 * valid_cached * m * itemsize + 2 * n * m * itemsize
+        entry = kernel_entry("attention_step_int8" if int8 else "attention_step", err, ms,
+                             plain_ms, flops, nbytes, library_ms)
+        chunk, slots, smem = whole_row_layout(step, d, ck.element_size())
+        vecs = d * ck.element_size() // 16
+        group = 8 if vecs <= 8 else (16 if vecs <= 16 else 32)
+        row = {"phase": "kernels", "kernel": "attention_step", "case": "k3", "dtype": dtype_name,
+               "shape": shape_name, "cache": list(ck.shape), "step": step, "heads": nhead,
+               "max_abs_err": err, "rtol": ATTN_RTOL, "atol": ATTN_ATOL, "kernel_ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": entry["bound_ms"],
+               "bound_by": entry["bound_by"], "share_of_bound": entry["bound_ms"] / ms,
+               "valid_cached_positions": valid_cached, "ring": {"chunk": chunk, "slots": slots},
+               "smem_bytes": smem, "registers": regs.get(f"{dtype_name} group {group}")}
+        emit(row)
+        rows.append(row)
+        del q, kh, vh, mask, ck, cv, ks, vs, twin, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     # timed at each shape's mean live step: 31 of 0..63 (D1), 125 of 0..251 (D2)
@@ -1200,6 +1307,8 @@ def phase_decode_kernels(lm: TransformerLM) -> list[dict]:
     phase_paged_attention(attention_step_paged_chunked, *k6_int8, gen, nhead=12)
     torch.cuda.empty_cache()
     entries.append(phase_k7_int8(lm, gen))
+    torch.cuda.empty_cache()
+    phase_k3()
     return entries
 
 
@@ -1434,7 +1543,10 @@ class StubTokenizer:
 # int8 runs are the quantized serving decode (whole-row at D1 and D2: K5
 # paged, K2 + K3 physical, in both stacks); D1's with the LM is the JAX
 # package's "5 s, 64 steps" int8 shape. D3's are the 30 s int8 serving
-# decode (U 512: K6 and K7, or K4 with K2).
+# decode (U 512: K6 and K7, or K4 with K2). B3's are the anonymizer recipe's
+# test decode with the LM: its default hparams ("default": decode_paged_kv not
+# set), which must take the physical layout at N 198 (K3 + K2), and the same
+# with decode_paged_kv false.
 DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, True, "float32"),
                       ("paged", True, True, "float32"), ("physical", True, True, "float32"),
                       ("paged", True, True, "int8"), ("physical", True, True, "int8")),
@@ -1444,14 +1556,16 @@ DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, Tru
                       ("paged", False, True, "int8"), ("paged", True, True, "int8"),
                       ("physical", False, True, "int8")),
                "D3": (("paged", True, True, "int8"), ("paged", True, False, "int8"),
-                      ("paged", False, True, "int8"), ("physical", False, True, "int8"))}
+                      ("paged", False, True, "int8"), ("physical", False, True, "int8")),
+               "B3": (("default", True, True, "float32"), ("physical", True, True, "float32"))}
 # pairs of runs that must give identical tokens (scores within 1e-4), and
 # pairs that are only reported (K7 computes in bf16, the per-layer path in
 # f32; bf16 caches round what f32 ones keep)
 SAME_RUNS = {"D1": (("paged", "physical"), ("paged_lm", "physical_lm"),
                     ("paged_lm_int8", "physical_lm_int8")),
              "D2": (("paged", "physical"), ("paged_int8", "physical_int8")),
-             "D3": (("paged_int8", "physical_int8"),)}
+             "D3": (("paged_int8", "physical_int8"),),
+             "B3": (("default_lm", "physical_lm"),)}
 REPORTED_RUNS = {"D1": (("paged_lm", "paged_lm_int8"),),
                  "D2": (("paged_lm", "paged_lm_per_layer"), ("paged", "paged_bf16"),
                         ("paged_lm", "paged_lm_bf16"), ("paged", "paged_int8"),
@@ -1473,14 +1587,16 @@ def _expected_launches(name: str, layout: str, with_lm: bool, mega: bool, dtype:
     step, except the LM's fused page-64 cache (f32 at D2) under K7 (one launch
     a step for all 12); physical caches add K2's k and v reorder of each cache
     a step. Paged caches page by 32 (K5) up to the whole-row bound of their
-    dtype (213 f32, 426 bf16 and int8 at M 768), else by 64, fused (K6)."""
+    dtype (213 f32, 426 bf16 and int8 at M 768), else by 64, fused (K6).
+    "default" (decode_paged_kv not set) is expected physical: it runs only
+    at B3, whose N 198 the paging rule keeps physical."""
     expected = dict.fromkeys(("beam_gather", "attention_step", "attention_step_chunked",
                               "attention_step_paged", "attention_step_paged_chunked",
                               "lm_megastep"), 0)
     lm_layers = LM_LAYERS if with_lm else 0
     u = _decode_cache_shape(name)[2]
     long_cache = u > max_u_whole_row(768, max(getattr(torch, dtype).itemsize, 2))
-    if layout == "physical":
+    if layout in ("physical", "default"):
         expected["attention_step_chunked" if long_cache else "attention_step"] = (
             (DECODE_LAYERS + lm_layers) * steps)
         expected["beam_gather"] = 2 * (1 + with_lm) * steps
@@ -1531,7 +1647,9 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
             t_run = time.perf_counter()
             label = _run_label(layout, with_lm, mega, dtype)
             hp = {**DECODE_HPARAMS, "max_decode_steps": max_steps, "decode_cache_dtype": dtype,
-                  "decode_paged_kv": layout == "paged", "decode_lm_megastep": mega}
+                  "decode_lm_megastep": mega}
+            if layout != "default":
+                hp["decode_paged_kv"] = layout == "paged"
             bundle = ASRBundle(asr, StubTokenizer(), hp, lm=lm if with_lm else None)
             metrics = recipe.EvalMetrics()
             bundle.start_test(metrics)
@@ -1581,7 +1699,8 @@ def phase_decode(asr: ASRModel, lm: TransformerLM, ae: ConvAutoencoder, fbank: F
                 caches["lm"] = make_kv_cache(rows, steps + 1, LM_LAYERS, lm.nhead,
                                              lm.d_model // lm.nhead, tdtype, device="meta",
                                              paged=paged)
-            emit({"phase": "decode", "shape": name, "layout": layout, "lm": with_lm,
+            emit({"phase": "decode", "shape": name, "layout": layout,
+                  "layout_taken": "paged" if paged else "physical", "lm": with_lm,
                   "lm_megastep": bool(per_decode["lm_megastep"]), "cache_dtype": dtype,
                   "card": card, "batch": batch,
                   "samples": n_samples, "frames": t_frames, "steps": steps,

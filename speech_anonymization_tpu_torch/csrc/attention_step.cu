@@ -77,8 +77,9 @@
 // dependent loads and by L2 traffic: rows that share pages re-read them
 // through L2, and each paged row reads and writes its merged page.
 //
-// Design: one block of 128 threads per (row, head); d_head = 96 gives
-// N * H = 4,224 blocks at the decode shape. A head's slice of one position
+// Design: 128 threads per (row, head) work item; d_head = 96 gives N * H =
+// 4,224 items at the decode shape, one block each (K4-K6) or walked by as
+// many blocks as fit the card at once (K3). A head's slice of one position
 // is d_head contiguous elements (384 B in f32), read as 16-byte vectors by
 // consecutive lanes. Values: the block splits into groups of d_head / vec
 // threads, each group summing every groups-th position, then the groups are
@@ -88,9 +89,50 @@
 // because the TPU cannot index lanes or addresses dynamically; here the
 // fresh token's mask bit is read directly and a position's address is
 // computed per load, the row's page owners held in shared memory.
-//   attn_step_whole_row (K3) keeps the step + 1 scores in shared memory (U
-//     floats) and does an exact softmax; each warp scores one position at a
-//     time, reducing its dot product with shuffles.
+//   attn_step_whole_row (K3) keeps the step + 1 scores in shared memory and
+//     does an exact softmax. Its first design (a warp scoring one position
+//     at a time, one load in flight, every block of a row reading the whole
+//     row for the int8 amax) was bound by the chain of dependent load
+//     latencies, not by bytes: int8 ran at 13-17% of its bound. Now:
+//     - the cached slice moves by TMA, bytes in flight with no thread
+//       waiting on them: one 3-D tensor map per cache (32-bit words, dims
+//       (M bytes / 4, U, L * N), kept by pointer and shape, so a launch
+//       seldom encodes one), one box per `chunk` positions of the item's
+//       head (16, 32 or 64 positions: the wrapper's whole_row_layout), into
+//       a ring of shared-memory slots completing on mbarriers; k's chunks,
+//       then v's, issued by one thread as slots free up, so v arrives while
+//       the scores are computed. The last chunk's box ends at step - 1
+//       (re-reading positions of the chunk before, or below `chunk` starting
+//       before position 0, where TMA delivers zeros), so nothing at or past
+//       `step` is copied; masked positions are copied and skipped before any
+//       product. The ring stays within the launch's 25-28 KB whatever U is,
+//       so eight blocks share an SM;
+//     - the blocks are persistent: a block walks items blockIdx.x, +
+//       gridDim.x, ..., and its ring runs across them, so the next item's
+//       chunks load while this one computes; the items' q, kh and vh head
+//       slices come a whole item ahead by bulk copies into a double buffer;
+//     - scores and values come from shared memory with K5's lanes: groups
+//       of kGroup lanes on (position, 16-byte vector), 2 positions a thread
+//       a pass; values in K3's groups;
+//     - int8: the row's amax is taken once a row, by its head-0 item, which
+//       quantizes every head's fresh k/v and writes the two scales (the
+//       other items write nothing at `step`). A thread-block cluster of the
+//       row's H blocks exchanging their heads' maxima through distributed
+//       shared memory was measured too and lost at every shape (PERF.md).
+//       Codes become floats by a byte permute and one subtraction, exactly,
+//       where the integer-to-float conversion runs at an eighth of the FMA
+//       rate; the dequantization stays code * scale, rounded, before the
+//       product.
+//     Every sum keeps K3's order, which K5 keeps too, so K3 and K5 give the
+//     same bits on the same content (the paged and physical decodes must
+//     agree: a K5 that summed in another order flipped D1's near tie): each
+//     dot product is a lane's fmaf chain over its vector then the butterfly
+//     over the group's lanes (warp_sum less additions of exact zeros), the
+//     exp-sum is strided by 128 then block_sum, and values go to group p %
+//     groups in increasing p, then finish's order. Staging changes where the
+//     bytes come from, not the arithmetic. On the card the redesign is bound
+//     by instruction issue and latency in the passes (four FP32 operations
+//     an int8 element), not by the copies (PERF.md).
 //   attn_step_chunked (K4, K6) streams positions in chunks of 64 with a
 //     running max, denominator and accumulator (flash-decoding), so its
 //     shared memory does not depend on U. Its body
@@ -117,11 +159,11 @@
 //   int8 (K3-K6): a 16-byte vector is 16 codes (d_head 96: 6 vectors, 64:
 //     4), each lane dequantizing with its position's scale as it loads. The
 //     quantizer's amax spans the whole row while a block holds one head, so
-//     in every block warp 0 reads the row's M values of kh and warp 1 those of
-//     vh (3 KB each, from L2) and reduce max |x| themselves: a max is exact, so
-//     every head's block gets the same scale bit for bit, with no second
-//     launch. Each block writes its head's codes; the row's head-0 block
-//     writes the two scales. K5's and K4/K6's score groups are 8 lanes with 6
+//     in every K4-K6 block warp 0 reads the row's M values of kh and warp 1
+//     those of vh (3 KB each, from L2) and reduce max |x| themselves (K3: its
+//     head-0 item, above): a max is exact, so every head gets the same scale
+//     bit for bit, with no second launch. Each block writes its head's codes;
+//     the row's head-0 block writes the two scales. K5's and K4/K6's score groups are 8 lanes with 6
 //     or 4 live, and K4/K6's value pass takes 21 or 32 groups of nvec
 //     threads (their partials in shared memory: 8 KB a block).
 // Limits checked by the Python wrappers: d_head a multiple of the vector
@@ -134,48 +176,317 @@
 
 namespace {
 
-// K3: the step + 1 scores live in shared memory; exact two-pass softmax.
-// Shared memory: u + kWarps + groups * d_head floats.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_step_whole_row(const Args<T> a) {
+// K3's shared memory for one launch at `step`: up to kTmaAlign bytes of
+// slack to align the ring, then, in bytes from the ring: the ring (`slots`
+// slots of `chunk` positions of one head's k or v), its mbarriers and the
+// two of the fresh operands, those (two items' q, kh and vh head slices, f32),
+// the value groups' partials (groups * d_head floats), the scores of positions 0 ..
+// step, int8 the two scale runs of positions 0 .. step - 1, and the
+// reduction scratch (kWarps floats). ops/attention_step.py
+// `whole_row_layout` computes the same total and hands it to the launch,
+// which refuses a mismatch.
+constexpr int kTmaAlign = 128;
+constexpr int kK3Blocks = 8;  // resident K3 blocks an SM aimed at (64 registers, ~27 KB each)
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+struct WholeRowSmem {
+  int bars, fresh, part, s, scales, scale_run, red, total;
+  __host__ __device__ WholeRowSmem(int step, int d_head, int itemsize, bool quant, int chunk,
+                                   int slots) {
+    const int row = d_head * itemsize;
+    const int groups = kThreads / (row / 16);
+    bars = slots * chunk * row;
+    fresh = bars + round16(8 * (slots + 2));
+    part = fresh + 2 * 3 * d_head * 4;
+    s = part + groups * d_head * 4;
+    scales = s + round16(4 * (step + 1));
+    scale_run = quant ? round16(4 * (step > 0 ? step : 1)) : 0;
+    red = scales + 2 * scale_run;
+    total = kTmaAlign + red + 4 * kWarps;
+  }
+};
+
+// K3: exact two-pass softmax over each (row, head) work item, the block's
+// items (blockIdx.x, + gridDim.x, ...) in turn, their cached slices staged in
+// one shared-memory ring by TMA ahead of use, across items (design in the
+// header). kGroup: score lanes a position (nvec rounded up to 8, 16 or 32),
+// as K5's. At most 64 registers, so kK3Blocks blocks fit an SM.
+template <typename T, int kGroup>
+__global__ void __launch_bounds__(kThreads, kK3Blocks)
+    attn_step_whole_row(const Args<T> a, const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv, int chunk, int slots) {
   constexpr int V = Vec<T>::kN;
-  extern __shared__ float smem[];
-  const int groups = kThreads / (a.d_head / V);
-  float* s = smem;             // [u] scores, then weights
-  float* red = s + a.u;        // [kWarps]
-  float* part = red + kWarps;  // [groups][d_head]
-  const Head<T, false> hd(a, nullptr, blockIdx.x);
+  constexpr bool kQuant = Vec<T>::kQuant;
+  constexpr int kPer = kThreads / kGroup;  // positions scored at once by the block
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  unsigned char* const smem =  // the ring, kTmaAlign-aligned
+      smem_bytes + ((kTmaAlign - (smem_addr(smem_bytes) & (kTmaAlign - 1))) & (kTmaAlign - 1));
   const int step = a.step;
+  const WholeRowSmem lay(step, a.d_head, sizeof(T), kQuant, chunk, slots);
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t bars = smem_addr(smem + lay.bars);
+  const uint32_t fbars = bars + 8 * slots;  // the fresh operands' two mbarriers
+  float* fresh = reinterpret_cast<float*>(smem + lay.fresh);  // [2][3][d_head]: q, kh, vh
+  float* part = reinterpret_cast<float*>(smem + lay.part);  // [groups][d_head]
+  float* s = reinterpret_cast<float*>(smem + lay.s);  // [step + 1] scores, then weights
+  float* ksc = reinterpret_cast<float*>(smem + lay.scales);  // int8: [step] scales of k
+  float* vsc = reinterpret_cast<float*>(smem + lay.scales + lay.scale_run);  // and of v
+  float* red = reinterpret_cast<float*>(smem + lay.red);  // [kWarps]
 
-  for (int p = hd.warp; p <= step; p += kWarps) {
-    const float sc = hd.score(p, step, a.scale);
-    if (hd.lane == 0) s[p] = sc;
+  const int nhead = a.m / a.d_head;
+  const unsigned items = static_cast<unsigned>(a.n) * nhead;
+  const int nvec = a.d_head / V;
+  const int row_bytes = a.d_head * static_cast<int>(sizeof(T));
+  const int slot_bytes = chunk * row_bytes;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nc = (step + chunk - 1) / chunk;  // chunks of the cached positions 0 .. step - 1
+  const unsigned loads = 2 * nc;              // an item's: k's chunks, then v's
+  const unsigned mine = items > blockIdx.x ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const unsigned total = mine * loads;        // the block's loads
+  // chunk c holds positions c * chunk .. in a slot whose first position is
+  // first_pos(c): the last chunk's box ends at step - 1 (it re-reads the
+  // chunk before, or, below `chunk`, arrives with zeros before position 0)
+  const auto first_pos = [&](int c) { return min(c * chunk, step - chunk); };
+
+  // The block's load L (item L / loads of its own; of that item k's chunk
+  // j, or v's chunk j - nc, j = L % loads) into slot L % slots, issued by
+  // thread 0: one TMA box of `chunk` positions of the item's head, whatever
+  // the mask says (masked bytes never reach a product), nothing at or past
+  // `step`.
+  const auto issue = [&](unsigned ld) {
+    const unsigned item = blockIdx.x + (ld / loads) * gridDim.x;
+    const int j = ld % loads;
+    const bool is_v = j >= nc;
+    const uint32_t bar = bars + 8 * (ld % slots);
+    mbar_expect(bar, slot_bytes);
+    tma_3d(ring + (ld % slots) * slot_bytes, is_v ? &tmv : &tmk, bar,
+           (item % nhead) * (row_bytes / 4), first_pos(is_v ? j - nc : j),
+           a.layer * a.n + static_cast<int>(item / nhead));
+  };
+  // The fresh operands of the block's item n (q, kh, vh: its head's d_head
+  // floats of each) into buffer n % 2, completing on its mbarrier, by
+  // thread 0: one bulk copy each, an item ahead.
+  const auto issue_fresh = [&](unsigned n) {
+    const unsigned item = blockIdx.x + n * gridDim.x;
+    if (item >= items) return;
+    const size_t off = static_cast<size_t>(item / nhead) * a.m + (item % nhead) * a.d_head;
+    const uint32_t bar = fbars + 8 * (n % 2);
+    const uint32_t dst = smem_addr(fresh + (n % 2) * 3 * a.d_head);
+    const uint32_t bytes = a.d_head * 4;
+    mbar_expect(bar, 3 * bytes);
+    bulk_load(dst, a.q + off, bytes, bar);
+    bulk_load(dst + bytes, a.kh + off, bytes, bar);
+    bulk_load(dst + 2 * bytes, a.vh + off, bytes, bar);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < slots + 2; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    issue_fresh(0);
+    for (unsigned ld = 0; ld < min(static_cast<unsigned>(slots), total); ++ld) issue(ld);
   }
-  __syncthreads();
+  // Load `ld` has arrived; after the block has used it, its slot takes load
+  // ld + slots, perhaps the next item's.
+  const auto wait = [&](unsigned ld) { mbar_wait(bars + 8 * (ld % slots), (ld / slots) & 1); };
+  const auto release = [&](unsigned ld) {
+    __syncthreads();
+    if (threadIdx.x == 0 && ld + slots < total) issue(ld + slots);
+  };
 
-  float mx = -INFINITY;
-  for (int p = threadIdx.x; p <= step; p += kThreads) mx = fmaxf(mx, s[p]);
-  mx = block_max(mx, red);
-  float sum = 0.f;
-  for (int p = threadIdx.x; p <= step; p += kThreads) {
-    const float e = s[p] == -INFINITY ? 0.f : expf(s[p] - mx);
-    s[p] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);  // its barriers publish the weights
+  const int j = lane % kGroup;  // this thread's vector of d_head in the score pass
+  const bool live = j < nvec;
+  const int first = threadIdx.x / kGroup;  // its first position in a pass
+  const int groups = kThreads / nvec;      // value groups of nvec threads
+  const int g = threadIdx.x / nvec;
+  const int jv = threadIdx.x % nvec;
+  unsigned ld = 0;  // the block's next load
+  for (unsigned item = blockIdx.x; item < items; item += gridDim.x) {
+    const int row = item / nhead;  // unsigned division: see Head
+    const int head = item % nhead;
+    const size_t qoff = static_cast<size_t>(row) * a.m + static_cast<size_t>(head) * a.d_head;
+    const size_t lrow = static_cast<size_t>(a.layer) * a.n + row;  // (layer, row) of the caches
+    const unsigned char* mrow = a.mask + static_cast<size_t>(row) * a.u;
+    const unsigned n = (item - blockIdx.x) / gridDim.x;  // the block's item count so far
+    __syncthreads();  // the barriers' init; the last item's reads of the scores and scales
+    if (threadIdx.x == 0) issue_fresh(n + 1);  // into the buffer the last item used
+    const float* fq = fresh + (n % 2) * 3 * a.d_head;  // this item's q, kh, vh
+    const float* fk = fq + a.d_head;
+    const float* fv = fk + a.d_head;
 
-  const int g = threadIdx.x / hd.nvec;
-  const int j = threadIdx.x % hd.nvec;
-  float acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-  if (g < groups) {
-    for (int p = g; p <= step; p += groups) {
-      const float w = s[p];
-      if (w != 0.f) hd.add_value(acc, w, p, step, j, a.vh);
+    // While the copies fly: the scales, the fresh k/v's writeback, q and the
+    // fresh position's score.
+    if constexpr (kQuant) {
+      const float* ks = a.ks + lrow * a.u;
+      const float* vs = a.vs + lrow * a.u;
+      for (int p = threadIdx.x; p < step; p += kThreads) {
+        ksc[p] = ks[p];
+        vsc[p] = vs[p];
+      }
     }
+    // no item reads position `step`
+    T* kdst = a.ck + (lrow * a.u + step) * a.m + static_cast<size_t>(head) * a.d_head;
+    T* vdst = a.cv + (lrow * a.u + step) * a.m + static_cast<size_t>(head) * a.d_head;
+    if constexpr (kQuant) {
+      if (head == 0) {
+        // the row's quantizer, once a row (by its head-0 item): amax over its
+        // M values of kh and vh, then every head's codes and the two scales
+        const float* krow = a.kh + static_cast<size_t>(row) * a.m;
+        const float* vrow = a.vh + static_cast<size_t>(row) * a.m;
+        float mk = 0.f, mv = 0.f;
+        for (int i = 4 * threadIdx.x; i < a.m; i += 4 * kThreads) {
+          const float4 k4 = *reinterpret_cast<const float4*>(krow + i);
+          const float4 v4 = *reinterpret_cast<const float4*>(vrow + i);
+          mk = fmaxf(mk, fmaxf(fmaxf(fabsf(k4.x), fabsf(k4.y)), fmaxf(fabsf(k4.z), fabsf(k4.w))));
+          mv = fmaxf(mv, fmaxf(fmaxf(fabsf(v4.x), fabsf(v4.y)), fmaxf(fabsf(v4.z), fabsf(v4.w))));
+        }
+        mk = fmaxf(block_max(mk, red), 1e-6f);
+        mv = fmaxf(block_max(mv, red), 1e-6f);
+        const int vecs = a.m / V;
+        for (int i = threadIdx.x; i < 2 * vecs; i += kThreads) {
+          const bool is_v = i >= vecs;
+          const int e = (is_v ? i - vecs : i) * V;  // from head 0's offset: the row's element e
+          float x[V];
+          load_fresh<T>((is_v ? vrow : krow) + e, x);
+          store_codes((is_v ? vdst : kdst) + e, x, 127.f / (is_v ? mv : mk));  // IEEE division
+        }
+        if (threadIdx.x == 0) {
+          a.ks[lrow * a.u + step] = mk / 127.f;
+          a.vs[lrow * a.u + step] = mv / 127.f;
+        }
+      }
+    }
+    const bool fresh_ok = mrow[step] != 0;
+    mbar_wait(fbars + 8 * (n % 2), (n / 2) & 1);
+    if constexpr (!kQuant) {
+      if (warp < 2 && lane < nvec) {
+        float x[V];
+        load_fresh<T>((warp == 0 ? fk : fv) + lane * V, x);
+        store_vec((warp == 0 ? kdst : vdst) + lane * V, x);
+      }
+    }
+    float qv[V];
+    if (live) load_fresh<T>(fq + j * V, qv);
+    if (warp == 0) {  // the fresh position, by warp 0's first group
+      const bool ok = fresh_ok;
+      float dot = 0.f;
+      if (lane < kGroup && live && ok) {
+        float kx[V];
+        load_fresh<T>(fk + j * V, kx);
+#pragma unroll
+        for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kx[i], dot);
+      }
+#pragma unroll
+      for (int off = kGroup / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) s[step] = ok ? dot / a.scale : -INFINITY;
+    }
+    __syncthreads();  // the staged scales
+
+    // Scores, a chunk at a time from its slot: lanes on (position, vector)
+    // in groups of kGroup, two positions a thread before the shuffles; each
+    // dot product in K3's order (see the header).
+    for (int c = 0; c < nc; ++c, ++ld) {
+      wait(ld);
+      const int p0 = c * chunk;
+      const int cnt = min(chunk, step - p0);
+      const unsigned char* buf =
+          smem + (ld % slots) * slot_bytes + (p0 - first_pos(c)) * row_bytes + j * 16;
+      for (int i0 = 0; i0 < cnt; i0 += 2 * kPer) {
+        uint4 kr[2];
+        bool ok[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = i0 + first + u * kPer;
+          ok[u] = i < cnt && mrow[p0 + i];  // masked positions never reach a product
+          if (live && ok[u]) kr[u] = *reinterpret_cast<const uint4*>(buf + i * row_bytes);
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int i = i0 + first + u * kPer;
+          float dot = 0.f;
+          if (live && ok[u]) {
+            float x[V];
+            if constexpr (kQuant) {
+              unpack_codes(kr[u], x, ksc[p0 + i]);
+            } else {
+              unpack(kr[u], x);
+            }
+#pragma unroll
+            for (int e = 0; e < V; ++e) dot = fmaf(qv[e], x[e], dot);
+          }
+#pragma unroll
+          for (int off = kGroup / 2; off > 0; off >>= 1) {
+            dot += __shfl_xor_sync(0xffffffffu, dot, off);
+          }
+          if (j == 0 && i < cnt) s[p0 + i] = ok[u] ? dot / a.scale : -INFINITY;
+        }
+      }
+      release(ld);
+    }
+    __syncthreads();  // every score
+
+    float mx = -INFINITY;
+    for (int p = threadIdx.x; p <= step; p += kThreads) mx = fmaxf(mx, s[p]);
+    mx = block_max(mx, red);
+    float sum = 0.f;
+    for (int p = threadIdx.x; p <= step; p += kThreads) {
+      const float e = s[p] == -INFINITY ? 0.f : expf(s[p] - mx);
+      s[p] = e;
+      sum += e;
+    }
+    sum = block_sum(sum, red);  // its barriers publish the weights
+
+    // Values in K3's order: group g of nvec threads sums positions g, g +
+    // groups, ... in turn, across the chunks, the fresh position last.
+    float acc[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
+    int p = g;  // this group's next position
+    for (int c = 0; c < nc; ++c, ++ld) {
+      wait(ld);
+      const int p0 = first_pos(c);
+      const unsigned char* buf = smem + (ld % slots) * slot_bytes + jv * 16;
+      const int end = min(step, (c + 1) * chunk);
+      if (g < groups) {
+        for (; p < end; p += 2 * groups) {
+          const int p1 = p + groups;
+          const float w0 = s[p];
+          const float w1 = p1 < end ? s[p1] : 0.f;
+          uint4 r0, r1;
+          if (w0 != 0.f) r0 = *reinterpret_cast<const uint4*>(buf + (p - p0) * row_bytes);
+          if (w1 != 0.f) r1 = *reinterpret_cast<const uint4*>(buf + (p1 - p0) * row_bytes);
+          if (w0 != 0.f) {
+            float x[V];
+            if constexpr (kQuant) {
+              unpack_codes(r0, x, vsc[p]);
+            } else {
+              unpack(r0, x);
+            }
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[i] = fmaf(w0, x[i], acc[i]);
+          }
+          if (w1 != 0.f) {
+            float x[V];
+            if constexpr (kQuant) {
+              unpack_codes(r1, x, vsc[p1]);
+            } else {
+              unpack(r1, x);
+            }
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[i] = fmaf(w1, x[i], acc[i]);
+          }
+        }
+        if (p - groups >= end) p -= groups;  // the pair's second position lay past this chunk
+      }
+      release(ld);
+    }
+    if (g < groups && p == step && s[step] != 0.f) {
+      float x[V];
+      load_fresh<T>(fv + jv * V, x);
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = fmaf(s[step], x[i], acc[i]);
+    }
+    finish<V>(acc, sum, part, g, groups, jv, a.d_head, a.out + qoff);
+
   }
-  finish<V>(acc, sum, part, g, groups, j, a.d_head, a.out + hd.qoff);
 }
 
 // K5: K3's whole-row exact softmax over the paged cache, with the
@@ -325,17 +636,103 @@ __global__ void __launch_bounds__(kThreads, kChunkedBlocks<T>) attn_step_chunked
   attn_step_chunked_item<T, kPaged>(a, blockIdx.x, smem, a.out);
 }
 
-// K3 (f32, bf16, int8)
-template <typename T>
-int launch_k3(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
-  const int groups = kThreads / (a.d_head / Vec<T>::kN);
-  const size_t smem = (a.u + kWarps + static_cast<size_t>(groups) * a.d_head) * sizeof(float);
-  // above 48 KB: U beyond ~11,800 positions
+// K3's TMA map of one (layers, n, u, m) cache as 32-bit words (any element
+// type: the boxes are copied as bytes): dims (m * itemsize / 4, u, layers *
+// n), boxes of one head (row_bytes / 4 words) x `chunk` positions x one row.
+// A decode's caches are few and long-lived, so maps are kept by pointer and
+// shape and a launch seldom encodes one. Returns 0 or a CUDA error.
+int k3_map(CUtensorMap* map, const void* ptr, int layers, int n, int u, int m_bytes,
+           int row_bytes, int chunk) {
+  struct Key {
+    const void* ptr;
+    int layers, n, u, m_bytes, row_bytes, chunk;
+  };
+  constexpr int kKept = 32;
+  static Key keys[kKept];
+  static CUtensorMap maps[kKept];
+  static int kept = 0, next = 0;
+  const Key key = {ptr, layers, n, u, m_bytes, row_bytes, chunk};
+  for (int i = 0; i < kept; ++i) {
+    const Key& k = keys[i];
+    if (k.ptr == ptr && k.layers == layers && k.n == n && k.u == u && k.m_bytes == m_bytes &&
+        k.row_bytes == row_bytes && k.chunk == chunk) {
+      *map = maps[i];
+      return 0;
+    }
+  }
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(m_bytes / 4), static_cast<cuuint64_t>(u),
+                              static_cast<cuuint64_t>(layers) * n};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(m_bytes),
+                                 static_cast<cuuint64_t>(u) * m_bytes};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(row_bytes / 4),
+                             static_cast<cuuint32_t>(chunk), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  if (encode(&maps[next], CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(ptr), dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  keys[next] = key;
+  *map = maps[next];
+  next = (next + 1) % kKept;
+  kept = kept < kKept ? kept + 1 : kKept;
+  return 0;
+}
+
+// K3 (f32, bf16, int8) with the wrapper's ring (chunk, slots) and shared
+// memory `smem`, which must be WholeRowSmem's: as many blocks as fit the
+// card at once (the occupancy of the last `smem` seen is kept), each
+// walking its share of the N * H items.
+template <typename T, int kGroup>
+int launch_k3_as(const Args<T>& a, const CUtensorMap& tmk, const CUtensorMap& tmv, int nhead,
+                 int chunk, int slots, int smem, int device, cudaStream_t stream) {
+  const auto kernel = attn_step_whole_row<T, kGroup>;
   static int smem_set[kMaxDevices] = {};
-  const int err = allow_smem(attn_step_whole_row<T>, smem, device, smem_set);
+  int err = allow_smem(kernel, smem, device, smem_set);
   if (err != 0) return err;
-  if (a.n > 0) attn_step_whole_row<T><<<a.n * nhead, kThreads, smem, stream>>>(a);
+  static int sms[kMaxDevices] = {};
+  static int fit_smem[kMaxDevices] = {};
+  static int fit[kMaxDevices] = {};
+  if (sms[device] == 0) {
+    err = static_cast<int>(cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                                                  device));
+    if (err != 0) return err;
+  }
+  if (fit_smem[device] != smem) {
+    err = static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[device], kernel, kThreads, smem));
+    if (err != 0) return err;
+    if (fit[device] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    fit_smem[device] = smem;
+  }
+  const long items = static_cast<long>(a.n) * nhead;
+  const int grid = static_cast<int>(items < static_cast<long>(sms[device]) * fit[device]
+                                        ? items
+                                        : static_cast<long>(sms[device]) * fit[device]);
+  if (grid == 0) return 0;
+  kernel<<<grid, kThreads, smem, stream>>>(a, tmk, tmv, chunk, slots);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_k3(const Args<T>& a, int layers, int nhead, int chunk, int slots, int smem, int device,
+              cudaStream_t stream) {
+  if (chunk <= 0 || slots < (a.step > 0) || device < 0 || device >= kMaxDevices ||
+      WholeRowSmem(a.step, a.d_head, sizeof(T), Vec<T>::kQuant, chunk, slots).total != smem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int m_bytes = a.m * static_cast<int>(sizeof(T));
+  const int row_bytes = a.d_head * static_cast<int>(sizeof(T));
+  CUtensorMap tmk, tmv;
+  int err = k3_map(&tmk, a.ck, layers, a.n, a.u, m_bytes, row_bytes, chunk);
+  if (err == 0) err = k3_map(&tmv, a.cv, layers, a.n, a.u, m_bytes, row_bytes, chunk);
+  if (err != 0) return err;
+  const int nvec = a.d_head / Vec<T>::kN;  // score lanes a position: nvec rounded up to 8, 16 or 32
+  if (nvec <= 8) return launch_k3_as<T, 8>(a, tmk, tmv, nhead, chunk, slots, smem, device, stream);
+  if (nvec <= 16) return launch_k3_as<T, 16>(a, tmk, tmv, nhead, chunk, slots, smem, device, stream);
+  return launch_k3_as<T, 32>(a, tmk, tmv, nhead, chunk, slots, smem, device, stream);
 }
 
 // K4 (kPaged = false) and K6 (kPaged = true), f32, bf16 and int8
@@ -411,15 +808,20 @@ int launch_paged(const void* q, const void* kh, const void* vh, const void* mask
 extern "C" {
 
 // q, kh, vh, out: (n, m) f32; mask: (n, u) bytes, nonzero = valid key;
-// ck, cv: (L, n, u, m) caches, f32 (dtype 0), bf16 (dtype 1) or int8 codes
+// ck, cv: (layers, n, u, m) caches, f32 (dtype 0), bf16 (dtype 1) or int8 codes
 // (dtype 2) with ks, vs their (L, n, u) f32 scales (null
 // otherwise); all contiguous on `device`. chunked = 0 launches the
-// whole-row kernel (K3), 1 the streamed one (K4). Writes out and the caches'
-// (layer, :, step) slices (int8: codes and scales). Launches on `stream` and
-// returns cudaGetLastError() (0 on success). Does not synchronise.
+// whole-row kernel (K3) with its ring of `slots` slots of `chunk` positions
+// and `smem` bytes of shared memory (ops/attention_step.py
+// `whole_row_layout`; refused unless they agree); chunked = 1 the streamed
+// one (K4), which ignores those three. Writes out
+// and the caches' (layer, :, step) slices (int8: codes and scales).
+// Launches on `stream` and returns cudaGetLastError() (0 on success). Does
+// not synchronise.
 int sa_attention_step(const void* q, const void* kh, const void* vh, const void* mask, void* ck,
-                      void* cv, void* ks, void* vs, void* out, int n, int u, int m, int nhead,
-                      int step, int layer, int dtype, int chunked, int device, void* stream) {
+                      void* cv, void* ks, void* vs, void* out, int layers, int n, int u, int m,
+                      int nhead, int step, int layer, int dtype, int chunked, int chunk, int slots,
+                      int smem, int device, void* stream) {
   const int err = use_device(device);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -427,19 +829,19 @@ int sa_attention_step(const void* q, const void* kh, const void* vh, const void*
     const Args<float> a =
         make_args<float>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
     return chunked ? launch_streamed<float, false>(a, nhead, device, s)
-                   : launch_k3<float>(a, nhead, device, s);
+                   : launch_k3<float>(a, layers, nhead, chunk, slots, smem, device, s);
   }
   if (dtype == 1) {
     const Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(q, kh, vh, mask, ck, cv, ks, vs, out,
                                                            n, u, m, nhead, step, layer);
     return chunked ? launch_streamed<__nv_bfloat16, false>(a, nhead, device, s)
-                   : launch_k3<__nv_bfloat16>(a, nhead, device, s);
+                   : launch_k3<__nv_bfloat16>(a, layers, nhead, chunk, slots, smem, device, s);
   }
   if (dtype == 2) {
     const Args<int8_t> a =
         make_args<int8_t>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
     return chunked ? launch_streamed<int8_t, false>(a, nhead, device, s)
-                   : launch_k3<int8_t>(a, nhead, device, s);
+                   : launch_k3<int8_t>(a, layers, nhead, chunk, slots, smem, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,12 @@
 // The device code that the single-token attention kernels share: K3-K6 of
 // csrc/attention_step.cu and the attention phase of K7 (csrc/lm_megastep.cu).
 // Numerics, addressing and design are stated in csrc/attention_step.cu's
-// header. Each (row, head) pair is one work item of 128 threads; K3-K6 run
-// one item per block, K7 walks many items per block.
+// header. Each (row, head) pair is one work item of 128 threads; K4-K6 run
+// one item per block, K3 and K7 walk many items per block.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (types only: the encoder comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,6 +74,19 @@ __device__ __forceinline__ void unpack(const uint4& r, float (&x)[16], float sca
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     x[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu)) * scale;
+  }
+}
+// The same, K3's way: each code made a float exactly as (2^23 + code + 128)
+// - (2^23 + 128), its bits assembled by a byte permute, where unpack's
+// integer-to-float conversions run at an eighth of the FMA rate (3-8%
+// faster K3 on an H100). The redesigned K4-K7 keep unpack, as measured.
+__device__ __forceinline__ void unpack_codes(const uint4& r, float (&x)[16], float scale) {
+  const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u, r.z ^ 0x80808080u,
+                         r.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    x[i] = (__uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7540u | (i % 4))) - 8388736.f) *
+           scale;
   }
 }
 __device__ __forceinline__ void load_vec(const int8_t* p, float (&x)[16], float scale) {
@@ -167,6 +181,82 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return t;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The mbarrier at shared address `bar`: init (one arrival a phase), the
+// arrival that also expects `bytes` of asynchronous-copy data, whether the
+// phase of parity `parity` has completed, and the wait for it.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_done(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_done(bar, parity)) {
+  }
+}
+
+// A bulk asynchronous copy (no tensor map) of `bytes` (a multiple of 16,
+// both addresses 16-byte aligned) from global `src` to shared address `dst`,
+// completing on the mbarrier at `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// TMA: the box at (x, y, z) (x the inner coordinate) of the 3-D `map` to
+// shared address `dst` (128-byte aligned), completing on the mbarrier at
+// `bar`; elements outside the tensor (negative y) arrive as zeros.
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int x,
+                                       int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, "
+      "%4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda); null if the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      encode = reinterpret_cast<EncodeTiled>(fn);
+    }
+  }
+  return encode;
+}
+
 // Raises `kernel`'s dynamic shared-memory limit to `smem` where that is above
 // the default 48 KB, once per device and size (`set` records what each device
 // was given). Returns 0 or the CUDA error.
@@ -210,7 +300,7 @@ struct Args {
 };
 
 // What both kernels share for one (row, head) work item, `item` = row * H +
-// head (a block's index in K3-K6): the fresh operands,
+// head (a block's index in K4-K6): the fresh operands,
 // the address of any position of the row, and (in the constructor) the
 // in-place writes. `item` is unsigned, as blockIdx.x is: with a signed index
 // the division and remainder by H cost K6 ~20 more registers, a third fewer

@@ -104,8 +104,6 @@
 // of M, K6's head-width and alignment limits, page 64.
 
 #include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap (types only: the encoder comes from the runtime)
-
 #include "attention_step.cuh"
 
 #ifdef SA_LM_MEGA_STAMPS
@@ -177,34 +175,6 @@ __device__ __forceinline__ float gelu(float x) {
   } else {
     return 0.5f * x * (1.f + tanhf(0.79788456080286536f * (x + 0.044715f * x * x * x)));
   }
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// The mbarrier at shared address `bar`: init (one arrival a phase), the
-// arrival that also expects `bytes` of TMA data, and whether the phase of
-// parity `parity` has completed.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_done(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
 }
 
 // TMA: the box at (x, y) (x the inner coordinate) of `map` to shared address
@@ -547,25 +517,12 @@ int launch(const Mega<T>& p, int device, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
 // The TMA map of a (rows, cols) row-major bf16 matrix in kTile x kDepth
 // boxes (kDepth columns: 128 bytes, swizzled), rows past `rows` read as
 // zeros. Returns 0 or a CUDA error.
 int encode_2d(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * sizeof(bf16)};
   const cuuint32_t box[2] = {kDepth, kTile};

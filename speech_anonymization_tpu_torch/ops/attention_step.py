@@ -44,6 +44,7 @@ K5-K7 on the paged caches) are the reference math of
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -55,6 +56,44 @@ import torch
 _VMEM_BUDGET = 10 * 2**20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_VECS = 32  # 16-byte vectors of one head: one warp lane each
+# K3 (``attn_step_whole_row``) stages each (row, head)'s cached k and v in
+# a ring of shared-memory slots of `chunk` positions: the longest of
+# K3_CHUNKS (64 only from step 64 on) with room for two slots in K3_SMEM
+# beside the rest of its shared memory, and as many slots as fit there (none
+# past the launch's loads: none at step 0). K3_SMEM lets eight blocks share an
+# H100 SM (228 KB, less the 1 KB the runtime keeps a block).
+K3_CHUNKS = (64, 32, 16)
+K3_SMEM = 233_472 // 8 - 1024
+_THREADS, _WARPS = 128, 4  # a K3 block
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+@functools.lru_cache(maxsize=None)
+def whole_row_layout(step: int, d_head: int, itemsize: int) -> tuple[int, int, int]:
+    """(chunk, slots, shared-memory bytes) of K3's launch at ``step``: 128
+    bytes of slack to align the ring for TMA, its slots, their mbarriers and
+    the fresh operands' two, those (two items' q, kh and vh head slices), the
+    value groups' partials, the step + 1 scores, int8 the two scale runs of
+    positions before the step, and the reduction scratch;
+    ``csrc/attention_step.cu`` ``WholeRowSmem`` lays out the same bytes and
+    refuses other totals."""
+    row = d_head * itemsize
+    part = (_THREADS // (row // 16)) * d_head * 4
+    scales = 2 * _round16(4 * max(step, 1)) if itemsize == 1 else 0
+    rest = 128 + 2 * 3 * d_head * 4 + part + _round16(4 * (step + 1)) + scales + 4 * _WARPS
+    for chunk in K3_CHUNKS:
+        if chunk > max(step, K3_CHUNKS[1]):  # 64 only from step 64 on
+            continue
+        loads = 2 * -(-step // chunk)  # k's chunks, then v's
+        # round16(8 (slots + 2)) <= 8 slots + 24
+        slots = min(loads, (K3_SMEM - rest - 24) // (chunk * row + 8))
+        if slots >= min(loads, 2):
+            break
+    slots = max(slots, min(loads, 1))
+    return chunk, slots, rest + slots * chunk * row + _round16(8 * (slots + 2))
 
 
 def max_u_whole_row(m: int, itemsize: int) -> int:
@@ -204,7 +243,7 @@ def _entry():
         from ..utils import cuda_build
 
         fn = cuda_build.load("attention_step").sa_attention_step
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -213,13 +252,14 @@ def _entry():
 def _launch(chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale,
             v_scale) -> torch.Tensor:
     _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_scale)
-    _, n, u, m = cache_k.shape
+    layers, n, u, m = cache_k.shape
     out = torch.empty(n, m, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ks, vs = (0, 0) if k_scale is None else (k_scale.data_ptr(), v_scale.data_ptr())
+    ring = (0, 0, 0) if chunked else whole_row_layout(step, m // nhead, cache_k.element_size())
     err = _entry()(q.data_ptr(), kh.data_ptr(), vh.data_ptr(), mask.data_ptr(), cache_k.data_ptr(),
-                   cache_v.data_ptr(), ks, vs, out.data_ptr(), n, u, m, nhead, step, layer,
-                   _DTYPE_CODES[cache_k.dtype], int(chunked), q.device.index or 0, stream)
+                   cache_v.data_ptr(), ks, vs, out.data_ptr(), layers, n, u, m, nhead, step, layer,
+                   _DTYPE_CODES[cache_k.dtype], int(chunked), *ring, q.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"attention_step kernel launch failed: CUDA error {err}")
     return out

@@ -2,14 +2,16 @@
 
 Usage, on a machine with one NVIDIA card:
 
-    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2|D3] [paged|physical]
+    python -m speech_anonymization_tpu_torch.tools.profile_decode [D1|D2|D3|B3] [paged|physical]
         [--lm] [--bf16 | --int8]
 
 D1 (default) is scripts/bench_decode.py's shape: 8 utterances of T = 504
 feature frames (126 encoder frames), 64 decode steps; D2 is bench.py's
 length: T = 1008 (252 encoder frames), 252 steps; D3 is the JAX package's
 30 s int8 serving shape, run with ``--int8``: T = 3001 (751 encoder frames),
-448 steps (U 512). The full-width
+448 steps (U 512); B3 is configs/convae.yaml's evaluation batch at D1's
+length: 3 utterances (N 198 at beam 66, not a multiple of 8, so the paging
+rule keeps its caches physical whichever layout is asked: K2 and K3). The full-width
 ``ASRModel()`` with seeded random weights decodes seeded features at beam 66,
 CTC 0.4, temperature 1.15, f32 caches, fp32 with TF32 off, with paged caches
 (the default: K5 at D1, K6 at D2) or physical ones (``decode_paged_kv:
@@ -50,7 +52,7 @@ from ..recipes.asr_bundle import ASRBundle
 from ..utils.seeded_init import seeded_init_
 
 # utterances, frames, max_decode_steps
-SHAPES = {"D1": (8, 504, 64), "D2": (8, 1008, None), "D3": (8, 3001, 448)}
+SHAPES = {"D1": (8, 504, 64), "D2": (8, 1008, None), "D3": (8, 3001, 448), "B3": (3, 504, 64)}
 TOP = 15
 
 

@@ -207,3 +207,42 @@ def test_int8_chunked_kernel_refuses():
     assert port.attention_step_chunked.launches == launches
     with pytest.raises(TypeError, match="k_scale"):
         port._check(t(q), t(kh), t(vh), t(mask), t(ck), t(cv), 3, 0, 8, None, None)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@pytest.mark.parametrize("d_head", [96, 64])
+def test_whole_row_layout_fits(d_head, itemsize):
+    """K3's ring and shared memory at every step of every U the whole-row
+    kernel serves at M 768 (213 positions for f32, 426 for bf16 and int8):
+    within K3_SMEM (eight blocks an H100 SM, far within a block's 227 KB),
+    with two slots or more wherever a launch has two loads or more, none at
+    step 0, and no slot past the launch's loads."""
+    u_max = port.max_u_whole_row(768, max(itemsize, 2))
+    for step in range(u_max):
+        chunk, slots, smem = port.whole_row_layout(step, d_head, itemsize)
+        loads = 2 * -(-step // chunk)
+        assert min(loads, 2) <= slots <= loads, step
+        assert smem <= port.K3_SMEM, step
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_k3_launch_takes_the_layout_rule(monkeypatch, dtype):
+    """K3's launch hands the C entry the cache's layers and whole_row_layout's
+    ring and shared memory (which the kernel refuses unless they agree with
+    its own); K4's launch hands it none."""
+    shape = (2, 8, 72, 768, 8)
+    if dtype == torch.int8:
+        q, kh, vh, mask, ck, cv, ks, vs = (t(x) for x in _int8_inputs(shape, 40, 3, False))
+        scales = (ks, vs)
+    else:
+        q, kh, vh, mask, ck, cv = (t(x) for x in _inputs(shape, 40, seed=3, masked_fresh=False))
+        ck, cv, scales = ck.to(dtype), cv.to(dtype), (None, None)
+    calls = []
+    monkeypatch.setattr(port, "_entry", lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("S", (), {"cuda_stream": 0}))
+    for chunked in (False, True):
+        port._launch(chunked, q, kh, vh, mask, ck, cv, 40, 1, 8, *scales)
+    k3, k4 = (args[9:-2] for args in calls)
+    common = (2, 8, 72, 768, 8, 40, 1, {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[dtype])
+    assert k3 == (*common, 0, *port.whole_row_layout(40, 96, dtype.itemsize))
+    assert k4 == (*common, 1, 0, 0, 0)

@@ -212,14 +212,18 @@ def _attention_inputs(n, u, m, dtype, step, seed, device, masked_fresh=False):
     return q, kh, vh, mask, ck, cv
 
 
-@pytest.mark.parametrize("dtype,u", [(torch.float32, 208), (torch.float32, 256),
-                                     (torch.bfloat16, 424), (torch.bfloat16, 448)])
+@pytest.mark.parametrize("dtype,u", [(torch.float32, 208), (torch.float32, 213),
+                                     (torch.float32, 256), (torch.bfloat16, 424),
+                                     (torch.bfloat16, 426), (torch.bfloat16, 448)])
 @pytest.mark.parametrize("kernel", [attention_step, attention_step_chunked])
 @pytest.mark.parametrize("step_at,masked_fresh", [(0, False), (63, False), (-1, False), (64, True)])
-def test_k3_k4_match_plain_twin(cuda, dtype, u, kernel, step_at, masked_fresh):
-    """Both kernels at U just below and above the K3/K4 boundary (213 for f32,
-    426 for bf16 at M = 768), N = 5 rows, NaN/Inf beyond the step, masked keys."""
-    n, m, nhead = 5, 768, 8
+@pytest.mark.parametrize("n", [5, 198])
+def test_k3_k4_match_plain_twin(cuda, dtype, u, kernel, step_at, masked_fresh, n):
+    """Both kernels at U just below, at and above the K3/K4 boundary (213 for
+    f32, 426 for bf16 at M = 768; at U - 1 K3's ring holds its last chunk
+    and the most shared memory), N = 5 rows and 198 (convae.yaml's 3
+    utterances x beam 66), NaN/Inf beyond the step, masked keys."""
+    m, nhead = 768, 8
     step = step_at % u
     q, kh, vh, mask, ck, cv = _attention_inputs(n, u, m, dtype, step, seed=u + step, device=cuda,
                                                 masked_fresh=masked_fresh)
@@ -267,13 +271,15 @@ def _int8_attention_inputs(n, u, m, step, seed, device):
 
 
 @pytest.mark.parametrize("u,step_at", [(72, 0), (72, 31), (72, 71), (256, 125), (256, 255),
-                                       (424, 423)])
+                                       (424, 423), (426, 425)])
 @pytest.mark.parametrize("nhead", [8, 12])
-def test_k3_int8_matches_plain_twin(cuda, u, step_at, nhead):
+@pytest.mark.parametrize("n", [9, 198])
+def test_k3_int8_matches_plain_twin(cuda, u, step_at, nhead, n):
     """K3 on int8 caches at D1's U 72, D2's U 256 and the int8 whole-row
-    bound (U 424 <= 426), at the ASR's 8 x 96 heads and the LM's 12 x 64:
+    bound (U 424 and 426, at U - 1: the ring's last chunk and the most shared
+    memory), at the ASR's 8 x 96 heads and the LM's 12 x 64, N 9 and 198:
     out within 1e-5 of the twin's, every code and scale equal."""
-    n, m = 9, 768
+    m = 768
     q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(n, u, m, step_at, u + step_at, cuda)
     twin = [x.clone() for x in (ck, cv, ks, vs)]
     before = attention_step.launches
@@ -596,6 +602,60 @@ def test_k4_k6_bit_identical(cuda, step, nhead, dtype):
     torch.cuda.synchronize()
     assert torch.isfinite(paged).all()
     assert torch.equal(paged, physical), float((paged - physical).abs().max())
+
+
+def _split_history(n, u, step, dtype, device, rng, g, nhead, layers=2, m=768):
+    """A split page-32 cache after ``step`` random beam reorders (beams of 4),
+    its pages and slots then filled with seeded content (int8: codes and
+    scales, as _int8_fill)."""
+    cache = make_kv_cache(n, u, layers, nhead, m // nhead, dtype, device=device, paged=True)
+    assert "k" in cache and cache["table"].shape[1] * 32 == u
+    for t in range(step):
+        cache = beam_reorder_cache(cache, torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(device), t)
+    if dtype == torch.int8:
+        _int8_fill(cache, g)
+    else:
+        for key in ("k", "v", "k_act", "v_act"):
+            cache[key].copy_(torch.from_numpy(rng.standard_normal(cache[key].shape).astype(np.float32)))
+    return cache
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [0, 31, 32, 95])
+def test_k3_k5_bit_identical(cuda, step, nhead, dtype):
+    """K3 (physical) and K5 (split page 32) on the same logical content (a
+    beam history's pages and the parent's active slot, as a physical cache;
+    int8 the same own-row scales), U 96, pad keys and every third row's fresh
+    token masked: outputs equal bit for bit at the ASR's 8 x 96 heads and the
+    LM's 12 x 64, before, on and after a page completion, and the fresh k/v
+    (int8: codes and scales) written alike."""
+    rng = np.random.default_rng(step + nhead + dtype.itemsize)
+    g = torch.Generator(device=cuda).manual_seed(step + nhead)
+    n, u, layer = 16, 96, 1
+    int8 = dtype == torch.int8
+    cache = _split_history(n, u, step, dtype, cuda, rng, g, nhead)
+    ck, cv = _physical_of(cache, step, stale=-128 if int8 else float("nan"))
+    scales = (cache["k_scale"].clone(), cache["v_scale"].clone()) if int8 else ()
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    mask[::3, step] = False
+    q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    before = (attention_step.launches, attention_step_paged.launches)
+    paged = attention_step_paged(q, kh, vh, mask, cache, step, layer, nhead)
+    physical = attention_step(q, kh, vh, mask, ck, cv, step, layer, nhead, *scales)
+    torch.cuda.synchronize()
+    assert (attention_step.launches, attention_step_paged.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.isfinite(paged).all()
+    assert torch.equal(paged, physical), float((paged - physical).abs().max())
+    k_pages, v_pages, k_act, v_act = page_views(cache)
+    p_act, o = divmod(step, 32)
+    for written, pages, act in ((ck, k_pages, k_act), (cv, v_pages, v_act)):
+        merged = pages[layer, :, p_act] if o == 31 else act[layer, :, step % 2]
+        assert torch.equal(written[layer, :, step], merged[:, o])
+    if int8:
+        assert _same(scales[0], cache["k_scale"]) and _same(scales[1], cache["v_scale"])
 
 
 # K5's four configurations: (cache dtype, heads, U) of the f32 decodes (D1's U
