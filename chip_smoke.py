@@ -15,7 +15,8 @@ failure raises and exits non-zero:
            and the card's lower bound (CUDA events, after warm-up): K1 at the
            slice's frames (bound: its DFT product in three TF32 passes on the
            tensor cores, and ``fp32_bound_ms``, the same function all in fp32
-           FMA); K2 (beam_gather) at D1's cache, K3
+           FMA); K2 (beam_gather) at D1's cache (and, bit-exact, f32 at
+           B3's: N 198, the recipe's test decode), K3
            (attention_step) at D1, K4 (attention_step_chunked) at D2, each
            with f32 and bf16 caches, masked fresh tokens and NaN planted
            beyond the step; the other of K3/K4 is also timed at each shape;
@@ -63,8 +64,9 @@ failure raises and exits non-zero:
            beside its twin, the bf16 K7 and the int8 per-layer path (cuBLAS
            + K6 int8 x 12) on the same shape; last K3 at every whole-row
            physical shape of the decode (tools/profile_k3.py ``K3_CASES``:
-           f32 at D1, bf16 and int8 at D1 and D2, at 8 x 96 and 12 x 64),
-           each held to its twin and timed beside its twin, the library
+           f32 at D1, bf16 and int8 at D1 and D2, at 8 x 96 and 12 x 64;
+           then f32 at B3's N 198, steps 1, 31 and 63: the recipe's test
+           decode), each held to its twin and timed beside its twin, the library
            yardstick and its bound, with its ring, shared memory and
            registers (``"case": "k3"`` lines);
   slice    the anonymization path at bench.py's shape (32 utterances of
@@ -84,7 +86,8 @@ failure raises and exits non-zero:
            micro-batch, and K1 against its plain version on the path's own
            frames; reports ms per micro-batch and per update cycle (medians),
            audio seconds trained per wall second (summed walls after the
-           first), peak memory and K1's time beside its plain version's;
+           first), peak memory and K1's time beside its plain version's and
+           two ``torch.matmul``'s (the kernel line's yardstick) on those frames;
   train_parity  one accumulation cycle on the card and on the CPU from the
            same weights, batches and draws (tools/train_parity.py): the
            generator phase and a recon + utility one, 4 speech-like
@@ -137,7 +140,27 @@ failure raises and exits non-zero:
            the LM-fused D1 decode (beam 4, 40 steps, K5 in both stacks on
            the card) against the CPU alike; and the int8 decode of D1's
            features (K5 on the card, the twins' physical path on the CPU)
-           alike.
+           alike;
+  recipe   the anonymizer recipe's epoch loop, ``SexAnonymizationBrain``, at
+           convae.yaml's settings (batch 3, accumulation 3, clip 5, Noam, the
+           two-phase schedule, SpecAugment, the normalizer updating): ``fit``
+           for 2 epochs of 3 micro-batches of 3 x 10.07 s (the frozen
+           ASRModel()'s utility), a valid batch after each (the full-width
+           x-vector evaluator, the ASR encoders' similarity) saving a
+           checkpoint in the JAX package's format asynchronously, then
+           ``evaluate(max_key="Utility_Retention")`` on two of B3's batches
+           (the checkpoints averaged; WER and WER_orig from beam-66 decodes
+           with the LM at 0.6, K3 + K2; MI_bits). Checks: finite losses, both
+           checkpoints on disk with the metas saved and logged, a fresh brain
+           recovering the newest bit-equal, the evaluated parameters bit-equal
+           to the mean of the two saved trees, ``valid_frontier`` restoring
+           parameters only, the test stage's launches (K1, K2, K3, no K4-K7),
+           finite WER, WER_orig, ACC_external and MI_bits; then K1 against
+           its plain version on one train and one test batch's frames (3,024
+           and 1,512 rows, each ending in a part block). Reports ms per
+           micro-batch, the epoch and valid walls, the ms the loop spends in
+           ``save_and_keep_only``, the test stage's wall and its decodes',
+           peak memory and the stats.
 
 Then the whole run's wall time (``{"phase": "wall", ...}``), the card's name
 and power limit (nvidia-smi), the kernel table as one JSON object, and last
@@ -151,13 +174,17 @@ caches, the int8 decodes int8 codes with f32 scales).
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -209,14 +236,18 @@ from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
 )
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle  # noqa: E402
 from speech_anonymization_tpu_torch.tools import profile_lm_megastep  # noqa: E402
-from speech_anonymization_tpu_torch.tools.profile_k3 import K3_CASES, k3_inputs  # noqa: E402
+from speech_anonymization_tpu_torch.tools.profile_k3 import K3_CASES, N as K3_N, k3_inputs  # noqa: E402
 from speech_anonymization_tpu_torch.tools.train_parity import (  # noqa: E402
     compare_cycle,
     convae_hparams,
     train_batch,
 )
+from speech_anonymization_tpu_torch.train.checkpoint import Checkpointer, read_tree  # noqa: E402
+from speech_anonymization_tpu_torch.train.epoch_loop import EpochCounter  # noqa: E402
+from speech_anonymization_tpu_torch.train.logger import FileTrainLogger, _format_value  # noqa: E402
 from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler  # noqa: E402
 from speech_anonymization_tpu_torch.utils import cuda_build  # noqa: E402
+from speech_anonymization_tpu_torch.utils.convert import anonymizer_state_dict  # noqa: E402
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_  # noqa: E402
 
 DEVICE = "cuda"
@@ -434,29 +465,47 @@ def _decode_cache_shape(name: str) -> tuple[int, int, int, int]:
     return 6, DECODE_SHAPES[name][0] * DECODE_HPARAMS["test_beam_size"], u, 768
 
 
-def phase_k2(gen: torch.Generator) -> dict:
-    """K2 at D1's cache: f32 and bf16, steps 0, 31, 63 (K2a) and U - 1 (K2b)."""
-    layers, n, u, m = _decode_cache_shape("D1")
+def _beam_sources(n: int, gen: torch.Generator) -> torch.Tensor:
+    """Seeded flat parent rows of n beam rows: each utterance's beams pick
+    parents among its own."""
     beams = DECODE_HPARAMS["test_beam_size"]
     parents = torch.randint(0, beams, (n // beams, beams), generator=gen, device=DEVICE)
-    src = (torch.arange(n // beams, device=DEVICE)[:, None] * beams + parents).view(-1).int()
+    return (torch.arange(n // beams, device=DEVICE)[:, None] * beams + parents).view(-1).int()
+
+
+def _check_k2(a: torch.Tensor, src: torch.Tensor, steps, shape_name: str, checks: list) -> float:
+    """K2 on ``a`` at each step, bit-equal to its plain twin with the tail
+    left untouched; appends each check to ``checks``, returns the max abs err."""
+    out, want = torch.empty_like(a), torch.empty_like(a)
+    max_err = 0.0
+    for step in steps:
+        out.fill_(float("nan"))
+        beam_gather(a, src, step, out)
+        beam_gather_plain(a, src, step, want)
+        torch.cuda.synchronize()
+        p = step + 1
+        same = torch.equal(out[:, :, :p], want[:, :, :p])
+        untouched = bool(out[:, :, p:].isnan().all())
+        checks.append({"shape": shape_name, "rows": a.shape[1], "dtype": str(a.dtype), "step": step,
+                       "equal": same, "tail_untouched": untouched})
+        if not (same and untouched):
+            raise AssertionError(f"K2 disagrees with its plain twin: {checks[-1]}")
+        max_err = max(max_err, float((out[:, :, :p].float() - want[:, :, :p].float()).abs().max()))
+    return max_err
+
+
+def phase_k2(gen: torch.Generator) -> dict:
+    """K2 at D1's cache: f32 and bf16, steps 0, 31, 63 (K2a) and U - 1 (K2b);
+    then f32 at the recipe's test decode (B3, N 198) on its own generator, so
+    that later phases keep their inputs."""
+    layers, n, u, m = _decode_cache_shape("D1")
+    src = _beam_sources(n, gen)
     rows_read = int(torch.unique(src).numel())  # beams share parents: only these rows must be read
     max_err, checks = 0.0, []
     for dtype in (torch.float32, torch.bfloat16):
         a = torch.randn(layers, n, u, m, generator=gen, device=DEVICE).to(dtype)
         out, want = torch.empty_like(a), torch.empty_like(a)
-        for step in (0, 31, 63, u - 1):
-            out.fill_(float("nan"))
-            beam_gather(a, src, step, out)
-            beam_gather_plain(a, src, step, want)
-            torch.cuda.synchronize()
-            p = step + 1
-            same = torch.equal(out[:, :, :p], want[:, :, :p])
-            untouched = bool(out[:, :, p:].isnan().all())
-            checks.append({"dtype": str(dtype), "step": step, "equal": same, "tail_untouched": untouched})
-            if not (same and untouched):
-                raise AssertionError(f"K2 disagrees with its plain twin: {checks[-1]}")
-            max_err = max(max_err, float((out[:, :, :p].float() - want[:, :, :p].float()).abs().max()))
+        max_err = max(max_err, _check_k2(a, src, (0, 31, 63, u - 1), "D1", checks))
         if dtype == torch.float32:
             # K2a at the mean live step of a 64-step decode, and K2b (whole rows)
             timed = {}
@@ -469,6 +518,12 @@ def phase_k2(gen: torch.Generator) -> dict:
                 timed[step] = kernel_entry("beam_gather", 0.0, ms, plain_ms, 0, nbytes, library_ms)
                 timed[step]["achieved_gbps"] = nbytes / ms / 1e6
         del a, out, want
+    b3 = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    b3_shape = _decode_cache_shape("B3")
+    a = torch.randn(*b3_shape, generator=b3, device=DEVICE)
+    src_b3 = _beam_sources(b3_shape[1], b3)
+    max_err = max(max_err, _check_k2(a, src_b3, (0, 31, 63, b3_shape[2] - 1), "B3", checks))
+    del a
     if beam_gather_faults(DEVICE):
         raise AssertionError("K2 met an out-of-range parent")
     entry = timed[31]
@@ -1187,20 +1242,28 @@ def _k3_registers() -> dict:
     return regs
 
 
+# K3 at the recipe's test decode (B3: 3 utterances x beam 66 = N 198, U 72,
+# f32 caches), steps 1, 31 and 63 (at step 0 k3_inputs masks every position
+# of its odd rows), at 8 x 96 and 12 x 64
+_, B3_ROWS, B3_U, _ = _decode_cache_shape("B3")
+K3_B3_CASES = [("float32", "B3", B3_U, step, nhead) for step in (1, 31, 63) for nhead in (8, 12)]
+
+
 def phase_k3() -> list[dict]:
     """K3 at the decode's whole-row physical shapes (tools/profile_k3.py
     ``K3_CASES``: f32 at D1, bf16 and int8 at D1 and D2, at 8 x 96 and 12 x
-    64, N 528, on that tool's seeded inputs): out within 1e-5 of the plain
-    twin's and the caches (codes, scales) written alike; then K3's time, the
-    twin's, the library's (SDPA; int8 two calls), the
-    bound and its share, the launch's shared memory and the registers nvcc
-    reports. Its own generator, so every earlier phase keeps its inputs."""
+    64, N 528, on that tool's seeded inputs; then ``K3_B3_CASES`` at N 198):
+    out within 1e-5 of the plain twin's and the caches (codes, scales)
+    written alike; then K3's time, the twin's, the library's (SDPA; int8 two
+    calls), the bound and its share, the launch's shared memory and the
+    registers nvcc reports. Its own generator, so every earlier phase keeps
+    its inputs."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
     regs = _k3_registers()
     rows = []
-    for case in K3_CASES:
+    for case, n_rows in [(c, K3_N) for c in K3_CASES] + [(c, B3_ROWS) for c in K3_B3_CASES]:
         dtype_name, shape_name, u, step, nhead = case
-        q, kh, vh, mask, ck, cv, ks, vs = k3_inputs(case, gen, DEVICE)
+        q, kh, vh, mask, ck, cv, ks, vs = k3_inputs(case, gen, DEVICE, n=n_rows)
         n, m = q.shape
         d, p, int8 = m // nhead, step + 1, dtype_name == "int8"
         twin = [None if x is None else x.clone() for x in (ck, cv, ks, vs)]
@@ -1383,6 +1446,19 @@ def phase_slice(wavs, lens, labels, fbank, normalizer, models, card: str) -> dic
     return launches
 
 
+def check_k1(wavs: torch.Tensor, fb: Fbank, where: str) -> tuple[float, torch.Tensor]:
+    """K1 against its plain version on the frames ``fb`` makes of ``wavs``
+    (K1_RTOL, K1_ATOL; raises otherwise): (max abs err, the frames)."""
+    frames = frame_signal(wavs).contiguous()
+    got = fused_fbank(frames, fb.dft, fb.mel, fb.dft_frag)
+    want = mel_power_plain(frames, fb.dft, fb.mel)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL):
+        raise AssertionError(f"K1 disagrees with its plain twin at the {where} shape "
+                             f"({frames.shape[0] * frames.shape[1]} rows): max abs {err}")
+    return err, frames
+
+
 def phase_train(asr: ASRModel, card: str) -> dict:
     """The adversarial training step at convae.yaml's configuration: the
     ConvAutoencoder (533,123 parameters, seeded) with the frozen full-width
@@ -1439,15 +1515,15 @@ def phase_train(asr: ASRModel, card: str) -> dict:
         raise AssertionError(f"K1 launched {launches['fused_fbank']} times in {len(walls)} micro-batches")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     # K1 against its plain version on this path's own frames (8 x 10.07 s)
-    frames = frame_signal(batch[0]).contiguous()
     fb = trainer.fbank
-    got = fused_fbank(frames, fb.dft, fb.mel, fb.dft_frag)
-    want = mel_power_plain(frames, fb.dft, fb.mel)
-    k1_err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL):
-        raise AssertionError(f"K1 disagrees with its plain twin at the train shape: max abs {k1_err}")
+    k1_err, frames = check_k1(batch[0], fb, "train")
     k1_ms = cuda_ms(lambda: fused_fbank(frames, fb.dft, fb.mel, fb.dft_frag))
     k1_plain_ms = cuda_ms(lambda: mel_power_plain(frames, fb.dft, fb.mel))
+    # the kernel line's yardstick (phase_kernels) on these frames: two torch.matmul
+    n_bins = fb.mel.shape[0]
+    spec = torch.matmul(frames, fb.dft)
+    power = spec[..., :n_bins] ** 2 + spec[..., n_bins:] ** 2
+    k1_library_ms = cuda_ms(lambda: (torch.matmul(frames, fb.dft), torch.matmul(power, fb.mel)))
     step_walls = [w for w, s in zip(walls, stepped) if s]
     cycles = [sum(walls[i:i + 3]) for i in range(0, len(walls), 3)]
     median_s = statistics.median(walls)
@@ -1463,7 +1539,8 @@ def phase_train(asr: ASRModel, card: str) -> dict:
           "ms_per_update_cycle": 1e3 * statistics.median(cycles),
           "ms_first_micro_batch": 1e3 * walls[0], "walls_ms": [1e3 * w for w in walls],
           "audio_s_per_wall_s": audio_s * len(steady) / sum(steady), "peak_mem_gib": peak_gib,
-          "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_max_abs_err": k1_err,
+          "k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms, "k1_library_ms": k1_library_ms,
+          "k1_max_abs_err": k1_err,
           "k1_rtol": K1_RTOL, "k1_atol": K1_ATOL, "k1_rows": frames.shape[0] * frames.shape[1],
           "noam_lr": trainer.noam.current_lr, "loss_terms_first": terms[0], "loss_terms_last": terms[-1],
           "seconds": time.perf_counter() - t_phase})
@@ -1795,6 +1872,234 @@ def phase_decode_parity(asr: ASRModel, lm: TransformerLM, parity_feats: dict) ->
                                  f"{same_tokens}, gap {gap}")
 
 
+# The anonymizer recipe's epoch loop at configs/convae.yaml's settings: batch
+# 3, accumulation 3 (one update an epoch of 3 micro-batches), clip 5, Noam, the
+# two-phase schedule (epoch 1: sex_classifier, epoch 2: generator), SpecAugment,
+# the normalizer updating; a valid batch after each epoch. The test set is two
+# of B3's batches (3 x 80,480 samples, beam 66, 64 steps, the LM, f32 caches,
+# default hparams): MI's k-NN estimate (k 3) needs k + 1 = 4 utterances a
+# draw, two of each sex, which one batch of 3 cannot give.
+RECIPE_BATCH = 3
+RECIPE_EPOCHS = 2
+RECIPE_MICRO_BATCHES = 3  # an epoch's
+RECIPE_TEST_BATCHES = 2
+
+
+class TimedBrain(recipe.SexAnonymizationBrain):
+    """The recipe's brain with the smoke's clocks: each micro-batch's wall and
+    each stage's start and end (ended by a synchronise), and the time the
+    train loop spends in ``save_and_keep_only`` with the meta it saved."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.walls, self.marks, self.saves, self.stage_losses = [], [], [], []
+        save = self.checkpointer.save_and_keep_only
+
+        def timed_save(meta, **kw):
+            t0 = time.perf_counter()
+            ckpt = save(meta, **kw)
+            self.saves.append((1e3 * (time.perf_counter() - t0), dict(meta)))
+            return ckpt
+
+        self.checkpointer.save_and_keep_only = timed_save
+
+    def fit_batch(self, batch, epoch):
+        t0 = time.perf_counter()
+        loss = super().fit_batch(batch, epoch)
+        torch.cuda.synchronize()
+        self.walls.append(time.perf_counter() - t0)
+        return loss
+
+    def on_stage_start(self, stage, epoch=None):
+        torch.cuda.synchronize()
+        self.marks.append((stage.name, epoch, time.perf_counter()))
+        super().on_stage_start(stage, epoch)
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        super().on_stage_end(stage, stage_loss, epoch)
+        torch.cuda.synchronize()
+        self.marks.append((stage.name, epoch, time.perf_counter()))
+        self.stage_losses.append((stage.name, epoch, stage_loss))
+
+
+def _recipe_batch(b: int, n_samples: int, seed: int, first_label: int = 0):
+    """The recipe's PaddedBatch duck type on the card: white-noise waveforms
+    at 0.1, alternating sexes from ``first_label``, seeded tokens and words."""
+    wavs, lens, _, tokens = train_batch(b, n_samples, seed, DEVICE, tokens=TRAIN_TOKENS, speech=False)
+    rng = np.random.default_rng(seed)
+    return SimpleNamespace(sig=(wavs, lens), gender=(np.arange(b) + first_label) % 2,
+                           tokens_bos=(tokens, None), id=[f"r{seed}-{i}" for i in range(b)],
+                           wrd=[" ".join(map(str, rng.integers(3, 5000, rng.integers(8, 20))))
+                                for _ in range(b)])
+
+
+def _recipe_hparams(work: Path, **extra) -> dict:
+    return {**convae_hparams(DEVICE), "train_logger": FileTrainLogger(str(work / "train_log.txt")),
+            "epoch_counter": EpochCounter(RECIPE_EPOCHS), "measure_mi": True,
+            "wer_file": str(work / "wer.txt"), **extra}
+
+
+def _saved_state(brain) -> dict:
+    ns = brain.trainer.state.norm_state
+    return {**{k: v.detach().cpu() for k, v in brain.model.state_dict().items()},
+            **{f"normalizer.{k}": getattr(ns, k).detach().cpu() for k in ns._fields}}
+
+
+def _params_of(ckpt) -> dict:
+    tree = read_tree(str(Path(ckpt.path) / "model.ckpt"))
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in anonymizer_state_dict({"params": tree}).items()}
+
+
+def phase_recipe(asr: ASRModel, lm: TransformerLM, emb: Xvector, clf: XvectorClassifier,
+                 card: str) -> dict:
+    """The port's SexAnonymizationBrain on the card: ``fit`` for RECIPE_EPOCHS
+    of RECIPE_MICRO_BATCHES micro-batches of RECIPE_BATCH x 10.07 s (the frozen
+    full-width ASR's utility, SpecAugment, masked Adam), a valid batch after
+    each epoch (the x-vector evaluator's ACC_external, the ASR encoders'
+    similarity) saving a checkpoint asynchronously, then ``evaluate(max_key=
+    "Utility_Retention")`` on B3's batches (the checkpoints averaged; WER and
+    WER_orig from beam-66 decodes with the LM at 0.6; MI_bits). Checks: finite
+    losses; both checkpoints on disk with the metas saved (and logged); a fresh
+    brain recovering the newest bit-equal to what was saved; the averaged
+    parameters bit-equal to the mean of the two saved trees in rank order;
+    ``valid_frontier`` restoring the pick's parameters and no BatchNorm
+    statistic; the test stage's launches (K1, K2, K3 > 0; K4-K7 none) and
+    finite WER, WER_orig, ACC_external and MI_bits. Returns the phase's launch
+    counts by kernel."""
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="recipe_"))
+    counters = (fused_fbank, beam_gather, attention_step, attention_step_chunked, attention_step_paged,
+                attention_step_paged_chunked, lm_megastep)
+    try:
+        bundle = ASRBundle(asr, StubTokenizer(), {**DECODE_HPARAMS, "max_decode_steps":
+                                                   DECODE_SHAPES["B3"][2]}, lm=lm)
+        ext = FeatureClassifier(emb, clf, InputNormalizer(dim=80).init_state(DEVICE))
+        ckpt_dir = str(work / "ckpts")
+        brain = TimedBrain(_recipe_hparams(work), Checkpointer(ckpt_dir, async_writes=True),
+                           external_classifier=ext, asr_bundle=bundle, device=DEVICE)
+        seeded_init_(brain.model, SEED)
+        brain.init_state()
+        train = [_recipe_batch(RECIPE_BATCH, N_SAMPLES, SEED + 30 + i) for i in range(RECIPE_MICRO_BATCHES)]
+        valid = [_recipe_batch(RECIPE_BATCH, N_SAMPLES, SEED + 40)]
+        n_test = DECODE_SHAPES["B3"][1]
+        test = [_recipe_batch(RECIPE_BATCH, n_test, SEED + 50 + i, first_label=i)
+                for i in range(RECIPE_TEST_BATCHES)]
+        decode_walls = []
+        decode = bundle._decode_test
+
+        def timed_decode(feats, lens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = decode(feats, lens)
+            torch.cuda.synchronize()
+            decode_walls.append(time.perf_counter() - t0)
+            return out
+
+        bundle._decode_test = timed_decode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        brain.fit(brain.epoch_counter, train, valid)
+        fit_s = time.perf_counter() - t0
+        losses = {f"{stage.lower()}_{epoch}": loss for stage, epoch, loss in brain.stage_losses}
+        if len(losses) != 2 * RECIPE_EPOCHS or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"recipe losses {losses}")
+        ckpts = brain.checkpointer.list_checkpoints()
+        saved = [{k: v for k, v in c.meta.items() if k != "unixtime"} for c in
+                 sorted(ckpts, key=lambda c: c.meta["epoch"])]
+        if saved != [meta for _, meta in brain.saves] or len(saved) != RECIPE_EPOCHS:
+            raise AssertionError(f"checkpoints on disk {saved}, saved {brain.saves}")
+        log_lines = (work / "train_log.txt").read_text().splitlines()
+        for line, meta in zip(log_lines, saved):
+            if f"valid ACC_external: {_format_value(meta['ACC_external'])}" not in line:
+                raise AssertionError(f"log line {line!r} does not hold the meta {meta}")
+
+        # a fresh brain recovers the newest checkpoint, bit for bit
+        fresh = recipe.SexAnonymizationBrain(_recipe_hparams(work / "fresh"), Checkpointer(ckpt_dir),
+                                             external_classifier=ext, asr_bundle=bundle, device=DEVICE)
+        fresh.init_state()
+        newest = fresh.checkpointer.recover_if_possible()
+        want, got = _saved_state(brain), _saved_state(fresh)
+        differ = [k for k in want if not torch.equal(want[k], got[k])]
+        if newest.meta["epoch"] != RECIPE_EPOCHS or differ or (
+                fresh.epoch_counter.current, fresh.noam.state_dict()) != (
+                brain.epoch_counter.current, brain.noam.state_dict()):
+            raise AssertionError(f"the recovered brain differs from the saved one: {differ[:6]}")
+
+        # valid_frontier, once: the pick's parameters, the BatchNorm statistics as they were
+        frontier = recipe.SexAnonymizationBrain(
+            _recipe_hparams(work / "frontier", eval_ckpt_select="valid_frontier"), Checkpointer(ckpt_dir),
+            external_classifier=ext, asr_bundle=bundle, device=DEVICE)
+        frontier.init_state()
+        frontier.checkpointer.recover_if_possible()
+        stats = {k: b for k, b in frontier.model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+        with torch.no_grad():
+            for b in stats.values():
+                b.mul_(2.0)
+        before = {k: b.clone() for k, b in stats.items()}
+        frontier.on_evaluate_start()
+        pick = [c for c in ckpts if c.meta["epoch"] == frontier.selected_ckpt_meta["epoch"]]
+        params = dict(frontier.model.named_parameters())
+        if (len(pick) != 1 or not all(torch.equal(params[k].cpu(), v) for k, v in _params_of(pick[0]).items())
+                or not all(torch.equal(before[k], b) for k, b in stats.items())):
+            raise AssertionError(f"valid_frontier restored other state than the pick's parameters "
+                                 f"({frontier.selected_ckpt_meta})")
+        frontier_pick = dict(frontier.selected_ckpt_meta)
+        del fresh, frontier
+
+        # the test stage, after on_evaluate_start's average of the ranked checkpoints
+        ranked = brain.checkpointer.find_checkpoints(max_key="Utility_Retention")
+        trees = [_params_of(c) for c in ranked]
+        mean = {k: functools.reduce(torch.add, (t[k] for t in trees)) / np.float32(len(trees))
+                for k in trees[0]}
+        fit_launches = {c.__name__: c.launches for c in counters}
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        brain.evaluate(test, max_key="Utility_Retention")
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = {c.__name__: c.launches for c in counters}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        params = dict(brain.model.named_parameters())
+        if not all(torch.equal(params[k].cpu(), v) for k, v in mean.items()):
+            raise AssertionError("the evaluated parameters are not the mean of the ranked checkpoints")
+        off = [k for k in ("attention_step_chunked", "attention_step_paged", "attention_step_paged_chunked",
+                           "lm_megastep") if test_launches[k]]
+        if off or not all(test_launches[k] for k in ("fused_fbank", "beam_gather", "attention_step")):
+            raise AssertionError(f"the test stage launched {test_launches}")
+        ts = brain.test_stats
+        if not all(np.isfinite(ts[k]) for k in ("WER", "WER_orig", "ACC_external", "MI_bits")):
+            raise AssertionError(f"test stats {ts}")
+        # K1 against its plain version on one train and one test batch's frames
+        # (3,024 and 1,512 rows, neither a whole number of K1's 128-row blocks)
+        k1_checks = {}
+        for where, b in (("train", train[0]), ("test", test[0])):
+            err, frames = check_k1(b.sig[0], brain.trainer.fbank, where)
+            k1_checks[where] = {"rows": frames.shape[0] * frames.shape[1], "max_abs_err": err}
+
+        epochs = [(brain.marks[i][2], brain.marks[i + 1][2]) for i in range(0, 4 * RECIPE_EPOCHS, 2)]
+        emit({"phase": "recipe", "card": card, "model": "convae", "batch": RECIPE_BATCH,
+              "samples": N_SAMPLES, "epochs": RECIPE_EPOCHS, "micro_batches": len(brain.walls),
+              "updates": brain.noam.n_steps, "test_batches": RECIPE_TEST_BATCHES, "test_samples": n_test,
+              "ms_per_micro_batch": 1e3 * statistics.median(brain.walls),
+              "micro_batch_walls_ms": [1e3 * w for w in brain.walls],
+              "epoch_walls_s": [b - a for a, b in epochs[0::2]],
+              "valid_walls_s": [b - a for a, b in epochs[1::2]],
+              "save_and_keep_only_ms": [ms for ms, _ in brain.saves], "fit_s": fit_s,
+              "test_stage_s": test_s, "test_decodes_s": decode_walls,
+              "peak_mem_gib": peak_gib, "launches_fit": fit_launches, "launches_test": test_launches,
+              "k1_checks": k1_checks, "k1_rtol": K1_RTOL, "k1_atol": K1_ATOL,
+              "losses": losses, "checkpoints": saved, "frontier_pick": frontier_pick,
+              "test_stats": ts, "seconds": time.perf_counter() - t_phase})
+        return {k: fit_launches[k] + test_launches[k] for k in fit_launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -1829,9 +2134,16 @@ def main() -> int:
     del wavs
 
     decode_launches, parity_feats = phase_decode(asr, lm, models[0], fbank, normalizer, card)
+    phase_decode_parity(asr, lm, parity_feats)
+    recipe_launches = phase_recipe(asr, lm, models[1], models[2], card)
+    k1["launches"] += recipe_launches["fused_fbank"]
+    k1["launches_by_path"]["recipe"] = recipe_launches["fused_fbank"]
     for entry in decode_kernels:
         entry["launches"] = decode_launches[entry["name"]]
-    phase_decode_parity(asr, lm, parity_feats)
+        if entry["name"] in ("beam_gather", "attention_step"):  # the recipe's test decodes: f32, physical
+            entry["launches_by_path"] = {"decode": entry["launches"],
+                                         "recipe": recipe_launches[entry["name"]]}
+            entry["launches"] += recipe_launches[entry["name"]]
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

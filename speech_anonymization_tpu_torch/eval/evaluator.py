@@ -2,8 +2,9 @@
 
 Counterpart of ``speech_anonymization_tpu/eval/evaluator.py``
 ``FeatureClassifier`` (normalize -> Xvector -> classifier over fbank
-features). Loading from a checkpoint directory belongs to a later slice; here
-it is built from modules or from converted flax variables. ``log_probs`` is
+features), built from modules, from converted flax variables, or from a
+gender-recipe checkpoint directory in the JAX package's format
+(:meth:`FeatureClassifier.from_checkpoint`). ``log_probs`` is
 the differentiable path (the JAX recipe's ``_external_log_probs``),
 ``classify_feats`` the scoring one.
 """
@@ -12,10 +13,12 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import numpy as np
 import torch
 
 from ..models.xvector import Xvector, XvectorClassifier
 from ..ops.normalization import InputNormalizer, NormalizerState
+from ..train.checkpoint import recover_trees
 from ..utils.convert import indexed_state_dict, load_numpy_state
 
 
@@ -60,6 +63,30 @@ class FeatureClassifier:
         load_numpy_state(emb, indexed_state_dict(embedding_variables))
         load_numpy_state(clf, indexed_state_dict(classifier_variables))
         return cls(emb, clf, norm_state, InputNormalizer(dim=n_mels), renormalize)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        save_dir: str,
+        emb_dim: int = 128,
+        n_mels: int = 80,
+        n_classes: int = 2,
+        min_key: str | None = "error",
+        device: str | torch.device = "cuda",
+    ) -> "FeatureClassifier":
+        """Load the frozen evaluator from a gender-recipe checkpoint directory
+        (``<save_folder>/ckpts``), the checkpoint with the least ``min_key``:
+        its ``embedding_model``, ``classifier``, ``model_state`` (both models'
+        BatchNorm statistics) and ``normalizer``. The normalizer is kept but,
+        as in the JAX package, not applied (``renormalize=False``)."""
+        trees = recover_trees(save_dir, ("embedding_model", "classifier", "model_state", "normalizer"),
+                              min_key=min_key)
+        state = trees["model_state"]
+        norm = NormalizerState(*(torch.from_numpy(np.array(trees["normalizer"][k], np.float32)).to(device)
+                                 for k in NormalizerState._fields))
+        return cls.from_flax({"params": trees["embedding_model"], **state["embedding_model"]},
+                             {"params": trees["classifier"], **state["classifier"]}, norm, n_mels,
+                             emb_dim, n_classes, device)
 
     def log_probs(self, feats: torch.Tensor, lens: torch.Tensor | None = None) -> torch.Tensor:
         """(B, T, D) fbanks -> (B, C) log-probs, differentiable in ``feats``

@@ -1,4 +1,4 @@
-"""The adversarial anonymizer: training step, inference and scoring.
+"""The adversarial anonymizer: training step, epoch loop, inference and scoring.
 
 Counterpart of ``speech_anonymization_tpu/recipes/anonymizer.py``
 (``SexAnonymizationBrain``):
@@ -14,17 +14,29 @@ Counterpart of ``speech_anonymization_tpu/recipes/anonymizer.py``
     updates by the ``adversarial_schedule`` phase: the generator's Adam on the
     non-classifier parameters, the classifier's Adam on the sex head's, or
     (``all``) the generator's Adam on every parameter; each masks, clips by
-    the global norm and takes Noam's lr;
+    the global norm and takes Noam's lr. Its ``eval_batch`` evaluates through
+    the same loss terms and total (fcae pads T to 1, the others to 36;
+    endtoend subtracts the sex and confusion terms of the external classifier);
+  * :class:`SexAnonymizationBrain`: the trainer under ``Brain.fit`` /
+    ``evaluate`` with the JAX recipe's hooks: per stage the internal ACC,
+    ACC_external (the frozen x-vector on the reconstruction), ACC_external_orig
+    (on the clean features) and Utility_Retention; at the test stage WER and
+    WER_orig (with an ASR bundle) and MI_bits (``measure_mi``); the valid
+    stage's ``train_log.txt`` line and checkpoint (top 5 by
+    Utility_Retention, ACC_external and ACC_dist, in the JAX package's
+    format); before the test stage the checkpoint average (``avg_utility``)
+    or the ``valid_frontier`` pick;
   * :func:`features`: fbank -> global normalizer -> pad T to a multiple of 36;
-  * :func:`eval_step`: the full forward, the loss terms and the weighted total
-    (the GRL sign convention: every term is added; no ASR, so utility is 0);
+  * :func:`eval_step`: the ConvAutoencoder's full forward, the loss terms and
+    the weighted total (the GRL sign convention: every term is added; no
+    ASR, so utility is 0);
   * :func:`anonymize`: fbank -> normalizer -> ``ConvAutoencoder.anonymize``,
     the composition ``bench.py`` times;
-  * :func:`evaluate_batch`: ``eval_step`` plus the scores: internal sex ACC,
-    the frozen x-vector's ACC on clean and reconstructed features, and
-    utility: with an ASR bundle (``recipes/asr_bundle.py``), the similarity
-    of the ASR encoder outputs and, at the test stage, the WER of the beam
-    decodes of both; without one, the recon-vs-clean feature cosine
+  * :func:`evaluate_batch`: ``eval_step`` plus :func:`score_batch`, the scores:
+    internal sex ACC, the frozen x-vector's ACC on clean and reconstructed
+    features, and utility: with an ASR bundle (``recipes/asr_bundle.py``), the
+    similarity of the ASR encoder outputs and, at the test stage, the WER of
+    the beam decodes of both; without one, the recon-vs-clean feature cosine
     similarity as a proxy.
 
 The trainer mirrors the JAX recipe where its behaviour is easy to "fix":
@@ -53,14 +65,21 @@ import torch.nn.functional as F
 from ..eval.evaluator import FeatureClassifier
 from ..eval.metrics import AccuracyStats, SimilarityMetricsStats
 from ..losses.basic import confusion_loss, mse_loss, nll_loss
+from ..losses.mi import GroupSamplingMI
 from ..models.autoencoders import ConvAutoencoder, FullyConnectedAutoencoder
 from ..models.cyclegan import CycleGANGenerator
 from ..models.endtoend import ConvReconstruction
 from ..ops.fbank import Fbank
 from ..ops.normalization import InputNormalizer, NormalizerState
 from ..ops.specaugment import SpecAugmentDraws
+from ..train.brain import Brain, Stage
+from ..train.checkpoint import Checkpointer, PytreeRecoverable, average_checkpoints
+from ..train.epoch_loop import EpochCounter
+from ..train.logger import FileTrainLogger
 from ..train.schedulers import NoamScheduler
 from ..train.state import TrainState, adam_like_reference, apply_updates, clip_by_global_norm, global_norm
+from ..utils.convert import (anonymizer_batch_stats, anonymizer_state_dict, anonymizer_variables,
+                             normalizer_tree)
 from .asr_bundle import ASRBundle
 
 # (recon, sex, utility, confusion): the recipe's defaults for evaluation
@@ -132,22 +151,14 @@ def cosine_similarity(recon: np.ndarray, clean: np.ndarray) -> np.ndarray:
     return num / np.maximum(den, 1e-8)
 
 
-def evaluate_batch(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormalizer,
-                   norm_state: NormalizerState, wavs: torch.Tensor, lens: torch.Tensor,
-                   labels: torch.Tensor, metrics: EvalMetrics,
-                   external_classifier: FeatureClassifier | None = None,
-                   weights: Sequence[float] = DEFAULT_WEIGHTS, epoch: int = 0,
-                   asr_bundle: ASRBundle | None = None, ids: Sequence[str] = (),
-                   words: Sequence[str] = (), stage: str = "test") -> torch.Tensor:
-    """One evaluation batch: :func:`eval_step`, then ACC, ACC_ext and utility.
-
-    With ``asr_bundle`` (whose ``start_test`` has run on ``metrics`` for the
-    test stage), utility is the bundle's: encoder similarity, and at
-    ``stage == "test"`` the WER of both decodes against ``words`` (one
-    reference string per utterance, keyed by ``ids``).
-    """
-    loss, sex_lp, recon, clean = eval_step(model, fbank, normalizer, norm_state, wavs, lens,
-                                           labels, weights, epoch)
+def score_batch(metrics: EvalMetrics, sex_lp: torch.Tensor, recon: torch.Tensor,
+                clean: torch.Tensor, labels: torch.Tensor, lens: torch.Tensor,
+                external_classifier: FeatureClassifier | None = None,
+                asr_bundle: ASRBundle | None = None, ids: Sequence[str] = (),
+                words: Sequence[str] = (), stage: str = "test") -> None:
+    """An evaluated batch into ``metrics``: the internal sex ACC, the x-vector's
+    ACC on clean and reconstructed features, and utility (the ASR bundle's, or
+    without one the feature cosine similarity)."""
     labels_np = labels.cpu().numpy()
     metrics.sex_acc.append(sex_lp.cpu().numpy(), labels_np)
     if external_classifier is not None:
@@ -160,6 +171,26 @@ def evaluate_batch(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormal
     else:
         metrics.utility_similarity.append(cosine_similarity(recon.cpu().numpy(),
                                                             clean.cpu().numpy()))
+
+
+def evaluate_batch(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormalizer,
+                   norm_state: NormalizerState, wavs: torch.Tensor, lens: torch.Tensor,
+                   labels: torch.Tensor, metrics: EvalMetrics,
+                   external_classifier: FeatureClassifier | None = None,
+                   weights: Sequence[float] = DEFAULT_WEIGHTS, epoch: int = 0,
+                   asr_bundle: ASRBundle | None = None, ids: Sequence[str] = (),
+                   words: Sequence[str] = (), stage: str = "test") -> torch.Tensor:
+    """One evaluation batch: :func:`eval_step`, then :func:`score_batch`.
+
+    With ``asr_bundle`` (whose ``start_test`` has run on ``metrics`` for the
+    test stage), utility is the bundle's: encoder similarity, and at
+    ``stage == "test"`` the WER of both decodes against ``words`` (one
+    reference string per utterance, keyed by ``ids``).
+    """
+    loss, sex_lp, recon, clean = eval_step(model, fbank, normalizer, norm_state, wavs, lens,
+                                           labels, weights, epoch)
+    score_batch(metrics, sex_lp, recon, clean, labels, lens, external_classifier, asr_bundle,
+                ids, words, stage)
     return loss
 
 
@@ -277,7 +308,8 @@ class AnonymizerTrainer:
         return clean, feats, new_norm
 
     def _loss_terms(self, batch, epoch: int, train: bool, draws: SpecAugmentDraws | None = None):
-        """-> (recon_loss, sex_loss, utility, confusion, new normalizer state)."""
+        """-> (recon_loss, sex_loss, utility, confusion, sex log-probs, recon,
+        clean features, new normalizer state)."""
         wavs, lens, labels = batch[:3]
         clean, aug, new_norm = self._features(wavs, lens, epoch, train, draws)
         recon, sex_lp = self._apply_model(aug)
@@ -287,7 +319,8 @@ class AnonymizerTrainer:
             utility = self.asr_bundle.utility_loss(clean, recon, lens, batch[3])
         else:
             utility = torch.zeros((), device=clean.device)
-        return recon_loss, nll_loss(sex_lp, labels), utility, confusion_loss(sex_lp), new_norm
+        return (recon_loss, nll_loss(sex_lp, labels), utility, confusion_loss(sex_lp), sex_lp, recon,
+                clean, new_norm)
 
     def _total(self, recon_loss, sex_loss, utility, confusion, weights: Sequence[float]):
         if self.model_type == "endtoend":
@@ -295,6 +328,16 @@ class AnonymizerTrainer:
             w_recon, w_sex, w_util, w_conf = weights
             return w_recon * recon_loss - w_sex * sex_loss + w_util * utility - w_conf * confusion
         return total_loss(recon_loss, sex_loss, utility, confusion, weights)
+
+    @torch.no_grad()
+    def eval_batch(self, batch, epoch: int, weights: Sequence[float]):
+        """One evaluation batch ``(wavs, lens, labels)`` through the train
+        step's own loss terms (frozen normalizer, eval mode, no utility term)
+        and total: -> (loss, sex log-probs, recon, clean)."""
+        self.model.eval()
+        recon_loss, sex_loss, utility, confusion, sex_lp, recon, clean, _ = self._loss_terms(
+            tuple(x.to(self.device) for x in batch[:3]), epoch, False)
+        return self._total(recon_loss, sex_loss, utility, confusion, weights), sex_lp, recon, clean
 
     # -- update ----------------------------------------------------------------------
 
@@ -305,7 +348,8 @@ class AnonymizerTrainer:
         ``all``) at ``lr``. -> the loss terms, ``loss`` and ``stepped``."""
         batch = tuple(x.to(self.device) for x in batch)
         self.model.train()
-        recon_loss, sex_loss, utility, confusion, new_norm = self._loss_terms(batch, epoch, True, draws)
+        recon_loss, sex_loss, utility, confusion, _, _, _, new_norm = self._loss_terms(
+            batch, epoch, True, draws)
         loss = self._total(recon_loss, sex_loss, utility, confusion, weights)
         names = list(self.params)
         grads = torch.autograd.grad(loss, [self.params[k] for k in names], allow_unused=True)
@@ -343,9 +387,14 @@ class AnonymizerTrainer:
 
     def fit_batch(self, batch, epoch: int, draws: SpecAugmentDraws | None = None) -> torch.Tensor:
         """One training micro-batch, ``(wavs, lens, labels[, tokens_bos])``;
-        -> its loss (a device scalar). Noam advances only on a micro-batch that
-        steps; the accumulation count is the host's, so nothing is read back."""
+        -> its loss (a device scalar). Counts ``step``, then :meth:`train_batch`."""
         self.step += 1
+        return self.train_batch(batch, epoch, draws)
+
+    def train_batch(self, batch, epoch: int, draws: SpecAugmentDraws | None = None) -> torch.Tensor:
+        """:meth:`fit_batch` at the current ``step``, which the caller has
+        counted (``Brain.fit`` does). Noam advances only on a micro-batch that
+        steps; the accumulation count is the host's, so nothing is read back."""
         phase = self._phase(epoch)
         w = phase["weights"]
         weights = [float(np.float32(w.get(k, 0.0))) for k in ("recon", "sex", "utility", "confusion")]
@@ -353,3 +402,210 @@ class AnonymizerTrainer:
         lr = self.noam() if will_step else self.noam.current_lr
         self.metrics = self.update(batch, lr, epoch, weights, phase.get("train", "all"), draws)
         return self.metrics["loss"]
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """A nested map -> {"a/b/c": leaf}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+class SexAnonymizationBrain(Brain):
+    """The anonymizer recipe's epoch loop: :class:`AnonymizerTrainer`'s step
+    under ``Brain.fit`` / ``evaluate``, with the JAX recipe's hooks.
+
+    ``hparams`` holds :class:`AnonymizerTrainer`'s keys and ``train_logger`` (a
+    ``FileTrainLogger``), ``epoch_counter`` (an ``EpochCounter``), the
+    evaluation weights (the top-level ``*_loss_weight`` keys), ``measure_mi``
+    and ``mi_iterations``, ``wer_file``, ``eval_ckpt_select`` (``avg_utility``
+    or ``valid_frontier``) and ``eval_ckpt_min_utility``. A batch is the JAX
+    recipe's ``PaddedBatch`` duck type: ``.sig = (wavs, lens)``, ``.gender``,
+    ``.id``, ``.wrd`` and, for the utility term, ``.tokens_bos = (tokens, lens)``.
+    Call :meth:`init_state` before a checkpointer saves or recovers.
+    """
+
+    def __init__(self, hparams: dict, checkpointer: Checkpointer | None = None,
+                 external_classifier: FeatureClassifier | None = None,
+                 asr_bundle: ASRBundle | None = None, device: str | torch.device = "cuda"):
+        self.trainer = AnonymizerTrainer(hparams, external_classifier, asr_bundle, device)
+        super().__init__(hparams, checkpointer, hparams.get("ckpt_interval_minutes"))
+        self.device = self.trainer.device
+        self.model = self.trainer.model
+        self.noam = self.trainer.noam
+        self.external_classifier = external_classifier
+        self.asr_bundle = asr_bundle
+        self.train_logger: FileTrainLogger = hparams["train_logger"]
+        self.epoch_counter: EpochCounter = hparams["epoch_counter"]
+        self.metrics = EvalMetrics()
+        self._mi_feats: list = []
+        self._mi_labels: list = []
+
+    @property
+    def step(self) -> int:
+        """The trainer's micro-batch count, which its schedule reads."""
+        return self.trainer.step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self.trainer.step = value
+
+    # -- state ---------------------------------------------------------------------
+
+    def init_state(self) -> None:
+        """Register the recoverables under the JAX recipe's names, in its
+        trees: ``model`` (the params), ``model_state`` (``{"batch_stats": ...}``,
+        empty for endtoend), ``normalizer``, ``counter``, ``noam_scheduler``.
+        No optimizer state is saved: a resumed run starts Adam afresh."""
+        if self.checkpointer is None:
+            return
+        self.checkpointer.add_recoverable("model", PytreeRecoverable(self._params_tree,
+                                                                      self._set_params))
+        self.checkpointer.add_recoverable("model_state", PytreeRecoverable(self._model_state,
+                                                                            self._set_model_state))
+        self.checkpointer.add_recoverable("normalizer", PytreeRecoverable(
+            lambda: normalizer_tree(self.trainer.state.norm_state), self._set_normalizer))
+        self.checkpointer.add_recoverable("counter", self.epoch_counter)
+        self.checkpointer.add_recoverable("noam_scheduler", self.noam)
+
+    def _params_tree(self) -> dict:
+        """The parameters as the JAX recipe's ``model`` tree."""
+        return anonymizer_variables(self.model)["params"]
+
+    @torch.no_grad()
+    def _copy_into(self, targets: dict, state: dict) -> None:
+        if set(targets) != set(state):
+            raise KeyError(f"checkpoint and model disagree on {sorted(set(targets) ^ set(state))[:8]}")
+        for k, v in state.items():
+            targets[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+
+    def _set_params(self, params: dict) -> None:
+        self._copy_into(dict(self.model.named_parameters()),
+                        anonymizer_state_dict({"params": params}))
+
+    def _model_state(self) -> dict:
+        """The BatchNorm statistics as the JAX recipe's ``model_state`` tree."""
+        stats = anonymizer_batch_stats(self.model)
+        return {"batch_stats": stats} if stats else {}
+
+    def _set_model_state(self, model_state: dict) -> None:
+        self._copy_into(_flat(anonymizer_batch_stats(self.model)),
+                        _flat(model_state.get("batch_stats", {})))
+
+    def _set_normalizer(self, tree: dict) -> None:
+        self.trainer.state.norm_state = NormalizerState(
+            *(torch.from_numpy(np.array(tree[k], np.float32)).to(self.device)
+              for k in NormalizerState._fields))
+
+    # -- batches -------------------------------------------------------------------
+
+    def _device_batch(self, batch) -> tuple:
+        wavs, lens = batch.sig
+        out = (torch.as_tensor(wavs, dtype=torch.float32, device=self.device),
+               torch.as_tensor(lens, dtype=torch.float32, device=self.device),
+               torch.as_tensor(np.asarray(batch.gender), dtype=torch.int64, device=self.device))
+        if self.asr_bundle is not None and hasattr(batch, "tokens_bos"):
+            out += (torch.as_tensor(batch.tokens_bos[0], dtype=torch.int64, device=self.device),)
+        return out
+
+    def fit_batch(self, batch, epoch: int) -> torch.Tensor:
+        return self.trainer.train_batch(self._device_batch(batch), epoch)
+
+    def evaluate_batch(self, batch, stage: Stage) -> torch.Tensor:
+        db = self._device_batch(batch)
+        weights = [float(np.float32(self.hparams.get(k, d))) for k, d in (
+            ("recon_loss_weight", 1.0), ("sex_loss_weight", 0.0), ("utility_loss_weight", 0.0),
+            ("confusion_loss_weight", 0.0))]
+        loss, sex_lp, recon, clean = self.trainer.eval_batch(db, self.epoch_counter.current, weights)
+        if stage == Stage.TEST and self.hparams.get("measure_mi"):
+            # the time-mean of the reconstruction, pooled for the test-set MI
+            self._mi_feats.append(recon.cpu().numpy().mean(axis=1))
+            self._mi_labels.append(db[2].cpu().numpy())
+        score_batch(self.metrics, sex_lp, recon, clean, db[2], db[1], self.external_classifier,
+                    self.asr_bundle, getattr(batch, "id", ()), getattr(batch, "wrd", ()),
+                    "test" if stage == Stage.TEST else "valid")
+        return loss
+
+    # -- hooks ---------------------------------------------------------------------
+
+    def on_stage_start(self, stage: Stage, epoch: int | None = None) -> None:
+        if stage != Stage.TRAIN:
+            self.metrics = EvalMetrics()
+            self._mi_feats, self._mi_labels = [], []
+            if stage == Stage.TEST and self.asr_bundle is not None:
+                self.asr_bundle.start_test(self.metrics)
+
+    def on_stage_end(self, stage: Stage, stage_loss: float, epoch: int | None = None) -> None:
+        if stage == Stage.TRAIN:
+            return
+        m = self.metrics
+        stats = {
+            "loss": stage_loss,
+            "ACC": m.sex_acc.summarize(),
+            "ACC_external": m.sex_acc_extern.summarize(),
+            "ACC_external_orig": m.sex_acc_extern_orig.summarize(),
+            "Utility_Retention": m.utility_similarity.summarize(),
+        }
+        if stage == Stage.VALID:
+            self.train_logger.log_stats(
+                {"epoch": epoch, "lr": self.noam.current_lr, "steps": self.noam.n_steps,
+                 "optimizer": "Adam"},
+                train_stats=self.train_stats, valid_stats=stats)
+            if self.checkpointer is not None:
+                self.checkpointer.save_and_keep_only(
+                    {"ACC_external": stats["ACC_external"],
+                     # closest to chance: min-ACC retention alone can prune the
+                     # epochs nearest 0.5 that valid_frontier selection wants
+                     "ACC_dist": abs(stats["ACC_external"] - 0.5),
+                     "Utility_Retention": stats["Utility_Retention"], "epoch": epoch},
+                    max_keys=["Utility_Retention"], min_keys=["ACC_external", "ACC_dist"],
+                    num_to_keep=5)
+        else:
+            if self.asr_bundle is not None:
+                stats["WER"] = self.asr_bundle.finish_test(m, self.hparams.get("wer_file"))
+                if getattr(m, "wer_metric2", None) and m.wer_metric2.utts:
+                    stats["WER_orig"] = m.wer_metric2.summarize("error_rate")
+            if self.hparams.get("measure_mi") and self._mi_feats:
+                x = np.concatenate(self._mi_feats)
+                y = np.concatenate(self._mi_labels)
+                n_per = min(int(np.sum(y == 0)), int(np.sum(y == 1)))
+                gs = GroupSamplingMI(n_samples=n_per, n_classes=2,
+                                     n_iterations=int(self.hparams.get("mi_iterations", 20)))
+                _, mi_mean, _ = gs(torch.from_numpy(x).to(self.device), y, y, seed=0)
+                stats["MI_bits"] = float(mi_mean)
+            self.train_logger.log_stats({"Epoch loaded": self.epoch_counter.current}, test_stats=stats)
+            self.test_stats = stats
+
+    def on_evaluate_start(self, max_key: str | None = None, min_key: str | None = None) -> None:
+        """Checkpoint selection before the test stage. ``avg_utility`` (the
+        default): the parameters averaged over the checkpoints ranked by the
+        key. ``valid_frontier``: the one checkpoint, among those with
+        Utility_Retention >= ``eval_ckpt_min_utility`` (0.85; else the most
+        useful), whose valid ACC_external is nearest chance (ties: the higher
+        utility); its parameters only, not its BatchNorm statistics, as the
+        JAX recipe restores them."""
+        if self.checkpointer is None:
+            return
+        template = self._params_tree()
+        if str(self.hparams.get("eval_ckpt_select", "avg_utility")) == "valid_frontier":
+            scored = [c for c in self.checkpointer.find_checkpoints()
+                      if "ACC_external" in c.meta and "Utility_Retention" in c.meta]
+            if scored:
+                min_util = float(self.hparams.get("eval_ckpt_min_utility", 0.85))
+                ok = [c for c in scored if c.meta["Utility_Retention"] >= min_util]
+                pool = ok or [max(scored, key=lambda c: c.meta["Utility_Retention"])]
+                pick = min(pool, key=lambda c: (abs(c.meta["ACC_external"] - 0.5),
+                                                -c.meta["Utility_Retention"]))
+                self.selected_ckpt_meta = {**pick.meta, "pool_n": len(pool), "kept_n": len(scored)}
+                print(f"[eval_ckpt_select=valid_frontier] epoch {pick.meta.get('epoch')}: valid "
+                      f"ACC_external={pick.meta['ACC_external']:.3f} "
+                      f"Utility={pick.meta['Utility_Retention']:.3f}")
+                self._set_params(average_checkpoints([pick], "model", template))
+                return
+        ckpts = self.checkpointer.find_checkpoints(max_key=max_key, min_key=min_key)
+        if ckpts:
+            self._set_params(average_checkpoints(ckpts, "model", template))

@@ -24,8 +24,9 @@ cache pages under the same rule with the LM's own width; its stacked K7
 weights are made once, here, and a fused paged LM cache on the card (U above
 ``max_u_whole_row``, page 64) runs each LM step as one K7 launch, in bf16
 arithmetic as the JAX package does on its accelerator (``decode_lm_megastep:
-false`` keeps the per-layer K6 path). The LM is a built module: loading its
-checkpoint is not ported.
+false`` keeps the per-layer K6 path). :func:`load_asr_bundle` and
+:func:`load_lm` build the bundle and its LM from the asr_train and lm_train
+recipes' checkpoint directories, in the JAX package's format.
 
 ``decode_cache_dtype`` is ``float32`` (the default), ``bfloat16`` or ``int8``
 (the JAX package's quantized serving mode: int8 codes with a scale per
@@ -37,6 +38,8 @@ fused page-64 cache (the LM's step one K7 launch) or K4 with K2.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -45,6 +48,8 @@ from ..eval.wer import ErrorRateStats
 from ..losses import cosine_similarity_loss, mse_loss
 from ..models.asr import ASRModel
 from ..models.transformer import TransformerLM, beam_reorder_cache, make_kv_cache, use_paged_cache
+from ..train.checkpoint import recover_trees
+from ..utils.convert import asr_state_dict, load_numpy_state, lm_state_dict
 
 _CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
@@ -170,3 +175,39 @@ class ASRBundle:
             with open(wer_file, "w") as f:
                 metrics.wer_metric.write_stats(f)
         return metrics.wer_metric.summarize("error_rate")
+
+
+def load_lm(hparams: dict, device: str | torch.device = "cuda") -> TransformerLM | None:
+    """The shallow-fusion LM from an lm_train checkpoint directory
+    (``lm_checkpoint_dir``; the checkpoint with the least ``loss``), at the
+    hparams' widths (``output_neurons``, ``lm_d_model``, ``lm_nhead``,
+    ``lm_num_layers``, ``lm_d_ffn``); None when the directory is unset or absent."""
+    lm_dir = hparams.get("lm_checkpoint_dir")
+    if not lm_dir or not os.path.isdir(lm_dir):
+        return None
+    lm = TransformerLM(vocab=int(hparams.get("output_neurons", 5000)),
+                       d_model=int(hparams.get("lm_d_model", 768)), nhead=int(hparams.get("lm_nhead", 12)),
+                       num_layers=int(hparams.get("lm_num_layers", 12)),
+                       d_ffn=int(hparams.get("lm_d_ffn", 3072)), device=device)
+    params = recover_trees(lm_dir, ("model",), min_key="loss")["model"]
+    return load_numpy_state(lm, lm_state_dict({"params": params}))
+
+
+def load_asr_bundle(hparams: dict, tokenizer, device: str | torch.device = "cuda") -> ASRBundle | None:
+    """The frozen bundle from an asr_train checkpoint directory
+    (``asr_checkpoint_dir``; the checkpoint with the greatest ``ACC``), at the
+    hparams' widths, with the LM of ``lm_checkpoint_dir`` attached when set;
+    None when the directory is unset or absent."""
+    ckpt_dir = hparams.get("asr_checkpoint_dir")
+    if not ckpt_dir or not os.path.isdir(ckpt_dir):
+        return None
+    model = ASRModel(input_feats=int(hparams.get("n_mels", 80)), d_model=int(hparams.get("d_model", 768)),
+                     nhead=int(hparams.get("nhead", 8)),
+                     num_encoder_layers=int(hparams.get("num_encoder_layers", 12)),
+                     num_decoder_layers=int(hparams.get("num_decoder_layers", 6)),
+                     d_ffn=int(hparams.get("d_ffn", 3072)),
+                     output_neurons=int(hparams.get("output_neurons", 5000)), device=device)
+    params = recover_trees(ckpt_dir, ("model",), max_key="ACC")["model"]
+    load_numpy_state(model, asr_state_dict({"params": params}))
+    return ASRBundle(model, tokenizer, hparams, hparams.get("utility_loss_kind", "mse"),
+                     lm=load_lm(hparams, device))

@@ -38,20 +38,21 @@ K3_CASES = [(dtype, shape, u, step, nhead)
             for shape, u, step in shapes for nhead in (8, 12)]
 
 
-def k3_inputs(case, gen, device="cuda"):
-    """(q, kh, vh, mask, ck, cv, ks, vs) of a case; ks and vs None but int8."""
+def k3_inputs(case, gen, device="cuda", n: int = N):
+    """(q, kh, vh, mask, ck, cv, ks, vs) of a case at n rows (default N); ks
+    and vs None but int8."""
     import torch
 
     dtype, _, u, step, _ = case
-    q, kh, vh = (torch.randn(N, M, generator=gen, device=device) for _ in range(3))
-    mask = torch.rand(N, u, generator=gen, device=device) > 0.2
+    q, kh, vh = (torch.randn(n, M, generator=gen, device=device) for _ in range(3))
+    mask = torch.rand(n, u, generator=gen, device=device) > 0.2
     mask[:, 0] = True
     mask[0::2, step] = True
     mask[1::2, step] = False
     if dtype != "int8":
         caches = []
         for _ in range(2):
-            c = torch.randn(LAYERS, N, u, M, generator=gen, device=device).to(getattr(torch, dtype))
+            c = torch.randn(LAYERS, n, u, M, generator=gen, device=device).to(getattr(torch, dtype))
             c[:, :, step + 1:] = float("nan")
             c[:, :, step + 2:, ::5] = float("inf")
             caches.append(c)
@@ -62,11 +63,11 @@ def k3_inputs(case, gen, device="cuda"):
     hidden[:, step:] = True
     out = []
     for _ in range(2):
-        codes = torch.empty(LAYERS, N, u, M, dtype=torch.int8, device=device)
-        scales = torch.empty(LAYERS, N, u, device=device)
+        codes = torch.empty(LAYERS, n, u, M, dtype=torch.int8, device=device)
+        scales = torch.empty(LAYERS, n, u, device=device)
         for layer in range(LAYERS):
             codes[layer], scales[layer] = quantize_rows(
-                torch.randn(N, u, M, generator=gen, device=device))
+                torch.randn(n, u, M, generator=gen, device=device))
         codes[:, hidden] = -128
         scales[:, hidden] = float("nan")
         out.append((codes, scales))

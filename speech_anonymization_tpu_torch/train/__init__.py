@@ -9,3 +9,8 @@ from .state import (
     global_norm,
     sgd_like_reference,
 )
+from .epoch_loop import EpochCounter
+from .logger import FileTrainLogger
+from .checkpoint import Checkpointer, PytreeRecoverable, average_checkpoints
+from .experiment import create_experiment_directory
+from .brain import Brain, Stage

@@ -22,7 +22,15 @@ a 4-D flax Conv kernel (kh, kw, in, out) becomes a Conv2d weight (out, in, kh,
 kw). A tree without ``batch_stats`` (an optimizer's moments, laid out as the
 params) converts to the parameters alone.
 
-and, for the ASR model (:func:`asr_state_dict`) and the LM (:func:`lm_state_dict`):
+:func:`anonymizer_variables` is the inverse, for checkpoints in the JAX
+package's format: a port anonymizer -> ``{"params", "batch_stats"}`` in
+flax's names and layouts (``batch_stats`` only where the family has
+BatchNorm, as flax's init gives; :func:`anonymizer_batch_stats` those
+alone), and :func:`normalizer_tree` the normalizer state as flax serializes
+its ``NormalizerState`` named tuple. Their leaves are torch tensors that view
+the model's own.
+
+And, for the ASR model (:func:`asr_state_dict`) and the LM (:func:`lm_state_dict`):
 
   flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
   DenseGeneral q/k/v kernel (D, H, Dh), bias (H, Dh) -> Linear (H*Dh, D), (H*Dh,)
@@ -227,6 +235,85 @@ def lm_state_dict(variables: Mapping) -> dict:
         else:
             raise KeyError(f"no conversion rule for flax layer {name!r}")
     return out
+
+
+def _leaf_to_flax(m: nn.Module, params: bool = True) -> tuple[dict, dict | None]:
+    """One layer -> (flax params, flax batch stats or None), as views of the
+    layer's own tensors (detached; the ConvTranspose kernel's flip is a new
+    tensor); the inverses of the ``*_from_flax`` rules above. A 1-D conv is
+    the JAX package's ``Conv1dTorch`` (a flax ``Conv`` inside), a transposed
+    one its ``ConvTranspose1dTorch``. ``params=False`` gives the statistics
+    alone (params ``{}``)."""
+    if isinstance(m, nn.BatchNorm1d):
+        return ({"scale": m.weight.detach(), "bias": m.bias.detach()} if params else {},
+                {"mean": m.running_mean.detach(), "var": m.running_var.detach()})
+    if isinstance(m, _STATELESS):
+        if not params:
+            return {}, None
+        w = m.weight.detach()
+        if isinstance(m, nn.Linear):
+            return {"kernel": w.T, "bias": m.bias.detach()}, None
+        if isinstance(m, nn.Conv1d):
+            return {"Conv_0": {"kernel": w.permute(2, 1, 0), "bias": m.bias.detach()}}, None
+        if isinstance(m, nn.Conv2d):
+            return {"kernel": w.permute(2, 3, 1, 0), "bias": m.bias.detach()}, None
+        if isinstance(m, nn.ConvTranspose1d):
+            return {"ConvTranspose_0": {"kernel": w.permute(2, 0, 1).flip(0), "bias": m.bias.detach()}}, None
+        return {"scale": w, "bias": m.bias.detach()}, None  # InstanceNorm
+    return _module_to_flax(m, params)
+
+
+# layers without batch statistics
+_STATELESS = (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.InstanceNorm1d, nn.InstanceNorm2d)
+# an indexed layer's flax name by its port type (``_indexed_layers``' inverse)
+_FLAX_KIND = ((nn.Linear, "Dense"), (nn.Conv1d, "Conv1dTorch"), (nn.Conv2d, "Conv"),
+              (nn.BatchNorm1d, "BatchNorm"), ((nn.InstanceNorm1d, nn.InstanceNorm2d), "InstanceNorm"))
+
+
+def _module_to_flax(module: nn.Module, params: bool = True) -> tuple[dict, dict]:
+    """A container of layers -> (params, batch_stats) with flax's names:
+    ``convs.i`` / ``norms.i`` / ``dense.i`` by layer type and index, ``down.i``
+    -> ``DownSampleGenerator_i``, ``up`` -> ``ConvTranspose1dTorch_0``; named
+    children (the ConvAutoencoder's, ``sex_classifier``, ``sex_head_proj``)
+    keep their names."""
+    tree: dict = {}
+    stats: dict = {}
+    for name, child in module.named_children():
+        if isinstance(child, nn.ModuleList):
+            named = []
+            for i, layer in enumerate(child):
+                kind = next((k for t, k in _FLAX_KIND if isinstance(layer, t)), "DownSampleGenerator")
+                named.append((f"{kind}_{i}", layer))
+        else:
+            named = [("ConvTranspose1dTorch_0" if name == "up" else name, child)]
+        for flax_name, layer in named:
+            p, s = _leaf_to_flax(layer, params)
+            if params:
+                tree[flax_name] = p
+            if s:
+                stats[flax_name] = s
+    return tree, stats
+
+
+def anonymizer_variables(model: nn.Module) -> dict:
+    """A port anonymizer (any family) -> its flax variables, as views of the
+    model's tensors (a checkpoint's snapshot copies them):
+    :func:`anonymizer_state_dict`'s inverse."""
+    params, stats = _module_to_flax(model)
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def anonymizer_batch_stats(model: nn.Module) -> dict:
+    """The ``batch_stats`` tree of :func:`anonymizer_variables` alone (``{}``
+    for a family without BatchNorm): views of the running statistics."""
+    return _module_to_flax(model, params=False)[1]
+
+
+def normalizer_tree(state) -> dict:
+    """A ``NormalizerState`` -> the map flax writes for the JAX package's
+    named tuple (views of the state's tensors)."""
+    return {"count": state.count.detach(), "glob_mean": state.glob_mean.detach(),
+            "glob_std": state.glob_std.detach()}
 
 
 def load_numpy_state(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:

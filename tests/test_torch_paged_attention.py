@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_port_helpers  # noqa: F401  (caps torch's threads)
+
 from speech_anonymization_tpu.models.transformer import (
     MultiHeadAttention,
     _make_attends_paged_jnp,

@@ -1,11 +1,20 @@
 """Shared fixtures of the PyTorch port's parity tests: seeded numpy inputs and
-flax variables with every normalization parameter moved off its init value."""
+flax variables with every normalization parameter moved off its init value.
+
+Importing this module caps torch's intra-op threads at 1 in the process: the
+suite runs several worker processes on one host, and each worker's torch
+would otherwise start a thread per core."""
 
 from __future__ import annotations
 
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
+
+torch.set_num_threads(1)
 
 
 def to_numpy(tree):
@@ -42,3 +51,28 @@ def rand_wav(batch: int, n: int, seed: int) -> np.ndarray:
 def t(x) -> torch.Tensor:
     """A writable CPU tensor copy of ``x``."""
     return torch.from_numpy(np.array(x))
+
+
+def random_variables(init, *args, seed: int, **kwargs):
+    """Flax variables of ``init(*args, **kwargs)``'s shapes, traced (not
+    compiled: flax's init compiles its whole graph, seconds for a full model)
+    and filled from ``seed``: weights ~ N(0, 0.1^2), then :func:`perturbed`'s
+    norm parameters and statistics."""
+    shapes = jax.eval_shape(functools.partial(init, **kwargs), *args)
+    rng = np.random.default_rng(seed)
+    filled = jax.tree_util.tree_map(
+        lambda s: (0.1 * rng.standard_normal(s.shape)).astype(s.dtype), shapes)
+    return perturbed(filled, seed)
+
+
+def shape_init(cls):
+    """``cls`` with an ``init`` that returns zeros of its variables' shapes,
+    traced, not compiled. For a JAX loader whose template is overwritten
+    from a checkpoint: the load is what is under test, not the init."""
+
+    class ShapeInit(cls):
+        def init(self, *args, **kwargs):
+            shapes = jax.eval_shape(functools.partial(super().init, **kwargs), *args)
+            return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), shapes)
+
+    return ShapeInit
