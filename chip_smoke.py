@@ -160,7 +160,27 @@ failure raises and exits non-zero:
            and 1,512 rows, each ending in a part block). Reports ms per
            micro-batch, the epoch and valid walls, the ms the loop spends in
            ``save_and_keep_only``, the test stage's wall and its decodes',
-           peak memory and the stats.
+           peak memory and the stats;
+  main     the recipe's entry point, ``recipes/anonymizer.py`` ``main(argv)``,
+           on configs/convae.yaml at full width (the ConvAutoencoder, the
+           frozen ASRModel() and TransformerLM() and the x-vector evaluator,
+           this run's seeded models written as checkpoints in the JAX
+           package's format by the port's Checkpointer) over a corpus on disk
+           (data/synth.py build_corpus: 18 train and 6 test utterances of
+           ~10 s, WAV, the test split as valid too) with a tokenizer trained
+           on its transcripts: 2 epochs (one of each schedule phase, 6
+           micro-batches of 3 each, the utility 0.2 through the frozen ASR in
+           the generator's), then the same argv with ``--eval_only``; the test
+           decodes stop at MAIN_DECODE_STEPS (N 198, physical). Checks: K1,
+           K2, K3 launched through main(), K4-K7 not; K1 against its plain
+           version on a train batch's frames; the eval-only run's recovered
+           and averaged parameters bit-equal to the first run's and its ACC
+           stats equal; the run's files and the checkpoints' metas. Reports
+           stage walls, the micro-batch median, the loader's ms a batch and its
+           share of the train stage, which audio reader served, each run's
+           peak memory (the first run's brain dropped before the second),
+           the launches, the ConvAutoencoder's reconstruction gap with TF32
+           on against off (one batch) and the test stats.
 
 Then the whole run's wall time (``{"phase": "wall", ...}``), the card's name
 and power limit (nvidia-smi), the kernel table as one JSON object, and last
@@ -175,6 +195,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import gc
 import json
 import re
 import shutil
@@ -193,6 +214,9 @@ import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
+from speech_anonymization_tpu_torch.data import audio  # noqa: E402
+from speech_anonymization_tpu_torch.data.synth import build_corpus  # noqa: E402
+from speech_anonymization_tpu_torch.data.tokenizer import UnigramTokenizer  # noqa: E402
 from speech_anonymization_tpu_torch.decoding import hyps_to_lists  # noqa: E402
 from speech_anonymization_tpu_torch.eval.evaluator import FeatureClassifier  # noqa: E402
 from speech_anonymization_tpu_torch.models import (  # noqa: E402
@@ -242,12 +266,18 @@ from speech_anonymization_tpu_torch.tools.train_parity import (  # noqa: E402
     convae_hparams,
     train_batch,
 )
-from speech_anonymization_tpu_torch.train.checkpoint import Checkpointer, read_tree  # noqa: E402
+from speech_anonymization_tpu_torch.train.checkpoint import Checkpointer, PytreeRecoverable, read_tree  # noqa: E402
 from speech_anonymization_tpu_torch.train.epoch_loop import EpochCounter  # noqa: E402
 from speech_anonymization_tpu_torch.train.logger import FileTrainLogger, _format_value  # noqa: E402
 from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler  # noqa: E402
 from speech_anonymization_tpu_torch.utils import cuda_build  # noqa: E402
-from speech_anonymization_tpu_torch.utils.convert import anonymizer_state_dict  # noqa: E402
+from speech_anonymization_tpu_torch.utils.convert import (  # noqa: E402
+    anonymizer_state_dict,
+    asr_variables,
+    lm_variables,
+    normalizer_tree,
+    xvector_variables,
+)
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_  # noqa: E402
 
 DEVICE = "cuda"
@@ -2100,6 +2130,254 @@ def phase_recipe(asr: ASRModel, lm: TransformerLM, emb: Xvector, clf: XvectorCla
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phase main: the recipe's entry point, recipes/anonymizer.py main(), on a
+# corpus on disk. build_corpus's synthetic LibriSpeech at words_per_utt 24
+# (~10 s an utterance): MAIN_SPEAKERS train and test speakers of each sex,
+# MAIN_UTTS utterances each, so 18 train utterances (6 micro-batches of 3 an
+# epoch at convae.yaml's batch 3 and accumulation 3) and 6 test ones (2 batches
+# of 3), the test split serving as valid too. The frozen ASR, LM and x-vector
+# are this run's seeded full-width models, written as checkpoints in the JAX
+# package's format; the tokenizer is trained on the train transcripts. The test
+# decodes stop at MAIN_DECODE_STEPS (beam 66, N 198: the physical path, K3 +
+# K2, as in phase recipe's B3).
+MAIN_SPEAKERS = (3, 1)
+MAIN_UTTS = 3
+MAIN_WORDS = 24
+MAIN_EPOCHS = 2
+MAIN_DECODE_STEPS = 64
+MAIN_COUNTERS = ("fused_fbank", "beam_gather", "attention_step", "attention_step_chunked",
+                 "attention_step_paged", "attention_step_paged_chunked", "lm_megastep")
+
+
+class TimedLoader:
+    """A loader whose batches are timed as they are drawn (the host's wall
+    from asking for a batch to having it); it keeps the first batch."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.draws: list[float] = []
+        self.first = None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+
+    def state_dict(self):
+        return self.loader.state_dict()
+
+    def load_state_dict(self, d) -> None:
+        self.loader.load_state_dict(d)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.draws.append(time.perf_counter() - t0)
+            if self.first is None:
+                self.first = batch
+            yield batch
+
+
+def _write_frozen(work: Path, asr: ASRModel, lm: TransformerLM, emb: Xvector,
+                  clf: XvectorClassifier) -> dict:
+    """The frozen models' checkpoint directories in the JAX package's format,
+    written by the port's own Checkpointer: the ASR's ``model`` (meta ACC), the
+    LM's (meta loss) and the x-vector evaluator's ``embedding_model``,
+    ``classifier``, ``model_state`` and ``normalizer`` (meta error)."""
+    def save(name: str, trees: dict, meta: dict) -> str:
+        ckpt = Checkpointer(str(work / name / "ckpts"))
+        for key, tree in trees.items():
+            ckpt.add_recoverable(key, PytreeRecoverable(lambda tree=tree: tree, lambda _: None))
+        ckpt.save_checkpoint(meta)
+        return ckpt.checkpoints_dir
+
+    ev, cv = xvector_variables(emb), xvector_variables(clf)
+    return {
+        "asr_checkpoint_dir": save("asr", {"model": asr_variables(asr)["params"]}, {"ACC": 0.5}),
+        "lm_checkpoint_dir": save("lm", {"model": lm_variables(lm)["params"]}, {"loss": 1.0}),
+        "external_classifier_dir": save("xvector", {
+            "embedding_model": ev["params"], "classifier": cv["params"],
+            "model_state": {"embedding_model": {"batch_stats": ev["batch_stats"]},
+                            "classifier": {"batch_stats": cv["batch_stats"]}},
+            "normalizer": normalizer_tree(InputNormalizer(dim=80).init_state(DEVICE))}, {"error": 0.5}),
+    }
+
+
+def _main_argv(root: Path, out: Path, dirs: dict) -> list[str]:
+    args = {"data_folder": str(root), "train_splits": '["train-clean"]', "dev_splits": '["test-clean"]',
+            "test_splits": '["test-clean"]', "train_csv": str(root / "train.csv"),
+            "valid_csv": str(root / "test-clean.csv"), "test_csv": f'["{root / "test-clean.csv"}"]',
+            "output_folder": str(out), "save_folder": str(out / "save"),
+            "train_log": str(out / "train_log.txt"), "number_of_epochs": str(MAIN_EPOCHS),
+            "max_decode_steps": str(MAIN_DECODE_STEPS), **dirs, "device": DEVICE}
+    argv = [str(Path(__file__).resolve().parent / "configs" / "convae.yaml")]
+    for k, v in args.items():
+        argv += [f"--{k}", v]
+    return argv
+
+
+def _main_first_run_checks(brain: TimedBrain, batch) -> tuple[float, int, float, float]:
+    """On the first ``main()`` run's brain and first train batch: K1 against
+    its plain version on the batch's frames, and the ConvAutoencoder's
+    reconstruction with TF32 on against off. -> (K1's max abs error, its rows,
+    the TF32 gap's max abs, the reconstruction's max abs)."""
+    wavs = torch.as_tensor(batch.sig[0], device=DEVICE)
+    k1_err, frames = check_k1(wavs, brain.trainer.fbank, "main train")
+    lens = torch.as_tensor(batch.sig[1], device=DEVICE)
+    feats, _ = recipe.features(brain.trainer.fbank, brain.trainer.normalizer,
+                               brain.trainer.state.norm_state, wavs, lens)
+    recons = {}
+    with torch.no_grad():
+        for tf32 in (False, True):
+            recipe.set_tf32(tf32)
+            recons[tf32] = brain.model.eval()(feats)[0]
+        recipe.set_tf32(False)
+    gap = float((recons[True] - recons[False]).abs().max())
+    return k1_err, frames.shape[0] * frames.shape[1], gap, float(recons[False].abs().max())
+
+
+def phase_main(asr: ASRModel, lm: TransformerLM, emb: Xvector, clf: XvectorClassifier, card: str) -> dict:
+    """The port's ``main()`` on the card at convae.yaml's full width: a corpus on
+    disk (build_corpus), a tokenizer trained on it, the frozen models'
+    checkpoints, then ``main(argv)`` for MAIN_EPOCHS epochs (one of each schedule
+    phase; utility 0.2 through the frozen ASR in the generator's) and the same
+    argv with ``--eval_only``. Checks: K1, K2 and K3 launched through main(), no
+    K4-K7; K1 against its plain version on a train batch's frames; the eval-only
+    run's recovered and averaged parameters bit-equal to the first run's, and its
+    ACC stats equal; the run's files (train_log.txt, wer_test-clean.txt,
+    hyperparams.yaml, env.log) and the checkpoints' metas. Reports stage walls,
+    the micro-batch median, the loader's ms a batch and share of the epoch, the
+    audio reader that served (its decodes counted by wrapping the port's
+    ``audio`` module for the phase), each run's peak memory, the launches, the
+    ConvAutoencoder's reconstruction gap with TF32 on against off on one batch,
+    and the test stats. Returns the launches by kernel over both runs."""
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="main_"))
+    counters = {c.__name__: c for c in (fused_fbank, beam_gather, attention_step, attention_step_chunked,
+                                        attention_step_paged, attention_step_paged_chunked, lm_megastep)}
+    make_loaders, brain_cls = recipe.make_loaders, recipe.SexAnonymizationBrain
+    native_lib, read_wav_numpy = audio._native_lib, audio._read_wav_numpy
+    try:
+        root, out = work / "LibriSpeech", work / "out"
+        t0 = time.perf_counter()
+        _, audio_s = build_corpus(str(root), n_train_spk=MAIN_SPEAKERS[0], n_test_spk=MAIN_SPEAKERS[1],
+                                  utts=MAIN_UTTS, words_per_utt=MAIN_WORDS, seed=SEED)
+        corpus_s = time.perf_counter() - t0
+        lines = [ln.split(" ", 1)[1] for f in sorted((root / "train-clean").rglob("*.trans.txt"))
+                 for ln in f.read_text().splitlines()]
+        UnigramTokenizer().train(lines, vocab_size=5000).save(str(work / "asr" / "tokenizer.json"))
+        t0 = time.perf_counter()
+        dirs = _write_frozen(work, asr, lm, emb, clf)
+        write_s = time.perf_counter() - t0
+        argv = _main_argv(root, out, dirs)
+        native_loaded = bool(native_lib())
+        # every read_audio call asks for the library once; a numpy read is a fallback
+        reads = {"read_audio": 0, "numpy": 0}
+
+        def counted_lib():
+            reads["read_audio"] += 1
+            return native_lib()
+
+        def counted_numpy(path):
+            reads["numpy"] += 1
+            return read_wav_numpy(path)
+
+        loaders: list[TimedLoader] = []
+
+        def timed_loaders(*args):
+            train, valid, tests = make_loaders(*args)
+            loaders.append(TimedLoader(train))
+            return loaders[-1], valid, tests
+
+        recipe.make_loaders, recipe.SexAnonymizationBrain = timed_loaders, TimedBrain
+        audio._native_lib, audio._read_wav_numpy = counted_lib, counted_numpy
+        launches, walls, peaks = {}, {}, {}
+        for name, extra in (("fit", []), ("eval_only", ["--eval_only"])):
+            for c in counters.values():
+                c.launches = 0
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            brain = recipe.main(argv + extra)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            peaks[name] = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "resident_before_gib": resident / 2**30,
+                           "added_gib": (torch.cuda.max_memory_allocated() - resident) / 2**30}
+            launches[name] = {k: c.launches for k, c in counters.items()}
+            if name == "fit":
+                first = brain
+                # K1, the TF32 gap and the kept results, before the brain is dropped
+                if len(first.walls) != MAIN_EPOCHS * len(loaders[0]):
+                    raise AssertionError(f"main() trained {len(first.walls)} micro-batches")
+                k1_err, k1_rows, tf32_gap, tf32_scale = _main_first_run_checks(first, loaders[0].first)
+                p1 = {k: v.detach().clone() for k, v in first.model.named_parameters()}
+                b1 = {k: v.detach().clone() for k, v in first.model.named_buffers()}
+                ts, first_walls, marks = first.test_stats, first.walls, first.marks
+                del first, brain
+        total = {k: launches["fit"][k] + launches["eval_only"][k] for k in counters}
+        off = [k for k in MAIN_COUNTERS[3:] if total[k]]
+        if off or not all(total[k] for k in MAIN_COUNTERS[:3]):
+            raise AssertionError(f"main() launched {launches}")
+        second = brain
+
+        # the eval-only run recovers, averages and scores as the first did
+        p2 = dict(second.model.named_parameters())
+        differ = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+        b2 = dict(second.model.named_buffers())
+        acc = ("ACC", "ACC_external", "ACC_external_orig")
+        if differ or any(ts[k] != second.test_stats[k] for k in acc):
+            raise AssertionError(f"the eval-only run differs: parameters {differ[:6]}, "
+                                 f"{ts} vs {second.test_stats}")
+        missing = [f for f in ("train_log.txt", "wer_test-clean.txt", "hyperparams.yaml", "env.log")
+                   if not (out / f).is_file()]
+        ckpts = Checkpointer(str(out / "save" / "ckpts")).list_checkpoints()
+        if missing or not ckpts or not all({"ACC_external", "Utility_Retention"} <= set(c.meta) for c in ckpts):
+            raise AssertionError(f"main()'s files: missing {missing}, checkpoints {[c.meta for c in ckpts]}")
+        if not all(np.isfinite(ts[k]) for k in ("loss", "WER", "WER_orig", "ACC_external", "Utility_Retention")):
+            raise AssertionError(f"test stats {ts}")
+
+        train_draws = loaders[0].draws
+        stage = [(marks[i][0], marks[i][1], marks[i + 1][2] - marks[i][2]) for i in range(0, len(marks), 2)]
+        train_walls = [w for name, _, w in stage if name == "TRAIN"]
+        emit({"phase": "main", "card": card, "model": "convae", "config": "configs/convae.yaml",
+              "corpus": {"train_utterances": 2 * MAIN_SPEAKERS[0] * MAIN_UTTS,
+                         "test_utterances": 2 * MAIN_SPEAKERS[1] * MAIN_UTTS, "audio_s": audio_s,
+                         "words_per_utt": MAIN_WORDS, "build_s": corpus_s},
+              "frozen_checkpoints_write_s": write_s, "run_walls_s": walls,
+              "stage_walls_s": [{"stage": n, "epoch": e, "s": w} for n, e, w in stage],
+              "micro_batches": len(first_walls), "ms_per_micro_batch": 1e3 * statistics.median(first_walls),
+              "micro_batch_walls_ms": [1e3 * w for w in first_walls],
+              "loader_ms_per_batch": 1e3 * statistics.median(train_draws),
+              "loader_share_of_train": sum(train_draws) / sum(train_walls),
+              "audio_reader": {"native_loaded": native_loaded, "reads": reads["read_audio"],
+                               "native": reads["read_audio"] - reads["numpy"], "numpy": reads["numpy"]},
+              "memory_by_run": peaks, "launches": launches,
+              "k1_check": {"rows": k1_rows, "max_abs_err": k1_err,
+                           "rtol": K1_RTOL, "atol": K1_ATOL},
+              "tf32_recon_gap": {"max_abs": tf32_gap, "recon_max_abs": tf32_scale,
+                                 "relative": tf32_gap / tf32_scale},
+              "eval_only_params_equal": not differ,
+              "eval_only_buffers_equal": all(torch.equal(b1[k], b2[k]) for k in b1),
+              "checkpoints": [c.meta for c in ckpts], "test_stats": ts,
+              "eval_only_test_stats": second.test_stats, "seconds": time.perf_counter() - t_phase})
+        return total
+    finally:
+        recipe.make_loaders, recipe.SexAnonymizationBrain = make_loaders, brain_cls
+        audio._native_lib, audio._read_wav_numpy = native_lib, read_wav_numpy
+        recipe.set_tf32(False)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -2136,14 +2414,17 @@ def main() -> int:
     decode_launches, parity_feats = phase_decode(asr, lm, models[0], fbank, normalizer, card)
     phase_decode_parity(asr, lm, parity_feats)
     recipe_launches = phase_recipe(asr, lm, models[1], models[2], card)
-    k1["launches"] += recipe_launches["fused_fbank"]
+    main_launches = phase_main(asr, lm, models[1], models[2], card)
+    k1["launches"] += recipe_launches["fused_fbank"] + main_launches["fused_fbank"]
     k1["launches_by_path"]["recipe"] = recipe_launches["fused_fbank"]
+    k1["launches_by_path"]["main"] = main_launches["fused_fbank"]
     for entry in decode_kernels:
         entry["launches"] = decode_launches[entry["name"]]
         if entry["name"] in ("beam_gather", "attention_step"):  # the recipe's test decodes: f32, physical
             entry["launches_by_path"] = {"decode": entry["launches"],
-                                         "recipe": recipe_launches[entry["name"]]}
-            entry["launches"] += recipe_launches[entry["name"]]
+                                         "recipe": recipe_launches[entry["name"]],
+                                         "main": main_launches[entry["name"]]}
+            entry["launches"] += recipe_launches[entry["name"]] + main_launches[entry["name"]]
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

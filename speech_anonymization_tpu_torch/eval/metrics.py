@@ -1,11 +1,38 @@
 """Host-side metric aggregators (numpy), the port's copy of
-``speech_anonymization_tpu/eval/metrics.py`` ``AccuracyStats`` and
-``SimilarityMetricsStats``. Callers pass numpy arrays (``tensor.cpu().numpy()``).
+``speech_anonymization_tpu/eval/metrics.py`` ``MetricStats``,
+``AccuracyStats`` and ``SimilarityMetricsStats``. Callers pass numpy arrays (``tensor.cpu().numpy()``).
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
+
+
+class MetricStats:
+    """Accumulates per-item scores of an arbitrary metric function."""
+
+    def __init__(self, metric: Callable | None = None):
+        self.metric = metric
+        self.clear()
+
+    def clear(self):
+        self.scores: list[float] = []
+        self.ids: list[str] = []
+        self.summary: dict = {}
+
+    def append(self, ids, *args, **kwargs):
+        scores = np.atleast_1d(np.asarray(self.metric(*args, **kwargs)))
+        self.ids.extend(ids)
+        self.scores.extend(float(s) for s in scores)
+
+    def summarize(self, field: str | None = None):
+        avg = float(np.mean(self.scores)) if self.scores else 0.0
+        self.summary = {"average": avg}
+        if field is not None:
+            return self.summary[field]
+        return self.summary
 
 
 class AccuracyStats:

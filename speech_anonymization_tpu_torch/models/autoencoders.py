@@ -7,7 +7,9 @@ the per-frame ``FullyConnectedAutoencoder`` and its debug twin
 ``DummyFullyConnectedAutoencoder`` (models/FullyConnected.py:118-209). Each
 returns the reconstruction in the (B, T, 80) layout and (B, 2) sex log-probs.
 Module names mirror the flax ones so the weight bridge (``utils/convert.py``)
-maps them one to one. ``model.train()`` gives flax's ``train=True``.
+maps them one to one. ``model.train()`` gives flax's ``train=True``. A fresh
+model starts from flax's initialisers (``models/init.py``), drawn from
+``generator`` when one is given.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from torch import nn
 
 from .classifiers import FullyConnSexClassifier, TDNNSexClassifier
 from .components import glu, instance_norm
+from .init import flax_init_
 
 
 class ConvAutoencoder(nn.Module):
@@ -29,7 +32,7 @@ class ConvAutoencoder(nn.Module):
     """
 
     def __init__(self, num_classes: int = 2, grl_scale: float = 1.0,
-                 device: str | torch.device = "cuda"):
+                 generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
         super().__init__()
         self.enc_conv0 = nn.Conv1d(1, 32, 15, padding=7)
         self.enc_conv1 = nn.Conv1d(32, 64, 5, stride=2, padding=2)
@@ -48,6 +51,7 @@ class ConvAutoencoder(nn.Module):
         self.dec_up2 = nn.ConvTranspose1d(64, 32, 5, stride=2, padding=2, output_padding=1)
         self.dec_in2 = instance_norm(32)
         self.dec_conv2 = nn.Conv1d(32, 1, 15, padding=7)
+        flax_init_(self, generator)
         self.to(device)
 
     def _encode(self, feats: torch.Tensor) -> torch.Tensor:
@@ -98,10 +102,11 @@ class FullyConnectedAutoencoder(nn.Module):
     ``FullyConnSexClassifier`` reads the (B, T, 20) bottleneck."""
 
     def __init__(self, feature_dim: int = 80, num_classes: int = 2, grl_scale: float = 1.0,
-                 device: str | torch.device = "cuda"):
+                 generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
         super().__init__()
         self.dense = _fc_stack(feature_dim)
         self.sex_classifier = FullyConnSexClassifier(num_classes, grl_scale=grl_scale, device=device)
+        flax_init_(self, generator)
         self.to(device)
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor | None = None
@@ -125,6 +130,7 @@ class DummyFullyConnectedAutoencoder(nn.Module):
         self.num_classes = num_classes
         self.generator = generator
         self.dense = _fc_stack(feature_dim)
+        flax_init_(self)
         self.to(device)
 
     def forward(self, feats: torch.Tensor, sex_draws: torch.Tensor | None = None

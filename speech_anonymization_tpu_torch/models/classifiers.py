@@ -5,7 +5,9 @@ Counterparts of ``speech_anonymization_tpu/models/classifiers.py``
 Each returns (B, 2) log-probs and reverses the gradient flowing back into the
 anonymizer's bottleneck. The BatchNorms are :class:`~.components.BatchNorm`
 (flax's statistics in training). ``norms[i]``, ``convs[i]`` and ``dense[i]``
-hold flax's ``BatchNorm_i``, ``Conv1dTorch_i`` and ``Dense_i``.
+hold flax's ``BatchNorm_i``, ``Conv1dTorch_i`` and ``Dense_i``. A head inside
+a fresh anonymizer family starts from flax's initialisers: the family's
+constructor applies ``models/init.py`` to all of its modules, the head's too.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ projected to 128 (``sex_head_proj``, the JAX package's working design for the
 reference's dead head) through ``SexClassifier1D``; two pixel-shuffle
 upsamples (1024 -> 256, 512 -> 128 channels) and a (5, 15) conv back to one
 channel. Every conv pads symmetrically by half its kernel. ``ResidualLayer``
-is not in the live forward at reference HEAD and is kept for parity.
+is not in the live forward at reference HEAD and is kept for parity. A fresh
+generator starts from flax's initialisers (``models/init.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 
 from .classifiers import SexClassifier1D
 from .components import glu, instance_norm, instance_norm_2d
+from .init import flax_init_
 
 _K_LONG = (5, 15)
 
@@ -73,7 +75,7 @@ class CycleGANGenerator(nn.Module):
     """
 
     def __init__(self, num_classes: int = 2, feature_dim: int = 80, grl_scale: float = 1.0,
-                 device: str | torch.device = "cuda"):
+                 generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
         super().__init__()
         self.convs = nn.ModuleList([
             _conv2d(1, 128, _K_LONG), _conv2d(1, 128, _K_LONG),
@@ -83,6 +85,7 @@ class CycleGANGenerator(nn.Module):
         self.sex_head_proj = nn.Linear(256 * (feature_dim // 4), 128)
         self.sex_classifier = SexClassifier1D(num_classes, grl_scale=grl_scale, device=device)
         self.norms = nn.ModuleList([instance_norm_2d(256), instance_norm_2d(128)])
+        flax_init_(self, generator)
         self.to(device)
 
     def forward(self, feats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from .components import glu, instance_norm
+from .init import flax_init_
 
 
 class ConvReconstruction(nn.Module):
@@ -21,10 +22,11 @@ class ConvReconstruction(nn.Module):
     ConvT(64->32,k5,s2,op1) IN GLU; Conv(32->1,k15). T*80 must be even.
 
     ``convs[i]`` hold flax's ``Conv1dTorch_i``, ``up`` ``ConvTranspose1dTorch_0``
-    and ``norms[i]`` ``InstanceNorm_i``.
+    and ``norms[i]`` ``InstanceNorm_i``. A fresh model starts from flax's
+    initialisers (``models/init.py``).
     """
 
-    def __init__(self, device: str | torch.device = "cuda"):
+    def __init__(self, generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
         super().__init__()
         self.convs = nn.ModuleList([
             nn.Conv1d(1, 32, 15, padding=7), nn.Conv1d(32, 64, 5, stride=2, padding=2),
@@ -32,6 +34,7 @@ class ConvReconstruction(nn.Module):
         ])
         self.up = nn.ConvTranspose1d(64, 32, 5, stride=2, padding=2, output_padding=1)
         self.norms = nn.ModuleList(instance_norm(c) for c in (32, 64, 64, 32))
+        flax_init_(self, generator)
         self.to(device)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:

@@ -37,7 +37,13 @@ Counterpart of ``speech_anonymization_tpu/recipes/anonymizer.py``
     features, and utility: with an ASR bundle (``recipes/asr_bundle.py``), the
     similarity of the ASR encoder outputs and, at the test stage, the WER of
     the beam decodes of both; without one, the recon-vs-clean feature cosine
-    similarity as a proxy.
+    similarity as a proxy;
+  * :func:`main`, the recipe's entry point, with :func:`dataio_prepare` and
+    :func:`make_loaders`: a corpus on disk and a YAML config in, a trained
+    and scored anonymizer out::
+
+        python -m speech_anonymization_tpu_torch.recipes.anonymizer configs/convae.yaml
+            --data_folder <LibriSpeech> --model_type convae [--eval_only] [--device cuda|cpu]
 
 The trainer mirrors the JAX recipe where its behaviour is easy to "fix":
   (a) a masked Adam updates EVERY parameter with the masked (zeroed)
@@ -55,6 +61,8 @@ The trainer mirrors the JAX recipe where its behaviour is easy to "fix":
 from __future__ import annotations
 
 import math
+import os
+import sys
 import warnings
 from typing import Sequence
 
@@ -62,6 +70,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..config import load_config, parse_arguments
+from ..data import DynamicItemDataset, SaveableDataLoader, prepare_librispeech, read_audio
+from ..data.prefetch import PrefetchLoader
+from ..data.tokenizer import UnigramTokenizer
 from ..eval.evaluator import FeatureClassifier
 from ..eval.metrics import AccuracyStats, SimilarityMetricsStats
 from ..losses.basic import confusion_loss, mse_loss, nll_loss
@@ -75,12 +87,13 @@ from ..ops.specaugment import SpecAugmentDraws
 from ..train.brain import Brain, Stage
 from ..train.checkpoint import Checkpointer, PytreeRecoverable, average_checkpoints
 from ..train.epoch_loop import EpochCounter
+from ..train.experiment import create_experiment_directory
 from ..train.logger import FileTrainLogger
 from ..train.schedulers import NoamScheduler
 from ..train.state import TrainState, adam_like_reference, apply_updates, clip_by_global_norm, global_norm
 from ..utils.convert import (anonymizer_batch_stats, anonymizer_state_dict, anonymizer_variables,
                              normalizer_tree)
-from .asr_bundle import ASRBundle
+from .asr_bundle import ASRBundle, load_asr_bundle
 
 # (recon, sex, utility, confusion): the recipe's defaults for evaluation
 DEFAULT_WEIGHTS = (1.0, 0.0, 0.0, 0.0)
@@ -224,7 +237,9 @@ class AnonymizerTrainer:
     built objects ``compute_features`` (an ``Fbank``), ``normalize`` (an
     ``InputNormalizer``), ``augmentation`` (a ``SpecAugment`` or None) and
     ``noam_annealing`` (a ``NoamScheduler``). The model is built here, on
-    ``device``; load weights into ``self.model`` before training. The frozen
+    ``device``, from flax's initialisers drawn from ``seed`` (as a fresh JAX
+    run starts from flax's; ``models/init.py``); a checkpoint's or converted
+    weights may be loaded into ``self.model`` before training. The frozen
     ASR (utility) and external classifier (endtoend's sex signal) are
     attached as they are and take no gradient.
     """
@@ -238,7 +253,9 @@ class AnonymizerTrainer:
         self.normalizer = hparams.get("normalize") or InputNormalizer(dim=80)
         kw = {"grl_scale": float(hparams["grl_scale"])} if (
             "grl_scale" in hparams and self.model_type != "endtoend") else {}
-        self.model = MODEL_TYPES[self.model_type](**kw, device=device)
+        # a fresh model: flax's initialisers, drawn from the run's seed
+        init_gen = torch.Generator().manual_seed(int(hparams.get("seed", 0)))
+        self.model = MODEL_TYPES[self.model_type](**kw, generator=init_gen, device=device)
         self.noam = hparams.get("noam_annealing") or NoamScheduler()
         self.schedule = hparams.get("adversarial_schedule") or [{
             "weights": {
@@ -609,3 +626,164 @@ class SexAnonymizationBrain(Brain):
         ckpts = self.checkpointer.find_checkpoints(max_key=max_key, min_key=min_key)
         if ckpts:
             self._set_params(average_checkpoints(ckpts, "model", template))
+
+
+def dataio_prepare(hparams: dict, tokenizer: UnigramTokenizer | None = None):
+    """The train, valid and test datasets with the recipe's pipelines: ``sig``
+    (the waveform), ``gender`` (M 0, F 1) and ``wrd``, and with a tokenizer
+    ``tokens_bos``/``tokens_eos``/``tokens``. Train is ordered by ``sorting``;
+    valid and test by duration. -> (train, valid, {test name: dataset})."""
+    data_folder = hparams["data_folder"]
+    train_data = DynamicItemDataset.from_csv(hparams["train_csv"], {"data_root": data_folder})
+    sorting = hparams.get("sorting", "random")
+    if sorting == "ascending":
+        train_data = train_data.filtered_sorted(sort_key="duration")
+    elif sorting == "descending":
+        train_data = train_data.filtered_sorted(sort_key="duration", reverse=True)
+    valid_data = DynamicItemDataset.from_csv(hparams["valid_csv"], {"data_root": data_folder})
+    valid_data = valid_data.filtered_sorted(sort_key="duration")
+    test_csvs = hparams["test_csv"]
+    if isinstance(test_csvs, str):
+        test_csvs = [test_csvs]
+    test_datasets = {}
+    for csv_file in test_csvs:
+        name = os.path.splitext(os.path.basename(csv_file))[0]
+        ds = DynamicItemDataset.from_csv(csv_file, {"data_root": data_folder})
+        test_datasets[name] = ds.filtered_sorted(sort_key="duration")
+
+    sex_to_int = {"M": 0, "F": 1}
+    for ds in [train_data, valid_data] + list(test_datasets.values()):
+        ds.add_dynamic_item(lambda wav: read_audio(wav), takes=["wav"], provides=["sig"])
+        ds.add_dynamic_item(lambda sex: np.int64(sex_to_int[sex]), takes=["sex"], provides=["gender"])
+        keys = ["id", "sig", "gender", "wrd"]
+        if tokenizer is not None:
+            bos = int(hparams.get("bos_index", 1))
+            eos = int(hparams.get("eos_index", 2))
+
+            def tokens_pipeline(wrd):
+                ids = tokenizer.encode_as_ids(wrd)
+                return (np.asarray([bos] + ids, np.int64), np.asarray(ids + [eos], np.int64),
+                        np.asarray(ids, np.int64))
+
+            ds.add_dynamic_item(tokens_pipeline, takes=["wrd"], provides=["tokens_bos", "tokens_eos", "tokens"])
+            keys += ["tokens_bos", "tokens_eos", "tokens"]
+        ds.set_output_keys(keys)
+    return train_data, valid_data, test_datasets
+
+
+def make_loaders(hparams: dict, train_data, valid_data, test_datasets):
+    """-> (train loader, valid loader, {test name: loader}). Waveforms are padded
+    to buckets of (36k - 1) * 160 samples, so a batch's fbank has a multiple of
+    36 frames; the train loader shuffles (``sorting: random``, from ``seed`` and
+    the epoch) and drops a last part batch; ``prefetch_batches`` > 0 wraps each
+    loader in a :class:`PrefetchLoader` of ``loader_threads`` threads."""
+    batch_size = int(hparams.get("batch_size", 3))
+    durations = [float(d) for d in train_data.raw_values("duration")] or [1.0]
+    sr = int(hparams.get("sample_rate", 16000))
+    max_len = int(max(durations) * sr) + sr // 10
+    buckets = []
+    k = 1
+    while True:
+        b = (36 * k - 1) * 160
+        buckets.append(b)
+        if b >= max_len:
+            break
+        k += 1
+    bucket_map = {"sig": buckets}
+    seed = int(hparams.get("seed", 0))
+    prefetch = int(hparams.get("prefetch_batches", 0) or 0)
+
+    def mk(ds, shuffle):
+        loader = SaveableDataLoader(ds, batch_size=batch_size, shuffle=shuffle, seed=seed,
+                                    bucket_map=bucket_map, drop_last=shuffle)
+        if prefetch:
+            loader = PrefetchLoader(loader, prefetch, int(hparams.get("loader_threads", 4)))
+        return loader
+
+    loaders = {name: mk(ds, False) for name, ds in test_datasets.items()}
+    return mk(train_data, hparams.get("sorting", "random") == "random"), mk(valid_data, False), loaders
+
+
+def set_tf32(enabled: bool) -> None:
+    """TF32 for CUDA matmuls and cuDNN convolutions, on or off."""
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    torch.backends.cudnn.allow_tf32 = enabled
+
+
+def main(argv: Sequence[str] | None = None) -> SexAnonymizationBrain:
+    """The anonymizer recipe, end to end: ``<config.yaml> [--key value ...]
+    [--eval_only] [--device cuda|cpu]``, the JAX recipe's command line.
+
+    Runs on the card (``cuda``) unless ``--device cpu`` is given; with no CUDA
+    device and no ``--device cpu`` it stops with an error (it never falls back
+    to the CPU). On the card TF32 is turned off, for cuBLAS and cuDNN, before
+    anything is built: a run trains and scores in fp32, as the JAX package's
+    CPU reference and the port's parity tolerances do.
+
+    Steps: the config (with the overrides, its objects built on the device);
+    the experiment directory; the LibriSpeech CSVs; with
+    ``asr_checkpoint_dir``, the tokenizer (``tokenizer_path``, or
+    ``<asr_checkpoint_dir>/../tokenizer.json``), the frozen ASR bundle (with the
+    LM of ``lm_checkpoint_dir``); the external x-vector classifier of
+    ``external_classifier_dir``; the checkpointer (``async_checkpointing``);
+    the brain (a fresh model from flax's initialisers at ``seed``); the newest
+    checkpoint recovered; ``fit`` unless ``--eval_only``; then each test set
+    evaluated on the checkpoints ranked by Utility_Retention, its WER written to
+    ``wer_<name>.txt``. One process: the multi-process launch and its
+    main-process gating are not ported yet. Returns the brain.
+    """
+    config_path, run_opts, overrides = parse_arguments(list(argv) if argv is not None else sys.argv[1:])
+    device = str(run_opts.get("device", "cuda"))
+    if device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit("anonymizer recipe: no CUDA device; pass --device cpu to run on the CPU")
+        set_tf32(False)
+    elif device != "cpu":
+        raise SystemExit(f"anonymizer recipe: unknown --device {device!r} (cuda or cpu)")
+    hparams = load_config(config_path, overrides, device=device)
+    create_experiment_directory(hparams["output_folder"], config_path, overrides)
+    prepare_librispeech(
+        data_folder=hparams["data_folder"],
+        tr_splits=hparams.get("train_splits", []),
+        dev_splits=hparams.get("dev_splits", []),
+        te_splits=hparams.get("test_splits", []),
+        save_folder=hparams["data_folder"],
+        merge_lst=hparams.get("train_splits", []),
+        merge_name=hparams.get("train_csv"),
+        skip_prep=hparams.get("skip_prep", False),
+    )
+    tokenizer = None
+    asr_dir = hparams.get("asr_checkpoint_dir")
+    if asr_dir:
+        tok_path = hparams.get("tokenizer_path") or os.path.join(os.path.dirname(asr_dir), "tokenizer.json")
+        tokenizer = UnigramTokenizer().Load(tok_path)
+
+    train_data, valid_data, test_datasets = dataio_prepare(hparams, tokenizer=tokenizer)
+    train_loader, valid_loader, test_loaders = make_loaders(hparams, train_data, valid_data, test_datasets)
+
+    asr_bundle = load_asr_bundle(hparams, tokenizer, device) if tokenizer is not None else None
+    external = None
+    ext_dir = hparams.get("external_classifier_dir")
+    if ext_dir and os.path.isdir(ext_dir):
+        external = FeatureClassifier.from_checkpoint(
+            ext_dir, emb_dim=int(hparams.get("evaluator_emb_dim", 128)), device=device)
+
+    checkpointer = Checkpointer(os.path.join(hparams["save_folder"], "ckpts"),
+                                async_writes=bool(hparams.get("async_checkpointing", True)))
+    brain = SexAnonymizationBrain(hparams, checkpointer, external_classifier=external,
+                                  asr_bundle=asr_bundle, device=device)
+    brain.init_state()
+    checkpointer.recover_if_possible()
+
+    if not run_opts.get("eval_only", False):
+        brain.fit(hparams["epoch_counter"], train_loader, valid_loader)
+
+    for name, loader in test_loaders.items():
+        brain.hparams["wer_file"] = os.path.join(hparams["output_folder"], f"wer_{name}.txt")
+        brain.evaluate(loader, max_key="Utility_Retention")
+    checkpointer.wait()
+    return brain
+
+
+if __name__ == "__main__":
+    main()

@@ -49,7 +49,9 @@ META_FILE = "CKPT.yaml"
 class _AsyncWriter:
     """One background writer thread: saves run FIFO, so retention decisions
     always see every earlier save completed. Errors surface on the next
-    submit()/wait() call."""
+    submit()/wait() call. The thread drops each task once it has run, and
+    holds no reference to the checkpointer, so a checkpointer (and the model
+    its recoverables reach) is freed when its owner drops it."""
 
     def __init__(self):
         self._q: queue.Queue = queue.Queue()
@@ -65,6 +67,7 @@ class _AsyncWriter:
             except BaseException as e:  # re-raised on the train thread by _raise_pending
                 self._err = e
             finally:
+                fn = None
                 self._q.task_done()
 
     def submit(self, fn: Callable[[], None]):
@@ -191,7 +194,7 @@ class Checkpointer:
         self._writer: _AsyncWriter | None = None
         if async_writes:
             self._writer = _AsyncWriter()
-            atexit.register(self.wait)
+            atexit.register(self._writer.wait)
         os.makedirs(checkpoints_dir, exist_ok=True)
 
     def wait(self):

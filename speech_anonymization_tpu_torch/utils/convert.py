@@ -28,7 +28,10 @@ flax's names and layouts (``batch_stats`` only where the family has
 BatchNorm, as flax's init gives; :func:`anonymizer_batch_stats` those
 alone), and :func:`normalizer_tree` the normalizer state as flax serializes
 its ``NormalizerState`` named tuple. Their leaves are torch tensors that view
-the model's own.
+the model's own. :func:`asr_variables`, :func:`lm_variables` and
+:func:`xvector_variables` are the inverses of :func:`asr_state_dict`,
+:func:`lm_state_dict` and :func:`indexed_state_dict`, for writing the frozen
+models' checkpoints in the JAX package's format.
 
 And, for the ASR model (:func:`asr_state_dict`) and the LM (:func:`lm_state_dict`):
 
@@ -314,6 +317,82 @@ def normalizer_tree(state) -> dict:
     named tuple (views of the state's tensors)."""
     return {"count": state.count.detach(), "glob_mean": state.glob_mean.detach(),
             "glob_std": state.glob_std.detach()}
+
+
+def _linear_to_flax(m: nn.Linear) -> dict:
+    return {"kernel": m.weight.detach().T, "bias": m.bias.detach()}
+
+
+def _layernorm_to_flax(m: nn.LayerNorm) -> dict:
+    return {"scale": m.weight.detach(), "bias": m.bias.detach()}
+
+
+def _attention_to_flax(m: nn.Module) -> dict:
+    """:func:`attention_from_flax`'s inverse (q/k/v/out of a ``MultiHeadAttention``)."""
+    d, h, dh = m.d_model, m.nhead, m.d_head
+    out = {name: {"kernel": getattr(m, name).weight.detach().T.reshape(d, h, dh),
+                  "bias": getattr(m, name).bias.detach().reshape(h, dh)} for name in ("q", "k", "v")}
+    out["out"] = {"kernel": m.out.weight.detach().T.reshape(h, dh, d), "bias": m.out.bias.detach()}
+    return out
+
+
+def _feedforward_to_flax(m: nn.Module) -> dict:
+    return {"Dense_0": _linear_to_flax(m.dense0), "Dense_1": _linear_to_flax(m.dense1)}
+
+
+_TO_FLAX = {attention_from_flax: _attention_to_flax, layernorm_from_flax: _layernorm_to_flax,
+            _feedforward: _feedforward_to_flax}
+
+
+def _layer_to_flax(layer: nn.Module, rules: Mapping) -> dict:
+    """An encoder or decoder layer -> its flax tree, by the forward ``rules``."""
+    return {flax_name: _TO_FLAX[convert](getattr(layer, port_name))
+            for flax_name, (port_name, convert) in rules.items()}
+
+
+def asr_variables(model: nn.Module) -> dict:
+    """A port ``ASRModel`` -> its flax variables (:func:`asr_state_dict`'s inverse),
+    as views of the model's tensors."""
+    cnn = {}
+    for i, (conv, norm) in enumerate(zip(model.cnn.convs, model.cnn.norms)):
+        cnn[f"Conv_{i}"] = {"kernel": conv.weight.detach().permute(2, 3, 1, 0), "bias": conv.bias.detach()}
+        cnn[f"LayerNorm_{i}"] = _layernorm_to_flax(norm)
+    tr = model.transformer
+    transformer = {"input_proj": _linear_to_flax(tr.input_proj), "embed": {"embedding": tr.embed.weight.detach()}}
+    for i, layer in enumerate(tr.encoder_layers):
+        transformer[f"enc_{i}"] = _layer_to_flax(layer, _ENCODER_LAYER)
+    for i, layer in enumerate(tr.decoder_layers):
+        transformer[f"dec_{i}"] = _layer_to_flax(layer, _DECODER_LAYER)
+    heads = {name: _linear_to_flax(lin) for name, lin in model.heads.named_children()}
+    return {"params": {"cnn": cnn, "transformer": transformer, "heads": heads}}
+
+
+def lm_variables(lm: nn.Module) -> dict:
+    """A port ``TransformerLM`` -> its flax variables (:func:`lm_state_dict`'s inverse)."""
+    params = {"embed": {"embedding": lm.embed.weight.detach()}}
+    for i, layer in enumerate(lm.layers):
+        params[f"layer_{i}"] = _layer_to_flax(layer, _ENCODER_LAYER)
+    for name, child in lm.named_children():
+        if isinstance(child, nn.Linear):
+            params[name] = _linear_to_flax(child)
+        elif isinstance(child, nn.LayerNorm):
+            params[name] = _layernorm_to_flax(child)
+    return {"params": params}
+
+
+def xvector_variables(module: nn.Module) -> dict:
+    """A port ``Xvector`` or ``XvectorClassifier`` -> its flax variables
+    (:func:`indexed_state_dict`'s inverse): ``Conv_i``, ``BatchNorm_i`` (with
+    ``batch_stats``) and ``Dense_i``."""
+    params: dict = {}
+    stats: dict = {}
+    for i, conv in enumerate(getattr(module, "convs", ())):
+        params[f"Conv_{i}"] = {"kernel": conv.weight.detach().permute(2, 1, 0), "bias": conv.bias.detach()}
+    for i, norm in enumerate(module.norms):
+        params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"] = _leaf_to_flax(norm)
+    for i, dense in enumerate(module.dense):
+        params[f"Dense_{i}"] = _linear_to_flax(dense)
+    return {"params": params, "batch_stats": stats}
 
 
 def load_numpy_state(module: nn.Module, state: Mapping[str, np.ndarray]) -> nn.Module:

@@ -21,8 +21,10 @@ templates the same way (``shape_init``: every value is then read from the
 checkpoint). No JAX train step runs here.
 """
 
+import gc
 import os
 import types
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -292,6 +294,27 @@ def test_retention_and_selection_match_jax(async_writes, tmp_path):
     assert port_meta == jax_meta and port_meta["kept_n"] == len(kept)
     jax.tree_util.tree_map(lambda a, b: np.testing.assert_array_equal(a, np.asarray(b)),
                            port_pick, jax_pick)
+
+
+def test_dropped_async_checkpointer_is_freed(tmp_path):
+    """Neither the writer thread nor the exit hook keeps an asynchronous
+    checkpointer, and so the state its recoverables reach, alive once its
+    owner drops it."""
+    class Owner:  # stands for the brain whose bound methods the recoverables hold
+        def get(self):
+            return _params(0)
+
+        def set(self, tree):
+            pass
+
+    owner = Owner()
+    ckptr = Checkpointer(str(tmp_path), {"model": PytreeRecoverable(owner.get, owner.set)}, async_writes=True)
+    ckptr.save_and_keep_only({"epoch": 1}, max_keys=["epoch"])
+    ckptr.wait()
+    refs = weakref.ref(owner), weakref.ref(ckptr)
+    del owner, ckptr
+    gc.collect()
+    assert all(r() is None for r in refs)
 
 
 # -- (d) the loaders on JAX-written directories, small widths ----------------------

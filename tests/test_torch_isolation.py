@@ -1,4 +1,4 @@
-"""The port stands alone: it imports neither JAX nor the JAX package."""
+"""The port stands alone: it imports neither JAX, PyYAML nor the JAX package."""
 
 import re
 import subprocess
@@ -11,7 +11,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "speech_anonymization_tpu_torch"
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|optax|msgpack)\b|from\s+(jax|flax|optax|msgpack)\b"
+    r"^\s*(import\s+(jax|flax|optax|msgpack|yaml)\b|from\s+(jax|flax|optax|msgpack|yaml)\b"
     r"|import\s+speech_anonymization_tpu\b(?!_)|from\s+speech_anonymization_tpu\b(?!_))",
     re.MULTILINE,
 )
@@ -39,8 +39,16 @@ def test_import_pulls_in_no_jax():
         "speech_anonymization_tpu_torch.train.brain, speech_anonymization_tpu_torch.train.epoch_loop, "
         "speech_anonymization_tpu_torch.train.logger, speech_anonymization_tpu_torch.train.experiment, "
         "speech_anonymization_tpu_torch.train.profiler, speech_anonymization_tpu_torch.losses.mi, "
-        "speech_anonymization_tpu_torch.eval.evaluator\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack', 'speech_anonymization_tpu') if m in sys.modules]\n"
+        "speech_anonymization_tpu_torch.eval.evaluator, speech_anonymization_tpu_torch.models.init, "
+        "speech_anonymization_tpu_torch.data, speech_anonymization_tpu_torch.data.audio, "
+        "speech_anonymization_tpu_torch.data.dataset, speech_anonymization_tpu_torch.data.encoder, "
+        "speech_anonymization_tpu_torch.data.librispeech, speech_anonymization_tpu_torch.data.prefetch, "
+        "speech_anonymization_tpu_torch.data.synth, speech_anonymization_tpu_torch.data.tokenizer, "
+        "speech_anonymization_tpu_torch.config, speech_anonymization_tpu_torch.config.registry, "
+        "speech_anonymization_tpu_torch.config.yaml_config, speech_anonymization_tpu_torch.config.yaml_subset\n"
+        "from speech_anonymization_tpu_torch.recipes.anonymizer import main, dataio_prepare, make_loaders\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'speech_anonymization_tpu') "
+        "if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -55,7 +63,8 @@ def test_source_has_no_jax_import(path):
 
 
 def test_scan_catches_forbidden_imports():
-    for line in ("import jax", "from flax import linen", "import msgpack", "import speech_anonymization_tpu.ops",
+    for line in ("import jax", "from flax import linen", "import msgpack", "import yaml", "from yaml import safe_load",
+                 "import speech_anonymization_tpu.ops",
                  "from speech_anonymization_tpu import models",
                  "from speech_anonymization_tpu.ops import fbank"):
         assert _FORBIDDEN.search(line), line
