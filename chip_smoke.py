@@ -180,7 +180,29 @@ failure raises and exits non-zero:
            share of the train stage, which audio reader served, each run's
            peak memory (the first run's brain dropped before the second),
            the launches, the ConvAutoencoder's reconstruction gap with TF32
-           on against off (one batch) and the test stats.
+           on against off (one batch) and the test stats;
+  gender   the gender recipes' entry points, ``recipes/gender_classifier.py``
+           and ``recipes/gender_classifier_pitch_norm.py`` ``main(argv)``, at
+           configs/gender_classifier.yaml's full width (Xvector 512 x 4 + 1500
+           -> 128, 3.2 M parameters, XvectorClassifier, batch 32) over a
+           corpus on disk (build_corpus: 64 train and 32 test utterances of
+           ~3.3 s, the test split as valid too): the plain recipe for 2
+           epochs (4 steps) and its test stage; one fit_batch with EnvCorrupt
+           + TimeDomainSpecAugment (the batch doubles to 64; the augmentations
+           on the card equal to their CPU cores on the same draws); the recon
+           variant (gender_classifier_recon.yaml, 1 epoch) on ConvAutoencoder
+           checkpoints written in the phase, the ``valid_frontier`` pick; the
+           pitch-norm recipe on 16 + 8 utterances of ~2.1 s (batch 8, 2
+           epochs; the native vocoder serves every pitch call, the WAV cache
+           every later read). Checks: K1 launched once a batch the loops fed
+           in every run, K2-K7 never; finite losses and test stats; the plain
+           run's files and its one kept checkpoint, a fresh GenderBrain
+           recovering it bit-equal, the external evaluator
+           (FeatureClassifier.from_checkpoint) scoring a test batch as that
+           brain does (1e-5); K1 against its plain version on a train batch's
+           frames, timed there beside its yardsticks and bound; the recon run's
+           frozen anonymizer equal to the pick. Reports each run's walls, step
+           median, loader share, peak memory and launches.
 
 Then the whole run's wall time (``{"phase": "wall", ...}``), the card's name
 and power limit (nvidia-smi), the kernel table as one JSON object, and last
@@ -214,7 +236,8 @@ import torch  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
-from speech_anonymization_tpu_torch.data import audio  # noqa: E402
+from speech_anonymization_tpu_torch.config import load_config, parse_arguments  # noqa: E402
+from speech_anonymization_tpu_torch.data import audio, pitch  # noqa: E402
 from speech_anonymization_tpu_torch.data.synth import build_corpus  # noqa: E402
 from speech_anonymization_tpu_torch.data.tokenizer import UnigramTokenizer  # noqa: E402
 from speech_anonymization_tpu_torch.decoding import hyps_to_lists  # noqa: E402
@@ -246,6 +269,7 @@ from speech_anonymization_tpu_torch.ops.beam_gather import (  # noqa: E402
     beam_gather_faults,
     beam_gather_plain,
 )
+from speech_anonymization_tpu_torch.ops import augment  # noqa: E402
 from speech_anonymization_tpu_torch.ops.fbank import Fbank, frame_signal  # noqa: E402
 from speech_anonymization_tpu_torch.ops.lm_megastep import (  # noqa: E402
     lm_megastep,
@@ -254,6 +278,8 @@ from speech_anonymization_tpu_torch.ops.lm_megastep import (  # noqa: E402
 from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_power_plain  # noqa: E402
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe  # noqa: E402
+from speech_anonymization_tpu_torch.recipes import gender_classifier as gender  # noqa: E402
+from speech_anonymization_tpu_torch.recipes import gender_classifier_pitch_norm as gender_pitch  # noqa: E402
 from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
     beam_reorder_cache,
     make_kv_cache,
@@ -273,6 +299,8 @@ from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler  # noq
 from speech_anonymization_tpu_torch.utils import cuda_build  # noqa: E402
 from speech_anonymization_tpu_torch.utils.convert import (  # noqa: E402
     anonymizer_state_dict,
+    anonymizer_variables,
+    indexed_state_dict,
     asr_variables,
     lm_variables,
     normalizer_tree,
@@ -434,7 +462,18 @@ def phase_build() -> None:
 
 
 def phase_kernels(wavs: torch.Tensor, fbank: Fbank) -> dict:
-    frames = frame_signal(wavs).contiguous()
+    entry, report = k1_measure(frame_signal(wavs).contiguous(), fbank)
+    emit({"phase": "kernels", "kernel": "fused_fbank", **report})
+    if not report["allclose"]:
+        raise AssertionError(f"K1 disagrees with its plain twin: max abs {report['max_abs_err']}, "
+                             f"max rel {report['max_rel_err']}")
+    return entry
+
+
+def k1_measure(frames: torch.Tensor, fbank: Fbank) -> tuple[dict, dict]:
+    """K1 on ``frames`` against its plain twin (K1_RTOL, K1_ATOL), timed beside
+    it and beside two ``torch.matmul`` calls (the library yardstick), with its
+    bound. -> (the kernel-table entry, the report)."""
     dft, mel, frag = fbank.dft, fbank.mel, fbank.dft_frag
     rows, win = frames.shape[0] * frames.shape[1], frames.shape[2]
     n_bins, n_mels = mel.shape
@@ -468,16 +507,13 @@ def phase_kernels(wavs: torch.Tensor, fbank: Fbank) -> dict:
     # the same function's bound with every product in fp32 FMA (the earlier design's)
     fp32_flops = 2 * rows * win * 2 * n_bins + power + mel_fp32
     fp32_bound_ms = max(ops_ms(fp32_flops), 1e3 * nbytes / PEAK_BYTES_PER_S)
-    emit({"phase": "kernels", "kernel": "fused_fbank", "rows": rows, "shape": [rows, win, n_bins, n_mels],
-          "max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": K1_RTOL, "atol": K1_ATOL,
-          "allclose": ok, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
-          "fp32_bound_ms": fp32_bound_ms, "gflop_tf32": split["tf32_flops"] / 1e9,
-          "gflop_fp32": split["flops"] / 1e9, "mbytes": nbytes / 1e6,
-          "share_of_bound": entry["bound_ms"] / kernel_ms})
-    if not ok:
-        raise AssertionError(f"K1 disagrees with its plain twin: max abs {max_abs}, max rel {max_rel}")
-    return entry
+    return entry, {"rows": rows, "shape": [rows, win, n_bins, n_mels],
+                   "max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": K1_RTOL, "atol": K1_ATOL,
+                   "allclose": ok, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+                   "fp32_bound_ms": fp32_bound_ms, "gflop_tf32": split["tf32_flops"] / 1e9,
+                   "gflop_fp32": split["flops"] / 1e9, "mbytes": nbytes / 1e6,
+                   "share_of_bound": entry["bound_ms"] / kernel_ms}
 
 
 def _decode_steps(name: str) -> int:
@@ -1915,14 +1951,16 @@ RECIPE_MICRO_BATCHES = 3  # an epoch's
 RECIPE_TEST_BATCHES = 2
 
 
-class TimedBrain(recipe.SexAnonymizationBrain):
-    """The recipe's brain with the smoke's clocks: each micro-batch's wall and
-    each stage's start and end (ended by a synchronise), and the time the
-    train loop spends in ``save_and_keep_only`` with the meta it saved."""
+class Timed:
+    """A brain mixin with the smoke's clocks: each micro-batch's wall and
+    each stage's start and end (ended by a synchronise), the time the train
+    loop spends in ``save_and_keep_only`` with the meta it saved, and the
+    batches the loops fed (``batches``: train and evaluation)."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.walls, self.marks, self.saves, self.stage_losses = [], [], [], []
+        self.batches = 0
         save = self.checkpointer.save_and_keep_only
 
         def timed_save(meta, **kw):
@@ -1933,12 +1971,17 @@ class TimedBrain(recipe.SexAnonymizationBrain):
 
         self.checkpointer.save_and_keep_only = timed_save
 
-    def fit_batch(self, batch, epoch):
+    def fit_batch(self, batch, epoch, *args, **kwargs):
         t0 = time.perf_counter()
-        loss = super().fit_batch(batch, epoch)
+        loss = super().fit_batch(batch, epoch, *args, **kwargs)
         torch.cuda.synchronize()
         self.walls.append(time.perf_counter() - t0)
+        self.batches += 1
         return loss
+
+    def evaluate_batch(self, batch, stage):
+        self.batches += 1
+        return super().evaluate_batch(batch, stage)
 
     def on_stage_start(self, stage, epoch=None):
         torch.cuda.synchronize()
@@ -1950,6 +1993,14 @@ class TimedBrain(recipe.SexAnonymizationBrain):
         torch.cuda.synchronize()
         self.marks.append((stage.name, epoch, time.perf_counter()))
         self.stage_losses.append((stage.name, epoch, stage_loss))
+
+
+class TimedBrain(Timed, recipe.SexAnonymizationBrain):
+    """The anonymizer recipe's brain with the smoke's clocks."""
+
+
+class TimedGenderBrain(Timed, gender.GenderBrain):
+    """The gender recipe's brain with the smoke's clocks."""
 
 
 def _recipe_batch(b: int, n_samples: int, seed: int, first_label: int = 0):
@@ -2209,17 +2260,23 @@ def _write_frozen(work: Path, asr: ASRModel, lm: TransformerLM, emb: Xvector,
     }
 
 
-def _main_argv(root: Path, out: Path, dirs: dict) -> list[str]:
+def _recipe_argv(config: str, root: Path, out: Path, test_csv: str, **extra) -> list[str]:
+    """A recipe's command line on build_corpus's splits (the test split as
+    valid too), writing under ``out``, on DEVICE."""
     args = {"data_folder": str(root), "train_splits": '["train-clean"]', "dev_splits": '["test-clean"]',
             "test_splits": '["test-clean"]', "train_csv": str(root / "train.csv"),
-            "valid_csv": str(root / "test-clean.csv"), "test_csv": f'["{root / "test-clean.csv"}"]',
+            "valid_csv": str(root / "test-clean.csv"), "test_csv": test_csv,
             "output_folder": str(out), "save_folder": str(out / "save"),
-            "train_log": str(out / "train_log.txt"), "number_of_epochs": str(MAIN_EPOCHS),
-            "max_decode_steps": str(MAIN_DECODE_STEPS), **dirs, "device": DEVICE}
-    argv = [str(Path(__file__).resolve().parent / "configs" / "convae.yaml")]
+            "train_log": str(out / "train_log.txt"), **{k: str(v) for k, v in extra.items()}, "device": DEVICE}
+    argv = [str(Path(__file__).resolve().parent / "configs" / config)]
     for k, v in args.items():
         argv += [f"--{k}", v]
     return argv
+
+
+def _main_argv(root: Path, out: Path, dirs: dict) -> list[str]:
+    return _recipe_argv("convae.yaml", root, out, f'["{root / "test-clean.csv"}"]',
+                        number_of_epochs=MAIN_EPOCHS, max_decode_steps=MAIN_DECODE_STEPS, **dirs)
 
 
 def _main_first_run_checks(brain: TimedBrain, batch) -> tuple[float, int, float, float]:
@@ -2378,6 +2435,247 @@ def phase_main(asr: ASRModel, lm: TransformerLM, emb: Xvector, clf: XvectorClass
         shutil.rmtree(work, ignore_errors=True)
 
 
+GENDER_SPEAKERS = (8, 4)  # speakers of each sex: train, test (the test split is the valid one too)
+GENDER_UTTS = 4
+GENDER_WORDS = 8  # ~3.3 s an utterance
+GENDER_EPOCHS = 2
+PITCH_SPEAKERS = (4, 2)
+PITCH_UTTS = 2
+PITCH_WORDS = 5  # ~2.1 s an utterance
+PITCH_BATCH = 8
+GENDER_AUG_ATOL = 1e-5  # the augmentations, card against the CPU on the same draws
+EVALUATOR_ATOL = 1e-5  # FeatureClassifier.from_checkpoint against the recovered brain
+
+
+def _gender_argv(config: str, root: Path, out: Path, **extra) -> list[str]:
+    return _recipe_argv(config, root, out, str(root / "test-clean.csv"), **extra)
+
+
+def _gender_run(entry, argv: list[str], counters: dict, loaders: list) -> tuple:
+    """One ``entry.main(argv)`` with the launch counts set to 0 right before
+    and read right after: K1 must launch once a batch the loops fed, K2-K7
+    never. -> (the brain, the run's report)."""
+    for c in counters.values():
+        c.launches = 0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    n_loaders = len(loaders)
+    t0 = time.perf_counter()
+    brain = entry.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches["fused_fbank"] != brain.batches or any(launches[k] for k in MAIN_COUNTERS[1:]):
+        raise AssertionError(f"{entry.__name__}.main() fed {brain.batches} batches, launched {launches}")
+    losses = [loss for _, _, loss in brain.stage_losses]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(list(brain.test_stats.values()))):
+        raise AssertionError(f"{entry.__name__}.main(): stage losses {brain.stage_losses}, test {brain.test_stats}")
+    train, marks = loaders[n_loaders][0], brain.marks
+    stage = [(marks[i][0], marks[i][1], marks[i + 1][2] - marks[i][2]) for i in range(0, len(marks), 2)]
+    train_walls = [w for name, _, w in stage if name == "TRAIN"]
+    peak = torch.cuda.max_memory_allocated()
+    return brain, {
+        "wall_s": wall, "batches": brain.batches, "launches": launches,
+        "stage_walls_s": [{"stage": n, "epoch": e, "s": w} for n, e, w in stage],
+        "steps": len(brain.walls), "ms_per_step": 1e3 * statistics.median(brain.walls),
+        "step_walls_ms": [1e3 * w for w in brain.walls],
+        "loader_ms_per_batch": 1e3 * statistics.median(train.draws),
+        "loader_share_of_train": sum(train.draws) / sum(train_walls),
+        "peak_gib": peak / 2**30, "added_gib": (peak - resident) / 2**30,
+        "stage_losses": brain.stage_losses, "test_stats": brain.test_stats}
+
+
+def _anonymizer_checkpoints(ckpt_dir: str) -> dict:
+    """Three full-width ConvAutoencoder checkpoints in the JAX package's
+    format (the port's Checkpointer) with frontier metas; -> the
+    ``valid_frontier`` pick's (epoch 2) state."""
+    model = ConvAutoencoder(generator=torch.Generator().manual_seed(SEED + 9), device=DEVICE)
+    ckptr = Checkpointer(ckpt_dir, {
+        "model": PytreeRecoverable(lambda: anonymizer_variables(model)["params"], lambda _: None),
+        "model_state": PytreeRecoverable(lambda: recipe.model_state_tree(model), lambda _: None)})
+    picked = {}
+    for epoch, acc, util in ((1, 0.9, 0.99), (2, 0.55, 0.9), (3, 0.5, 0.4)):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.01)
+        ckptr.save_checkpoint({"epoch": epoch, "ACC_external": acc, "Utility_Retention": util})
+        if epoch == 2:
+            picked = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return picked
+
+
+def _gender_checks(brain_cls, argv: list[str], out: Path, train_batch, test_batch) -> dict:
+    """After the plain run: its files; K1 against its plain version on a train
+    batch's frames, with its time, bound and yardsticks at those rows; a fresh
+    GenderBrain recovering the kept checkpoint bit-equal; the anonymizer's
+    external evaluator (``FeatureClassifier.from_checkpoint``) on that
+    directory scoring a test batch as the recovered brain does."""
+    missing = [f for f in ("train_log.txt", "hyperparams.yaml", "env.log", "save/label_encoder.txt")
+               if not (out / f).is_file()]
+    ckpt_dir = str(out / "save" / "ckpts")
+    ckpts = Checkpointer(ckpt_dir).list_checkpoints()
+    if missing or len(ckpts) != 1 or "error" not in ckpts[0].meta:
+        raise AssertionError(f"gender main(): missing {missing}, checkpoints {[c.meta for c in ckpts]}")
+    config, _, overrides = parse_arguments(argv)
+    fresh = brain_cls(load_config(config, overrides, device=DEVICE), Checkpointer(ckpt_dir), device=DEVICE)
+    _, k1 = k1_measure(frame_signal(torch.as_tensor(train_batch.sig[0], device=DEVICE)).contiguous(),
+                       fresh.fbank)
+    if not k1["allclose"]:
+        raise AssertionError(f"K1 disagrees with its plain twin at the gender train batch: {k1}")
+    fresh.init_state()
+    fresh.checkpointer.recover_if_possible(min_key="error")
+    for name in ("embedding_model", "classifier"):
+        saved = indexed_state_dict({"params": read_tree(str(Path(ckpts[0].path) / f"{name}.ckpt"))})
+        got = dict(getattr(fresh, name).named_parameters())
+        differ = [k for k, v in saved.items() if not torch.equal(got[k].cpu(), torch.from_numpy(v))]
+        if differ:
+            raise AssertionError(f"the recovered {name} differs from the checkpoint: {differ[:6]}")
+    wavs, lens = (torch.as_tensor(x, device=DEVICE) for x in test_batch.sig)
+    labels = torch.as_tensor(np.asarray(test_batch.gender_encoded), device=DEVICE)
+    _, _, want = fresh.eval_step((wavs, lens, labels))
+    ext = FeatureClassifier.from_checkpoint(ckpt_dir, emb_dim=128, device=DEVICE)
+    with torch.no_grad():
+        feats, _ = fresh.normalizer(fresh.state.norm_state, fresh.fbank(wavs), lens, training=False)
+    got, _, _ = ext.classify_feats(feats, lens)
+    gap = float((got - want).abs().max())
+    if not gap <= EVALUATOR_ATOL:
+        raise AssertionError(f"the external evaluator differs from the recovered brain by {gap}")
+    return {"k1_at_gender_rows": k1, "kept_checkpoint": ckpts[0].meta, "evaluator_max_abs_gap": gap,
+            "evaluator_atol": EVALUATOR_ATOL}
+
+
+def _gender_augmented_step(brain_cls, argv: list[str], batch, counters: dict) -> dict:
+    """One ``fit_batch`` with EnvCorrupt + TimeDomainSpecAugment at the plain
+    run's settings: the batch doubles, the loss is finite; and the two
+    augmentations on the card equal to their CPU cores on the same draws."""
+    config, _, overrides = parse_arguments(argv)
+    hp = load_config(config, overrides, device=DEVICE)
+    hp["env_corrupt"] = augment.EnvCorrupt(noise_snr_low=0.0, noise_snr_high=15.0)
+    hp["augmentation"] = augment.TimeDomainSpecAugment(speeds=[95, 100, 105])
+    brain = brain_cls(hp, device=DEVICE)
+    wavs, lens = (torch.as_tensor(x, device=DEVICE) for x in batch.sig)
+    rows = []
+    brain.classifier.register_forward_hook(lambda m, i, o: rows.append(o.shape[0]))
+    draws = brain.draw(wavs.shape)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(brain.fit_batch(batch, 1, draws))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if not np.isfinite(loss) or rows != [2 * wavs.shape[0]] or launches["fused_fbank"] != 1:
+        raise AssertionError(f"augmented fit_batch: loss {loss}, classifier rows {rows}, launches {launches}")
+
+    def both(on):
+        w, ln = wavs.to(on), lens.to(on)
+        noisy = brain.env_corrupt(w, ln, draws.env)
+        return noisy, *brain.augmentation(torch.cat([w, noisy]), torch.cat([ln, ln]), draws.aug)
+
+    card, cpu = both(DEVICE), both("cpu")
+    gaps = [float((a.cpu() - b).abs().max()) for a, b in zip(card, cpu)]
+    if not max(gaps) <= GENDER_AUG_ATOL:
+        raise AssertionError(f"the augmentations differ on the card from the CPU by {gaps}")
+    aug_ms = cuda_ms(lambda: both(DEVICE), iters=5, warmup=1)
+    return {"loss": loss, "classifier_rows": rows[0], "wall_s": wall, "launches": launches,
+            "augment_ms": aug_ms, "card_vs_cpu_max_abs": {"env_corrupt": gaps[0], "augmented": gaps[1],
+                                                          "lens": gaps[2]}, "atol": GENDER_AUG_ATOL}
+
+
+def phase_gender(card: str) -> dict:
+    """The gender recipes through their entry points on the card, at
+    configs/gender_classifier.yaml's full width (Xvector 512 x 4 + 1500 ->
+    128, 3.2 M parameters, its XvectorClassifier, batch 32, fp32, TF32 off),
+    over a corpus on disk (build_corpus: 8 + 4 speakers of each sex, 4
+    utterances each, ~3.3 s; 64 train, 32 test, the test split as valid too):
+    (a) ``gender_classifier.main`` for GENDER_EPOCHS epochs (4 steps), then
+    the test stage; (b) one ``fit_batch`` with EnvCorrupt +
+    TimeDomainSpecAugment (64 rows); (c) the recon variant
+    (gender_classifier_recon.yaml, 1 epoch) on ConvAutoencoder checkpoints
+    written here, ``valid_frontier``; (d) ``gender_classifier_pitch_norm.main``
+    on a corpus of 16 + 8 utterances of ~2.1 s, batch 8, 2 epochs. Checks:
+    K1 launched once a batch in every run, K2-K7 never; finite losses; (a)'s
+    files and checks (``_gender_checks``); (b) ``_gender_augmented_step``;
+    (c) the pick loaded and unchanged by the run; (d) the native vocoder
+    serving every pitch call and the WAV cache every later read. Reports each
+    run's walls, steps, loader share, peak memory and launches. Returns the
+    launches by kernel over the four runs."""
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="gender_"))
+    counters = {c.__name__: c for c in (fused_fbank, beam_gather, attention_step, attention_step_chunked,
+                                        attention_step_paged, attention_step_paged_chunked, lm_megastep)}
+    make_loaders, brain_cls = gender.make_loaders, gender.GenderBrain
+    loaders: list = []
+
+    def timed_loaders(*args):
+        train, valid, test = make_loaders(*args)
+        loaders.append((TimedLoader(train), TimedLoader(test)))
+        return loaders[-1][0], valid, loaders[-1][1]
+
+    try:
+        root, proot = work / "LibriSpeech", work / "PitchSpeech"
+        t0 = time.perf_counter()
+        _, audio_s = build_corpus(str(root), n_train_spk=GENDER_SPEAKERS[0], n_test_spk=GENDER_SPEAKERS[1],
+                                  utts=GENDER_UTTS, words_per_utt=GENDER_WORDS, seed=SEED + 5)
+        _, pitch_audio_s = build_corpus(str(proot), n_train_spk=PITCH_SPEAKERS[0], n_test_spk=PITCH_SPEAKERS[1],
+                                        utts=PITCH_UTTS, words_per_utt=PITCH_WORDS, seed=SEED + 6)
+        corpus_s = time.perf_counter() - t0
+        anon_dir = str(work / "anonymizer" / "ckpts")
+        picked = _anonymizer_checkpoints(anon_dir)
+        gender.make_loaders, gender.GenderBrain = timed_loaders, TimedGenderBrain
+        runs, total = {}, {k: 0 for k in counters}
+
+        argv = _gender_argv("gender_classifier.yaml", root, work / "out", number_of_epochs=GENDER_EPOCHS)
+        brain, runs["plain"] = _gender_run(gender, argv, counters, loaders)
+        if len(brain.walls) != GENDER_EPOCHS * len(loaders[0][0]):
+            raise AssertionError(f"gender main() took {len(brain.walls)} steps")
+        train_batch, test_batch = loaders[0][0].first, loaders[0][1].first
+        del brain
+        runs["augmented_step"] = _gender_augmented_step(brain_cls, argv, train_batch, counters)
+
+        argv = _gender_argv("gender_classifier_recon.yaml", root, work / "recon", number_of_epochs=1,
+                            trained_recon_model_dir=anon_dir, recon_model_type="convae",
+                            recon_ckpt_select="valid_frontier")
+        brain, runs["recon"] = _gender_run(gender, argv, counters, loaders)
+        differ = [k for k, v in brain.recon_model.state_dict().items() if not torch.equal(v, picked[k])]
+        if not isinstance(brain.recon_model, ConvAutoencoder) or differ:
+            raise AssertionError(f"the recon run's frozen anonymizer differs from the pick: {differ[:6]}")
+        del brain
+
+        served = dict(pitch.SERVED)
+        t0 = time.perf_counter()
+        argv = _gender_argv("gender_classifier_pitch_norm.yaml", proot, work / "pitch", batch_size=PITCH_BATCH,
+                            number_of_epochs=GENDER_EPOCHS)
+        brain, runs["pitch_norm"] = _gender_run(gender_pitch, argv, counters, loaders)
+        n_files = 2 * (PITCH_SPEAKERS[0] + PITCH_SPEAKERS[1]) * PITCH_UTTS
+        calls = {k: pitch.SERVED[k] - served[k] for k in served}
+        cached = len(list((work / "pitch" / "save" / "pitch_cache").glob("*.wav")))
+        if calls != {"native": n_files, "numpy": 0} or cached != n_files:
+            raise AssertionError(f"pitch normalization: {calls} calls for {n_files} files, {cached} cached")
+        runs["pitch_norm"]["pitch_calls"] = calls
+        del brain
+        for name in ("plain", "augmented_step", "recon", "pitch_norm"):
+            for k in counters:
+                total[k] += runs[name]["launches"][k]
+        gender.make_loaders, gender.GenderBrain = make_loaders, brain_cls
+        checks = _gender_checks(brain_cls, _gender_argv("gender_classifier.yaml", root, work / "out",
+                                                   number_of_epochs=GENDER_EPOCHS),
+                                work / "out", train_batch, test_batch)
+        emit({"phase": "gender", "card": card, "config": "configs/gender_classifier.yaml",
+              "corpus": {"train_utterances": 2 * GENDER_SPEAKERS[0] * GENDER_UTTS,
+                         "test_utterances": 2 * GENDER_SPEAKERS[1] * GENDER_UTTS, "audio_s": audio_s,
+                         "pitch_utterances": n_files, "pitch_audio_s": pitch_audio_s, "build_s": corpus_s},
+              "runs": runs, **checks, "launches": total, "seconds": time.perf_counter() - t_phase})
+        return total
+    finally:
+        gender.make_loaders, gender.GenderBrain = make_loaders, brain_cls
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -2415,9 +2713,12 @@ def main() -> int:
     phase_decode_parity(asr, lm, parity_feats)
     recipe_launches = phase_recipe(asr, lm, models[1], models[2], card)
     main_launches = phase_main(asr, lm, models[1], models[2], card)
-    k1["launches"] += recipe_launches["fused_fbank"] + main_launches["fused_fbank"]
+    gender_launches = phase_gender(card)
+    k1["launches"] += (recipe_launches["fused_fbank"] + main_launches["fused_fbank"]
+                       + gender_launches["fused_fbank"])
     k1["launches_by_path"]["recipe"] = recipe_launches["fused_fbank"]
     k1["launches_by_path"]["main"] = main_launches["fused_fbank"]
+    k1["launches_by_path"]["gender"] = gender_launches["fused_fbank"]
     for entry in decode_kernels:
         entry["launches"] = decode_launches[entry["name"]]
         if entry["name"] in ("beam_gather", "attention_step"):  # the recipe's test decodes: f32, physical

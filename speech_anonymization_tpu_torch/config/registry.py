@@ -25,8 +25,7 @@ _ALLOWED_PREFIXES = ("speech_anonymization_tpu_torch.",)
 
 # the JAX package's registered names whose targets the port lacks
 _NOT_PORTED_ITEM = "ROADMAP.md Queue 1 item 5 (the other recipes)"
-NOT_PORTED = ("EnvCorrupt", "TimeDomainSpecAugment", "SpeedPerturb", "l1_loss", "kldiv_loss", "ctc_loss",
-              "classification_error")
+NOT_PORTED = ("l1_loss", "kldiv_loss", "ctc_loss")
 
 
 def register(name: str | None = None):
@@ -71,6 +70,7 @@ def _register_builtins():
         Xvector,
         XvectorClassifier,
     )
+    from ..ops.augment import EnvCorrupt, SpeedPerturb, TimeDomainSpecAugment
     from ..ops.fbank import Fbank, FbankConfig
     from ..ops.normalization import InputNormalizer
     from ..ops.specaugment import SpecAugment
@@ -86,6 +86,9 @@ def _register_builtins():
         "Fbank": fbank,
         "InputNormalization": InputNormalizer,
         "SpecAugment": SpecAugment,
+        "EnvCorrupt": EnvCorrupt,
+        "TimeDomainSpecAugment": TimeDomainSpecAugment,
+        "SpeedPerturb": SpeedPerturb,
         "NoamScheduler": NoamScheduler,
         "ReduceLROnPlateau": ReduceLROnPlateau,
         "EpochCounter": EpochCounter,
@@ -106,6 +109,7 @@ def _register_builtins():
         "nll_loss": lambda **kw: L.nll_loss,
         "cosine_similarity_loss": lambda **kw: L.cosine_similarity_loss,
         "confusion_loss": lambda **kw: L.confusion_loss,
+        "classification_error": lambda **kw: L.classification_error,
         "MILoss": L.MILoss,
         "min": min,
         "max": max,

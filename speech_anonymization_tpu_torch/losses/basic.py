@@ -1,8 +1,9 @@
 """Losses of the anonymizer's eval step, reference torch semantics.
 
 Counterparts of ``speech_anonymization_tpu/losses/basic.py`` ``mse_loss``,
-``nll_loss`` (utterance-level (B, C) case), ``confusion_loss`` and
-``cosine_similarity_loss`` (the ASR utility term).
+``nll_loss`` (utterance-level (B, C) case), ``confusion_loss``,
+``cosine_similarity_loss`` (the ASR utility term) and
+``classification_error`` (the gender recipe's error rate).
 """
 
 from __future__ import annotations
@@ -38,3 +39,23 @@ def cosine_similarity_loss(x1: torch.Tensor, x2: torch.Tensor, eps: float = 1e-6
     n2 = torch.sqrt(torch.sum(x2 * x2, dim=2))
     loss = 1.0 - dot / torch.clamp_min(n1 * n2, eps)
     return torch.sum(loss) / loss.shape[1]
+
+
+def classification_error(log_probs: torch.Tensor, targets: torch.Tensor,
+                         lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """The share of argmax predictions that miss their targets
+    (``sb.nnet.losses.classification_error``): over (B, C) log-probs (or (B, 1,
+    C)) against (B,) targets, or over (B, T, C) against (B, T) within the
+    valid prefix of each row (relative ``lengths``, rounded half to even)."""
+    if log_probs.ndim == 3 and log_probs.shape[1] == 1:
+        log_probs = log_probs[:, 0]
+    err = (torch.argmax(log_probs, dim=-1) != targets).to(torch.float32)
+    if log_probs.ndim == 2:
+        return err.mean()
+    t = targets.shape[1]
+    if lengths is None:
+        mask = torch.ones_like(err)
+    else:
+        idx = torch.arange(t, device=err.device)[None, :]
+        mask = (idx < torch.round(lengths * t)[:, None]).to(torch.float32)
+    return (err * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -4,7 +4,11 @@ Counterpart of ``speech_anonymization_tpu/models/xvector.py`` (reference
 models/external_gender_classifiers.py:24-183). Public inputs keep the JAX
 layout, (B, T, in_channels) features and (B, E) embeddings. ``convs[i]``,
 ``norms[i]`` and ``dense[i]`` hold flax's ``Conv_i``, ``BatchNorm_i`` and
-``Dense_i``.
+``Dense_i``. The norms are ``components.BatchNorm``: in train mode they use
+and keep the statistics as flax's ``BatchNorm`` does (the running variance
+moves toward the biased batch variance; torch's ``BatchNorm1d`` takes the
+unbiased one). The layers keep torch's default initialisation; the gender
+recipe draws a fresh model's weights with ``models/init.py`` ``flax_init_``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pooling import statistics_pooling
+from .components import BatchNorm
 
 
 class Xvector(nn.Module):
@@ -38,7 +43,7 @@ class Xvector(nn.Module):
             nn.Conv1d(i, o, k, dilation=d)
             for i, o, k, d in zip(ins, tdnn_channels, tdnn_kernel_sizes, tdnn_dilations)
         )
-        self.norms = nn.ModuleList(nn.BatchNorm1d(o, eps=1e-5) for o in tdnn_channels)
+        self.norms = nn.ModuleList(BatchNorm(o, eps=1e-5) for o in tdnn_channels)
         self.dense = nn.ModuleList([nn.Linear(2 * tdnn_channels[-1], lin_neurons)])
         self.to(device)
 
@@ -57,7 +62,7 @@ class XvectorClassifier(nn.Module):
                  device: str | torch.device = "cuda"):
         super().__init__()
         self.norms = nn.ModuleList(
-            nn.BatchNorm1d(lin_neurons, eps=1e-5) for _ in range(lin_blocks + 1)
+            BatchNorm(lin_neurons, eps=1e-5) for _ in range(lin_blocks + 1)
         )
         self.dense = nn.ModuleList(
             [nn.Linear(lin_neurons, lin_neurons) for _ in range(lin_blocks)]

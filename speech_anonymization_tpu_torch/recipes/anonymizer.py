@@ -432,6 +432,46 @@ def _flat(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+@torch.no_grad()
+def copy_into(targets: dict, state: dict) -> None:
+    """Copy ``state``'s numpy leaves into the tensors ``targets`` (same keys,
+    or KeyError), across devices."""
+    if set(targets) != set(state):
+        raise KeyError(f"checkpoint and model disagree on {sorted(set(targets) ^ set(state))[:8]}")
+    for k, v in state.items():
+        targets[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+
+
+def set_model_params(model: torch.nn.Module, params: dict) -> None:
+    """An anonymizer's flax ``params`` tree (a checkpoint's ``model``) into ``model``."""
+    copy_into(dict(model.named_parameters()), anonymizer_state_dict({"params": params}))
+
+
+def model_state_tree(model: torch.nn.Module) -> dict:
+    """An anonymizer's BatchNorm statistics as the JAX recipe's ``model_state`` tree."""
+    stats = anonymizer_batch_stats(model)
+    return {"batch_stats": stats} if stats else {}
+
+
+def set_model_state(model: torch.nn.Module, model_state: dict) -> None:
+    copy_into(_flat(anonymizer_batch_stats(model)), _flat(model_state.get("batch_stats", {})))
+
+
+def frontier_pick(ckpts: list, min_utility: float):
+    """The ``valid_frontier`` checkpoint: among ``ckpts`` whose meta has
+    ACC_external and Utility_Retention, those with Utility_Retention >=
+    ``min_utility`` (else the most useful one), the one whose ACC_external is
+    nearest chance (ties: the higher utility). -> (pick, pool size, scored
+    count); pick None when no checkpoint is scored."""
+    scored = [c for c in ckpts if "ACC_external" in c.meta and "Utility_Retention" in c.meta]
+    if not scored:
+        return None, 0, 0
+    ok = [c for c in scored if c.meta["Utility_Retention"] >= min_utility]
+    pool = ok or [max(scored, key=lambda c: c.meta["Utility_Retention"])]
+    pick = min(pool, key=lambda c: (abs(c.meta["ACC_external"] - 0.5), -c.meta["Utility_Retention"]))
+    return pick, len(pool), len(scored)
+
+
 class SexAnonymizationBrain(Brain):
     """The anonymizer recipe's epoch loop: :class:`AnonymizerTrainer`'s step
     under ``Brain.fit`` / ``evaluate``, with the JAX recipe's hooks.
@@ -493,25 +533,15 @@ class SexAnonymizationBrain(Brain):
         """The parameters as the JAX recipe's ``model`` tree."""
         return anonymizer_variables(self.model)["params"]
 
-    @torch.no_grad()
-    def _copy_into(self, targets: dict, state: dict) -> None:
-        if set(targets) != set(state):
-            raise KeyError(f"checkpoint and model disagree on {sorted(set(targets) ^ set(state))[:8]}")
-        for k, v in state.items():
-            targets[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
-
     def _set_params(self, params: dict) -> None:
-        self._copy_into(dict(self.model.named_parameters()),
-                        anonymizer_state_dict({"params": params}))
+        set_model_params(self.model, params)
 
     def _model_state(self) -> dict:
         """The BatchNorm statistics as the JAX recipe's ``model_state`` tree."""
-        stats = anonymizer_batch_stats(self.model)
-        return {"batch_stats": stats} if stats else {}
+        return model_state_tree(self.model)
 
     def _set_model_state(self, model_state: dict) -> None:
-        self._copy_into(_flat(anonymizer_batch_stats(self.model)),
-                        _flat(model_state.get("batch_stats", {})))
+        set_model_state(self.model, model_state)
 
     def _set_normalizer(self, tree: dict) -> None:
         self.trainer.state.norm_state = NormalizerState(
@@ -609,15 +639,10 @@ class SexAnonymizationBrain(Brain):
             return
         template = self._params_tree()
         if str(self.hparams.get("eval_ckpt_select", "avg_utility")) == "valid_frontier":
-            scored = [c for c in self.checkpointer.find_checkpoints()
-                      if "ACC_external" in c.meta and "Utility_Retention" in c.meta]
-            if scored:
-                min_util = float(self.hparams.get("eval_ckpt_min_utility", 0.85))
-                ok = [c for c in scored if c.meta["Utility_Retention"] >= min_util]
-                pool = ok or [max(scored, key=lambda c: c.meta["Utility_Retention"])]
-                pick = min(pool, key=lambda c: (abs(c.meta["ACC_external"] - 0.5),
-                                                -c.meta["Utility_Retention"]))
-                self.selected_ckpt_meta = {**pick.meta, "pool_n": len(pool), "kept_n": len(scored)}
+            pick, pool_n, kept_n = frontier_pick(self.checkpointer.find_checkpoints(),
+                                                 float(self.hparams.get("eval_ckpt_min_utility", 0.85)))
+            if pick is not None:
+                self.selected_ckpt_meta = {**pick.meta, "pool_n": pool_n, "kept_n": kept_n}
                 print(f"[eval_ckpt_select=valid_frontier] epoch {pick.meta.get('epoch')}: valid "
                       f"ACC_external={pick.meta['ACC_external']:.3f} "
                       f"Utility={pick.meta['Utility_Retention']:.3f}")

@@ -23,6 +23,16 @@ checks, at the CPU parity tests' tolerances:
     a sign that rounding decides) only |step| <= lr, and those elements are
     counted (``sign_only``).
 
+:func:`compare_gender_step` does the same for the gender recipe's
+``GenderBrain``: one micro-batch (accumulation 1) on the card and on the CPU
+from the same seeded weights and the same draws: the loss (LOSS_RTOL), the
+error (equal), the statistics and the normalizer as above, Adam's count, its
+moments within SEX_MOMENT_RTOL (at full width the x-vector's TDNN gradients
+are f32-limited: a CPU f32 run lies up to ~7e-3 of a tensor's largest
+element from float64, through the pooled standard deviations;
+``tests/test_torch_gender.py::test_full_width_gradients_are_f32_limited``)
+and the parameters as above.
+
 Run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).
 """
@@ -34,11 +44,14 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..models.xvector import Xvector, XvectorClassifier
+from ..ops.augment import EnvCorrupt, TimeDomainSpecAugment
 from ..ops.fbank import Fbank
 from ..ops.normalization import InputNormalizer
 from ..ops.specaugment import SpecAugment
 from ..recipes.anonymizer import DEFAULT_SCHEDULE
-from ..train.schedulers import NoamScheduler
+from ..train.epoch_loop import EpochCounter
+from ..train.schedulers import NoamScheduler, ReduceLROnPlateau
 
 # loss terms: recon and utility agree to 1e-5. The sex head's last
 # BatchNorms normalize the pooled features over the batch, and those differ
@@ -88,6 +101,20 @@ def convae_hparams(device, schedule=DEFAULT_SCHEDULE, noam: NoamScheduler | None
             "gradient_clipping": 5.0, "seed": 8886, "compute_features": Fbank(device=device),
             "normalize": InputNormalizer(dim=80, update_until_epoch=4),
             "augmentation": SpecAugment(), "noam_annealing": noam or NoamScheduler()}
+
+
+def gender_hparams(device, augment: bool = True, **widths) -> dict:
+    """gender_classifier.yaml's objects on ``device`` (the x-vector at full
+    width unless ``widths`` say otherwise: ``tdnn_channels``, ``lin_neurons``),
+    with EnvCorrupt and TimeDomainSpecAugment when ``augment``."""
+    emb = widths.get("lin_neurons", 128)
+    return {"compute_features": Fbank(device=device), "mean_var_norm": InputNormalizer(dim=80),
+            "embedding_model": Xvector(**widths, device=device),
+            "classifier": XvectorClassifier(lin_neurons=emb, device=device),
+            "lr_annealing": ReduceLROnPlateau(1e-3), "epoch_counter": EpochCounter(1), "train_logger": None,
+            "env_corrupt": EnvCorrupt() if augment else None,
+            "augmentation": TimeDomainSpecAugment() if augment else None,
+            "gradient_accumulation": 1, "gradient_clipping": 5.0, "lr_start": 1e-3, "seed": 1230}
 
 
 def train_batch(b: int, samples: int, seed: int, device="cpu", vocab: int = 5000, tokens: int = 40,
@@ -223,6 +250,58 @@ def compare_cycle(make_trainer: Callable, batches: Sequence[tuple], epoch: int,
                       "loss_rtol": LOSS_RTOL, "sex_rtol": SEX_RTOL, "grad_rtol": grad_rtol,
                       "moment_rtol": moment_rtol, "stats_rtol": STATS_RTOL, "norm_rtol": NORM_RTOL,
                       "lr": lr})
+    if failures:
+        raise AssertionError(f"card and CPU disagree ({len(failures)} checks): " + "; ".join(failures)
+                             + f"; report {report}")
+    return report
+
+
+def _gender_state(brain) -> tuple[dict, dict]:
+    stats = {f"{name}.{k}": v for name in ("embedding_model", "classifier")
+             for k, v in getattr(brain, name).state_dict().items() if k.endswith(("running_mean", "running_var"))}
+    return {k: p.detach().clone() for k, p in brain.params.items()}, stats
+
+
+def compare_gender_step(make_brain: Callable, batch: tuple, device: str = "cuda") -> dict:
+    """One ``GenderBrain`` micro-batch, ``(wavs, lens, labels)``, on ``device``
+    and on the CPU: ``make_brain(device)`` builds each (the same seeded
+    weights, accumulation 1), the CPU brain's draws feed both. -> the gaps;
+    raises AssertionError listing every check beyond its tolerance."""
+    card, cpu = make_brain(device), make_brain("cpu")
+    start, _ = _gender_state(cpu)
+    got_start, _ = _gender_state(card)
+    if any(not torch.equal(got_start[k].cpu(), v) for k, v in start.items()):
+        raise AssertionError("the card and CPU brains start from different weights")
+    draws = cpu.draw(batch[0].shape)
+    failures: list = []
+    g = float(card.fit_batch(tuple(x.to(device) for x in batch), 0, draws))
+    w = float(cpu.fit_batch(tuple(x.cpu() for x in batch), 0, draws))
+    if not abs(g - w) <= LOSS_RTOL * abs(w) + 1e-7:
+        failures.append(f"loss card {g} cpu {w} beyond rtol {LOSS_RTOL}")
+    errors = float(card.metrics["error"]), float(cpu.metrics["error"])
+    if errors[0] != errors[1]:
+        failures.append(f"error card {errors[0]} cpu {errors[1]}")
+    (got_p, got_s), (want_p, want_s) = _gender_state(card), _gender_state(cpu)
+    report = {"loss_rel_gap": abs(g - w) / max(abs(w), 1e-30), "errors": errors,
+              "stats_rel_gap": tensor_gaps(got_s, want_s, STATS_RTOL, "BatchNorm statistics", failures)}
+    for name, a, b in zip(("count", "glob_mean", "glob_std"), card.state.norm_state, cpu.state.norm_state):
+        gap = float(np.abs(_np(a) - _np(b)).max())
+        report["norm_max_abs_gap"] = max(report.get("norm_max_abs_gap", 0.0), gap)
+        if not np.allclose(_np(a), _np(b), rtol=NORM_RTOL, atol=NORM_RTOL):
+            failures.append(f"normalizer {name} differs by {gap}")
+    g_opt, w_opt = card.state.opt_state["adam"], cpu.state.opt_state["adam"]
+    if g_opt.count != w_opt.count or w_opt.count != 1:
+        raise AssertionError(f"Adam counts: card {g_opt.count}, cpu {w_opt.count}")
+    report["mu_rel_gap"] = tensor_gaps(g_opt.mu, w_opt.mu, SEX_MOMENT_RTOL, "Adam mu", failures)
+    report["nu_rel_gap"] = tensor_gaps(g_opt.nu, w_opt.nu, SEX_MOMENT_RTOL, "Adam nu", failures)
+    lr, floor = cpu.lr_annealing.lr, noise_floor(w_opt.mu)
+    sign_only, worst = 0, 0.0
+    for k in want_p:
+        n, gap = step_gaps(k, got_p[k], want_p[k], start[k], (g_opt.mu[k], w_opt.mu[k]),
+                           (g_opt.nu[k], w_opt.nu[k]), 1, lr, floor, failures)
+        sign_only, worst = sign_only + n, max(worst, gap)
+    report.update(param_max_abs_gap=worst, sign_only=sign_only,
+                  params=sum(p.numel() for p in want_p.values()))
     if failures:
         raise AssertionError(f"card and CPU disagree ({len(failures)} checks): " + "; ".join(failures)
                              + f"; report {report}")

@@ -9,6 +9,9 @@ Counterpart of ``speech_anonymization_tpu/train/state.py``:
     the count lives on the host, so deciding whether a micro-batch steps
     reads nothing back from the device;
   * :func:`clip_by_global_norm` (``gradient_clipping: 5.0``; norm floor 1e-12);
+  * :func:`guarded_step`: ``make_update_fn``'s update at the accumulation
+    count (the gender recipe's): clip the buffer, and only where the norm and
+    the loss are finite, step the parameters AND the optimizer state;
   * :func:`adam_like_reference` (b1 0.9, b2 0.98, eps 1e-9) and
     :func:`sgd_like_reference` (nesterov momentum 0.99): optax's ``adam`` and
     ``sgd`` over an explicit state, keyed by parameter name. The lr is a
@@ -152,3 +155,28 @@ class TrainState:
     def reset_accumulation(self) -> None:
         self.accum_grads = {k: torch.zeros_like(a) for k, a in self.accum_grads.items()}
         self.accum_count = 0
+
+
+@torch.no_grad()
+def guarded_step(params: Tensors, state: TrainState, opt: Adam | SGD, opt_key: str, lr: float,
+                 loss: torch.Tensor, clip_norm: float | None) -> bool:
+    """``make_update_fn``'s update, at the accumulation count: the buffer
+    clipped by its global norm (``clip_norm``, or only measured when None),
+    then, if the norm and ``loss`` are finite, ``opt``'s update of ``params``
+    (in place) and of ``state.opt_state[opt_key]``; otherwise the whole
+    update is skipped, parameters, moments and count alike. The buffer is
+    reset either way. Reads the finite check back to the host (one
+    synchronisation an update), since the optimizer's count lives there.
+    -> whether the update was applied."""
+    g = state.accum_grads
+    if clip_norm is not None:
+        g, gnorm = clip_by_global_norm(g, float(clip_norm))
+    else:
+        gnorm = global_norm(g.values())
+    finite = bool(torch.isfinite(gnorm) & torch.isfinite(loss))
+    if finite:
+        updates, state.opt_state[opt_key] = opt.update(g, state.opt_state[opt_key], lr)
+        for k, p in params.items():
+            p.add_(updates[k])
+    state.reset_accumulation()
+    return finite

@@ -10,8 +10,10 @@
     requested device;
   * the load in a subprocess where ``import yaml`` fails;
   * the registry: a tag into the JAX package is refused, a name whose target is
-    not ported raises ``NotImplementedError``, and the JAX config tests'
-    cases (tags, refs, interpolation, overrides, refusals) hold on the port.
+    not ported raises ``NotImplementedError``, the names ported with the gender
+    recipe resolve to the port's objects and build from YAML, and the JAX
+    config tests' cases (tags, refs, interpolation, overrides, refusals) hold
+    on the port.
 """
 
 import glob
@@ -32,6 +34,8 @@ from speech_anonymization_tpu_torch.config import load_config, parse_arguments
 from speech_anonymization_tpu_torch.config.registry import NOT_PORTED, resolve_path
 from speech_anonymization_tpu_torch.config.yaml_config import _New, _Ref, _Tagged, _parse_scalar, load_raw
 from speech_anonymization_tpu_torch.config.yaml_subset import YAMLError, load
+from speech_anonymization_tpu_torch.losses import classification_error
+from speech_anonymization_tpu_torch.ops import augment
 from speech_anonymization_tpu_torch.ops.fbank import Fbank
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer
 from speech_anonymization_tpu_torch.ops.specaugment import SpecAugment
@@ -250,6 +254,28 @@ def test_unported_names_raise_not_implemented(name):
         resolve_path(name)
     with pytest.raises(NotImplementedError):
         load_config(io.StringIO(f"x: !name:{name}\n"), device="cpu")
+
+
+# the names ported with the gender recipe: each resolves to the port's own
+# object and builds from YAML as the gender configs write it
+NOW_PORTED = {
+    "EnvCorrupt": ("x: !new:EnvCorrupt\n  noise_snr_low: 2.0\n  noise_snr_high: 9.0\n",
+                   lambda x: type(x) is augment.EnvCorrupt and (x.snr_low, x.snr_high) == (2.0, 9.0)),
+    "TimeDomainSpecAugment": ("x: !new:TimeDomainSpecAugment\n  sample_rate: 16000\n  speeds: [95, 100, 105]\n",
+                              lambda x: type(x) is augment.TimeDomainSpecAugment and x.speeds == (95, 100, 105)),
+    "SpeedPerturb": ("x: !new:SpeedPerturb\n  speeds: [90, 110]\n",
+                     lambda x: type(x) is augment.SpeedPerturb and x.speeds == (90, 110)),
+    "classification_error": ("x: !new:classification_error\n", lambda x: x is classification_error),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NOW_PORTED))
+def test_gender_recipe_names_resolve_to_the_port(name):
+    assert name not in NOT_PORTED
+    resolved = resolve_path(name)
+    assert getattr(resolved, "__module__", "").startswith("speech_anonymization_tpu_torch.")
+    text, check = NOW_PORTED[name]
+    assert check(load_config(io.StringIO(text), device="cpu")["x"])
 
 
 def test_circular_ref_detected():

@@ -3,8 +3,9 @@ four configurations with identity, single-owner and mixed tables; every
 kernel on int8 caches too: K2, K3 and K5 whole-row, K4, K6 and K7 above the
 whole-row bound), the anonymization and decode slices (physical and
 paged caches, f32, bf16 and int8, with and without the LM) on the card
-against the CPU, and the anonymizer's training step (one convae
-accumulation cycle on the card against the CPU; K1 once a micro-batch).
+against the CPU, the anonymizer's training step (one convae
+accumulation cycle on the card against the CPU; K1 once a micro-batch) and
+the gender recipe's (one GenderBrain step, plain and augmented).
 Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -45,7 +46,9 @@ from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_pow
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle
-from speech_anonymization_tpu_torch.tools.train_parity import compare_cycle, convae_hparams, train_batch
+from speech_anonymization_tpu_torch.recipes.gender_classifier import GenderBrain
+from speech_anonymization_tpu_torch.tools.train_parity import (compare_cycle, compare_gender_step, convae_hparams,
+                                                              gender_hparams, train_batch)
 from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_
 
@@ -67,10 +70,11 @@ def _wavs(batch: int, n: int, seed: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("batch,n", [(1, 0), (1, 10079), (1, 10080), (1, 10240), (3, 32077),
-                                     (1, 20160), (1, 20320), (1, 20480), (32, 161120)])
+                                     (1, 20160), (1, 20320), (1, 20480), (32, 161120), (32, 52800)])
 def test_k1_matches_plain_twin(cuda, batch, n):
-    """Row counts 1, 63, 64, 65, 603, 127, 128, 129 and bench.py's 32,256:
-    partial, whole and ragged 128-row blocks."""
+    """Row counts 1, 63, 64, 65, 603, 127, 128, 129, bench.py's 32,256 and
+    the gender recipe's batch of 32 x 3.3 s (10,592): partial, whole and
+    ragged 128-row blocks."""
     fb = Fbank(device=cuda)
     frames = frame_signal(_wavs(batch, n, seed=n).to(cuda)).contiguous()
     before = fused_fbank.launches
@@ -1110,6 +1114,19 @@ def test_convae_update_on_card_matches_cpu(cuda, phase):
     schedule = {"generator": recipe.DEFAULT_SCHEDULE, "sex_classifier": recipe.DEFAULT_SCHEDULE[::-1],
                 "recon_utility": [{"weights": {"recon": 1.0, "utility": 1.0}, "train": "all"}]}[phase]
     report = compare_cycle(_trainer_factory(schedule), _train_batches(3), 0)
+    assert report["sign_only"] <= 0.01 * report["params"], report
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_gender_step_on_card_matches_cpu(cuda, augment):
+    """One GenderBrain micro-batch at gender_classifier.yaml's full width
+    (8 x 2 s; with EnvCorrupt + TimeDomainSpecAugment the batch doubles) on
+    the card and on the CPU from the same weights and draws, at
+    ``tools/train_parity.py``'s tolerances; K1 launched once."""
+    batch = train_batch(8, 32_000, 21)[:3]
+    fused_fbank.launches = 0
+    report = compare_gender_step(lambda d: GenderBrain(gender_hparams(d, augment), device=d), batch)
+    assert fused_fbank.launches == 1
     assert report["sign_only"] <= 0.01 * report["params"], report
 
 

@@ -45,7 +45,11 @@ def test_import_pulls_in_no_jax():
         "speech_anonymization_tpu_torch.data.librispeech, speech_anonymization_tpu_torch.data.prefetch, "
         "speech_anonymization_tpu_torch.data.synth, speech_anonymization_tpu_torch.data.tokenizer, "
         "speech_anonymization_tpu_torch.config, speech_anonymization_tpu_torch.config.registry, "
-        "speech_anonymization_tpu_torch.config.yaml_config, speech_anonymization_tpu_torch.config.yaml_subset\n"
+        "speech_anonymization_tpu_torch.config.yaml_config, speech_anonymization_tpu_torch.config.yaml_subset, "
+        "speech_anonymization_tpu_torch.recipes.gender_classifier, "
+        "speech_anonymization_tpu_torch.recipes.gender_classifier_pitch_norm, "
+        "speech_anonymization_tpu_torch.ops.augment, speech_anonymization_tpu_torch.data.pitch, "
+        "speech_anonymization_tpu_torch.losses.basic\n"
         "from speech_anonymization_tpu_torch.recipes.anonymizer import main, dataio_prepare, make_loaders\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'speech_anonymization_tpu') "
         "if m in sys.modules]\n"

@@ -76,3 +76,43 @@ def shape_init(cls):
             return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), shapes)
 
     return ShapeInit
+
+
+def jax_noise_draws(key, b: int, n: int, snr_low: float = 0.0, snr_high: float = 15.0):
+    """The draws the JAX package's ``add_noise(key, ...)`` makes (white noise),
+    as the port's ``NoiseDraws``: its key split into (snr, pick, noise)."""
+    from speech_anonymization_tpu_torch.ops.augment import NoiseDraws
+
+    k_snr, _, k_noise = jax.random.split(key, 3)
+    snr = jax.random.uniform(k_snr, (b, 1), minval=snr_low, maxval=snr_high)
+    return NoiseDraws(t(snr), t(jax.random.normal(k_noise, (b, n))), None)
+
+
+def jax_time_domain_draws(key, b: int, n: int, n_speeds: int = 3):
+    """The draws of the JAX package's ``TimeDomainSpecAugment()(key, ...)``
+    (speed, drop_freq, drop_chunk at their defaults), as the port's
+    ``TimeDomainDraws``, by the same ``jax.random.split`` chain."""
+    from speech_anonymization_tpu_torch.ops.augment import ChunkDraws, FreqDraws, TimeDomainDraws
+
+    k_speed, k_freq, k_chunk = jax.random.split(key, 3)
+    speed = jax.random.randint(k_speed, (b,), 0, n_speeds)
+    k_count, k_centre = jax.random.split(k_freq)
+    freq = FreqDraws(t(jax.random.randint(k_count, (b,), 0, 3)).long(),
+                     t(jax.random.uniform(k_centre, (b, 2), minval=0.05, maxval=0.45)))
+    keys = jax.random.split(k_chunk, 3)
+    chunk = ChunkDraws(t(jax.random.randint(keys[0], (b, 1), 0, 4)).long(),
+                       t(jax.random.randint(keys[1], (b, 3), 0, jnp.maximum(n - 2000, 1))).long(),
+                       t(jax.random.randint(keys[2], (b, 3), 1000, 2000)).long())
+    return TimeDomainDraws(t(speed).long(), freq, chunk)
+
+
+def jax_gender_draws(key, b: int, n: int, env: bool, aug: bool):
+    """The draws of the JAX ``GenderBrain._forward`` on (b, n) waveforms with
+    ``key``: ``env_corrupt`` from its first split, the augmentation (over 2b
+    rows with ``env_corrupt``) from its second; as the port's ``GenderDraws``."""
+    from speech_anonymization_tpu_torch.recipes.gender_classifier import GenderDraws
+
+    k_env, k_aug = jax.random.split(key)
+    rows = 2 * b if env else b
+    return GenderDraws(jax_noise_draws(k_env, b, n) if env else None,
+                       jax_time_domain_draws(k_aug, rows, n) if aug else None)
