@@ -118,7 +118,7 @@ failure raises and exits non-zero:
            steps, U 512: the chunked int8 kernels): paged with the LM (K6 for
            the ASR, one K7 launch a step for the LM), paged with the LM per
            layer (K6 x 18), paged without it (K6 x 6) and physical (K4 + K2),
-           its timing 2 decodes after the launch check; and B3,
+           its timing 1 decode after the launch check; and B3,
            configs/convae.yaml's evaluation batch (3 utterances x beam 66:
            N 198) at D1's length with the LM and f32 caches, once with the
            default hparams (no decode_paged_kv override: the paging rule
@@ -202,7 +202,34 @@ failure raises and exits non-zero:
            brain does (1e-5); K1 against its plain version on a train batch's
            frames, timed there beside its yardsticks and bound; the recon run's
            frozen anonymizer equal to the pick. Reports each run's walls, step
-           median, loader share, peak memory and launches.
+           median, loader share, peak memory and launches;
+  asr_lm   the ASR and LM recipes' entry points, ``recipes/asr_train.py`` and
+           ``recipes/lm_train.py`` ``main(argv)``, at full width. (a) The ASR
+           on configs/transformer.yaml (ASRModel(), 161 M parameters, batch
+           10, accumulation 4, CTC 0.3 + KLdiv 0.7) over a corpus on disk
+           (build_corpus: 40 train and 10 test utterances of ~10 s, the test
+           split as valid too) with ``--number_of_epochs 2
+           --stage_one_epochs 1 --valid_search_interval 1``: epoch 1 on Adam,
+           epoch 2 on SGD, each valid stage a beam-10 decode (N 100), the
+           test stage one beam-66 decode (N 660; both physical: K2 + K4 at U
+           256), then the same argv with ``--eval_only``. Checks: finite
+           losses, the switch to SGD, both checkpoints on disk (ACC metas;
+           ``optimizer_name`` in the second), each run's evaluated parameters
+           bit-equal to the mean of the kept trees, the WER file; K1, K2 and
+           K4 (or K3) launched through main(), K5-K7 not; K1 against its plain
+           version on a train batch's frames, K2 and K4 (or K3) on inputs
+           captured from the test decode (N 660, step 125); ``load_asr_bundle``
+           on the run's directory: its encoder on one batch equal to the best
+           checkpoint's tree (ASR_LOAD_ATOL). (b) The LM on configs/lm.yaml
+           (TransformerLM(), 92.7 M parameters, batch 32, the ASR run's
+           tokenizer) over a text CSV of LM_SENTENCES sentences of the
+           corpus's words, their lengths spread over the 16/32/64/128
+           buckets, 2 epochs: no kernel launched; one fit_batch at
+           lm_dropout 0.1 (finite, the masks' kept share reported);
+           ``load_lm`` on its directory giving the least-loss tree's logits.
+           Reports each run's wall, stage walls, ms a micro-batch and an
+           update, the loader's share, the checkpoint saves' ms, each decode's
+           wall and ms a step, peak memory and the launches.
 
 Then the whole run's wall time (``{"phase": "wall", ...}``), the card's name
 and power limit (nvidia-smi), the kernel table as one JSON object, and last
@@ -253,8 +280,10 @@ from speech_anonymization_tpu_torch.ops.attention_step import (  # noqa: E402
     attention_step,
     attention_step_chunked,
     attention_step_plain,
+    cached_attention_step,
     max_u_whole_row,
     quantize_rows,
+    uses_chunked,
     whole_row_layout,
 )
 from speech_anonymization_tpu_torch.ops.attention_step_paged import (  # noqa: E402
@@ -278,13 +307,16 @@ from speech_anonymization_tpu_torch.ops.lm_megastep import (  # noqa: E402
 from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_power_plain  # noqa: E402
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe  # noqa: E402
+from speech_anonymization_tpu_torch.recipes import asr_train, lm_train  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import gender_classifier as gender  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import gender_classifier_pitch_norm as gender_pitch  # noqa: E402
+from speech_anonymization_tpu_torch.models import transformer  # noqa: E402
 from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
+    DropoutRng,
     beam_reorder_cache,
     make_kv_cache,
 )
-from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle  # noqa: E402
+from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle, load_asr_bundle, load_lm  # noqa: E402
 from speech_anonymization_tpu_torch.tools import profile_lm_megastep  # noqa: E402
 from speech_anonymization_tpu_torch.tools.profile_k3 import K3_CASES, N as K3_N, k3_inputs  # noqa: E402
 from speech_anonymization_tpu_torch.tools.train_parity import (  # noqa: E402
@@ -300,9 +332,12 @@ from speech_anonymization_tpu_torch.utils import cuda_build  # noqa: E402
 from speech_anonymization_tpu_torch.utils.convert import (  # noqa: E402
     anonymizer_state_dict,
     anonymizer_variables,
+    asr_state_dict,
     indexed_state_dict,
     asr_variables,
+    lm_state_dict,
     lm_variables,
+    load_numpy_state,
     normalizer_tree,
     xvector_variables,
 )
@@ -337,8 +372,9 @@ DECODE_HPARAMS = {"test_beam_size": 66, "ctc_weight_decode": 0.4, "temperature":
 DECODE_SHAPES = {"D1": (8, 80_480, 64), "D2": (8, 161_120, None), "D3": (8, 480_000, 448),
                  "B3": (3, 80_480, 64)}
 # (iters, warmup) of each shape's timed decodes; D3's launch-check decode
-# right before is its warm-up
-DECODE_TIMING = {"D1": (3, 1), "D2": (3, 1), "D3": (2, 0), "B3": (3, 1)}
+# right before is its warm-up. D3 times one decode, so that the whole run
+# stays within ~600 s
+DECODE_TIMING = {"D1": (3, 1), "D2": (3, 1), "D3": (1, 0), "B3": (3, 1)}
 DECODE_PARITY_ATOL = 1e-3  # scores, card vs CPU: cuBLAS and the CPU sum in other orders
 # paged vs physical on the card: the same kernels' arithmetic on the same
 # content (K5 is K3's, K6 K4's, with other addresses)
@@ -2676,6 +2712,352 @@ def phase_gender(card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+ASR_LM_SPEAKERS = (4, 1)  # of each sex, train and test: 40 and 10 utterances at ASR_LM_UTTS
+ASR_LM_UTTS = 5
+ASR_LM_WORDS = 24  # ~10 s an utterance
+ASR_LM_EPOCHS = 2
+ASR_LM_ARGS: dict = {}  # extra overrides of both runs (a CPU rehearsal shrinks the widths here)
+LM_SENTENCES = (256, 64)  # train, valid
+LM_WORDS = ((1, 13), (14, 29), (30, 60), (61, 120))  # words a sentence: one range per bucket
+ASR_CAPTURE_STEP = 125  # the test decode's step whose K2 and K4 (or K3) inputs are checked
+ASR_LOAD_ATOL = 1e-5
+LM_LOAD_ATOL = 1e-5
+LM_DROPOUT = 0.1
+
+
+class TimedASRBrain(Timed, asr_train.ASRBrain):
+    """The ASR recipe's brain with the smoke's clocks and each decode's wall."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.decodes = []
+
+    def _decode(self, wavs, lens, epoch, beam_size, length_normalization):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super()._decode(wavs, lens, epoch, beam_size, length_normalization)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        self.decodes.append({"beam": beam_size, "rows": wavs.shape[0] * beam_size, "steps": out[0].shape[1],
+                             "wall_s": wall, "ms_per_step": 1e3 * wall / out[0].shape[1]})
+        return out
+
+
+class TimedLMBrain(Timed, lm_train.LMBrain):
+    """The LM recipe's brain with the smoke's clocks."""
+
+
+class Capture:
+    """Wraps ``module.name``: the first call whose arguments ``want`` accepts
+    is recorded by ``keep`` (copies of its inputs), then the call goes on."""
+
+    def __init__(self, module, name: str, want, keep):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.want, self.keep, self.args = want, keep, None
+
+    def __enter__(self):
+        def wrapped(*args):
+            if self.args is None and self.want(*args):
+                self.args = self.keep(*args)
+            return self.fn(*args)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def _asr_decode_captures(rows: int):
+    """Captures of the decode's K4 (or K3) and K2 inputs at ASR_CAPTURE_STEP of
+    a decode of ``rows`` rows: one layer's cache slice each."""
+    attn = Capture(transformer, "cached_attention_step",
+                   lambda q, kh, vh, mask, k, v, step, layer, nhead, *_: (
+                       q.shape[0] == rows and step == ASR_CAPTURE_STEP and layer == 0),
+                   lambda q, kh, vh, mask, k, v, step, layer, nhead, *_: (
+                       q.clone(), kh.clone(), vh.clone(), mask.clone(), k[layer:layer + 1].clone(),
+                       v[layer:layer + 1].clone(), step, nhead))
+    gather = Capture(transformer, "beam_gather",
+                     lambda a, src, step, out: a.shape[1] == rows and step == ASR_CAPTURE_STEP,
+                     lambda a, src, step, out: (a[:1].clone(), src.clone(), step))
+    return attn, gather
+
+
+def _check_captured_attention(captured) -> dict:
+    """K4 (or K3, by the JAX rule) against attention_step_plain on the test
+    decode's own inputs: the output (ATTN_RTOL, ATTN_ATOL) and the cache
+    written at the step; timed beside the plain version."""
+    q, kh, vh, mask, ck, cv, step, nhead = captured
+    ck2, cv2 = ck.clone(), cv.clone()
+    got = cached_attention_step(q, kh, vh, mask, ck, cv, step, 0, nhead)
+    want = attention_step_plain(q, kh, vh, mask, ck2, cv2, step, 0, nhead)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL))
+    written = torch.equal(ck[:, :, step], ck2[:, :, step]) and torch.equal(cv[:, :, step], cv2[:, :, step])
+    name = "attention_step_chunked" if uses_chunked(ck.shape[2], ck.shape[3], ck.dtype) else "attention_step"
+    report = {"kernel": name, "cache": list(ck.shape), "step": step, "max_abs_err": err, "allclose": ok,
+              "written_equal": written, "rtol": ATTN_RTOL, "atol": ATTN_ATOL}
+    if not (ok and written):
+        raise AssertionError(f"{name} disagrees with its plain twin on the ASR test decode's inputs: {report}")
+    report["ms"] = cuda_ms(lambda: cached_attention_step(q, kh, vh, mask, ck, cv, step, 0, nhead))
+    report["plain_ms"] = cuda_ms(lambda: attention_step_plain(q, kh, vh, mask, ck2, cv2, step, 0, nhead))
+    return report
+
+
+def _kept_mean(ckpt_dir: str) -> dict:
+    """The mean of the ``model`` trees of the top-5 ACC checkpoints, summed in
+    their order and divided in f32 (``average_checkpoints``' arithmetic), as
+    the ASRModel's parameters."""
+    ckpts = Checkpointer(ckpt_dir).find_checkpoints(max_key="ACC", n=5)
+    trees = [asr_state_dict({"params": read_tree(str(Path(c.path) / "model.ckpt"))}) for c in ckpts]
+    total = {k: functools.reduce(lambda a, b: a + b, [t[k] for t in trees]) for k in trees[0]}
+    return {k: v / np.float32(len(trees)) for k, v in total.items()}
+
+
+def _main_run(entry, argv: list[str], counters: dict) -> tuple:
+    """One ``entry.main(argv)``, the launch counts set to 0 right before and
+    read right after. -> (brain, wall s, launches, peak GiB, GiB added)."""
+    for c in counters.values():
+        c.launches = 0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    brain = entry.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return brain, wall, {k: c.launches for k, c in counters.items()}, peak / 2**30, (peak - resident) / 2**30
+
+
+def _stage_walls(brain) -> list:
+    m = brain.marks
+    return [{"stage": m[i][0], "epoch": m[i][1], "s": m[i + 1][2] - m[i][2]} for i in range(0, len(m), 2)]
+
+
+def _run_report(brain, wall, launches, peak, added, loader) -> dict:
+    stages = _stage_walls(brain)
+    train_s = sum(x["s"] for x in stages if x["stage"] == "TRAIN")
+    walls = brain.walls
+    k = getattr(brain, "grad_accum", 1)  # micro-batches an update
+    updates = [sum(walls[i:i + k]) for i in range(0, len(walls) - k + 1, k)]
+    return {"wall_s": wall, "launches": launches, "peak_gib": peak, "added_gib": added,
+            "stage_walls_s": stages, "micro_batches": len(walls),
+            "ms_per_micro_batch": 1e3 * statistics.median(walls[1:]) if len(walls) > 1 else None,
+            "micro_batch_walls_ms": [1e3 * w for w in walls],
+            "ms_per_update": 1e3 * statistics.median(updates[1:]) if len(updates) > 1 else None,
+            "update_walls_ms": [1e3 * w for w in updates],
+            "loader_ms_per_batch": 1e3 * statistics.median(loader.draws) if loader and loader.draws else None,
+            "loader_share_of_train": sum(loader.draws) / train_s if loader and loader.draws and train_s else None,
+            "save_ms": [ms for ms, _ in brain.saves], "stage_losses": brain.stage_losses,
+            "test_stats": getattr(brain, "test_stats", None)}
+
+
+def _lm_csvs(root: Path, words: list[str]) -> tuple[Path, Path]:
+    """The LM's train and valid CSVs (ID, wrd): sentences of the corpus's
+    words, a quarter in each bucket's range of lengths (LM_WORDS)."""
+    rng = np.random.default_rng(SEED + 14)
+    paths = []
+    for name, n in zip(("lm_train", "lm_valid"), LM_SENTENCES):
+        path = root / f"{name}.csv"
+        lines = ["ID,wrd"]
+        for i in range(n):
+            lo, hi = LM_WORDS[i % len(LM_WORDS)]
+            lines.append(f"{name}-{i}," + " ".join(rng.choice(words, int(rng.integers(lo, hi + 1)))))
+        path.write_text("\n".join(lines) + "\n")
+        paths.append(path)
+    return paths[0], paths[1]
+
+
+def _asr_checks(first, second, out: Path, argv: list[str], loader) -> dict:
+    """The ASR runs' files, stage switch, checkpoints, averages and
+    ``load_asr_bundle``; K1 on a train batch's frames."""
+    ckpt_dir = str(out / "save" / "ckpts")
+    ckpts = Checkpointer(ckpt_dir).list_checkpoints()
+    log = (out / "train_log.txt").read_text().splitlines()
+    missing = [f for f in ("train_log.txt", "wer_test-clean.txt", "hyperparams.yaml", "env.log",
+                           "save/tokenizer.json") if not (out / f).is_file()]
+    if (missing or len(ckpts) != ASR_LM_EPOCHS or not all("ACC" in c.meta for c in ckpts)
+            or not (Path(ckpts[-1].path) / "optimizer_name.ckpt").is_file()):
+        raise AssertionError(f"asr main(): missing {missing}, checkpoints {[c.meta for c in ckpts]}")
+    if first._optimizer_name != "SGD" or "optimizer: Adam" not in log[0] or "optimizer: SGD" not in log[1]:
+        raise AssertionError(f"asr main(): no switch to SGD: {first._optimizer_name}, {log}")
+    losses = [x for _, _, x in first.stage_losses + second.stage_losses]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(list(first.test_stats.values()))):
+        raise AssertionError(f"asr main(): stage losses {losses}, test {first.test_stats}")
+    mean = _kept_mean(ckpt_dir)
+    for name, brain in (("fit", first), ("eval_only", second)):
+        differ = [k for k, p in brain.model.named_parameters()
+                  if not torch.equal(p.detach().cpu(), torch.from_numpy(np.ascontiguousarray(mean[k])))]
+        if differ:
+            raise AssertionError(f"asr main() {name}: the evaluated parameters differ from the kept trees' "
+                                 f"mean: {differ[:6]}")
+    # the same parameters scored again (cuDNN is not bit-reproducible run to run: the loss within rtol)
+    if not np.isclose(second.test_stats["loss"], first.test_stats["loss"], rtol=1e-5, atol=0):
+        raise AssertionError(f"the eval-only rerun scored {second.test_stats}, the first {first.test_stats}")
+    # load_asr_bundle on the run's directory: the best checkpoint's tree
+    config, _, overrides = parse_arguments(argv)
+    hp = load_config(config, overrides, device=DEVICE)
+    bundle = load_asr_bundle({**hp, "asr_checkpoint_dir": ckpt_dir}, first.tokenizer, DEVICE)
+    best = Checkpointer(ckpt_dir).find_checkpoint(max_key="ACC")
+    ref = ASRModel(input_feats=80, d_model=int(hp["d_model"]), nhead=int(hp["nhead"]),
+                   num_encoder_layers=int(hp["num_encoder_layers"]),
+                   num_decoder_layers=int(hp["num_decoder_layers"]), d_ffn=int(hp["d_ffn"]),
+                   output_neurons=int(hp["output_neurons"]), device=DEVICE)
+    load_numpy_state(ref, asr_state_dict({"params": read_tree(str(Path(best.path) / "model.ckpt"))}))
+    batch = loader.first
+    wavs, lens = (torch.as_tensor(x, device=DEVICE) for x in batch.sig)
+    k1_err, frames = check_k1(wavs, first.fbank, "asr train")
+    with torch.no_grad():
+        feats, _ = first.normalizer(first.state.norm_state, first.fbank(wavs), lens, training=False)
+        gap = float((bundle.model.encode(feats, lens) - ref.eval().encode(feats, lens)).abs().max())
+    if not gap <= ASR_LOAD_ATOL:
+        raise AssertionError(f"load_asr_bundle's encoder differs from the best checkpoint's by {gap}")
+    return {"checkpoints": [c.meta for c in ckpts], "switched_to_sgd": True, "load_asr_bundle_gap": gap,
+            "load_atol": ASR_LOAD_ATOL, "k1_check": {"rows": frames.shape[0] * frames.shape[1],
+                                                      "max_abs_err": k1_err, "rtol": K1_RTOL, "atol": K1_ATOL}}
+
+
+def _lm_checks(brain, out: Path, argv: list[str], loader, brain_cls) -> dict:
+    """The LM run's checkpoints, ``load_lm`` against the least-loss tree, and
+    one fit_batch at lm_dropout LM_DROPOUT on the longest train batch."""
+    ckpt_dir = str(out / "save" / "ckpts")
+    ckpts = Checkpointer(ckpt_dir).list_checkpoints()
+    if len(ckpts) != ASR_LM_EPOCHS or not all("loss" in c.meta for c in ckpts):
+        raise AssertionError(f"lm main(): checkpoints {[c.meta for c in ckpts]}")
+    losses = [x for _, _, x in brain.stage_losses]
+    if not all(np.isfinite(losses)) or not np.isfinite(brain.test_stats["loss"]):
+        raise AssertionError(f"lm main(): stage losses {losses}, test {brain.test_stats}")
+    config, _, overrides = parse_arguments(argv)
+    hp = load_config(config, overrides, device=DEVICE)
+    widths = dict(vocab=int(hp["output_neurons"]), d_model=int(hp["lm_d_model"]), nhead=int(hp["lm_nhead"]),
+                  num_layers=int(hp["lm_num_layers"]), d_ffn=int(hp["lm_d_ffn"]))
+    lm = load_lm({**hp, "lm_checkpoint_dir": ckpt_dir}, DEVICE)
+    best = Checkpointer(ckpt_dir).find_checkpoint(min_key="loss")
+    ref = load_numpy_state(TransformerLM(**widths, device=DEVICE),
+                           lm_state_dict({"params": read_tree(str(Path(best.path) / "model.ckpt"))}))
+    batches = list(loader.loader)
+    longest = max(batches, key=lambda b: b[0].shape[1])
+    tokens = torch.as_tensor(longest[0], dtype=torch.int64, device=DEVICE)
+    with torch.no_grad():
+        gap = float((lm(tokens) - ref(tokens)).abs().max())
+    if not gap <= LM_LOAD_ATOL:
+        raise AssertionError(f"load_lm's logits differ from the least-loss checkpoint's by {gap}")
+    del lm, ref
+    dropped = brain_cls({**hp, "lm_dropout": LM_DROPOUT}, brain.tokenizer, None, device=DEVICE)
+    dropped.dropout_rng = DropoutRng(torch.Generator(device=DEVICE).manual_seed(SEED + 15), record=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(dropped.fit_batch(longest, 1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kept = sum(float(m.sum()) for m in dropped.dropout_rng.used) / sum(m.numel() for m in dropped.dropout_rng.used)
+    if not np.isfinite(loss) or len(dropped.dropout_rng.used) != 2 * widths["num_layers"]:
+        raise AssertionError(f"lm fit_batch at dropout {LM_DROPOUT}: loss {loss}, "
+                             f"{len(dropped.dropout_rng.used)} masks")
+    return {"checkpoints": [c.meta for c in ckpts], "load_lm_gap": gap, "load_atol": LM_LOAD_ATOL,
+            "buckets": sorted({int(b[0].shape[1]) for b in batches}),
+            "dropout_step": {"rate": LM_DROPOUT, "loss": loss, "kept_share": kept, "masks": len(dropped.dropout_rng.used),
+                             "tokens": list(longest[0].shape), "wall_s": wall}}
+
+
+def phase_asr_lm(card: str) -> dict:
+    """The ASR and LM recipes' ``main(argv)`` on the card (the docstring at the
+    top: ``asr_lm``). Returns the ASR runs' launches by kernel."""
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="asr_lm_"))
+    counters = {c.__name__: c for c in (fused_fbank, beam_gather, attention_step, attention_step_chunked,
+                                        attention_step_paged, attention_step_paged_chunked, lm_megastep)}
+    asr_loaders, lm_loaders = [], []
+    saved = (asr_train.make_loaders, asr_train.ASRBrain, lm_train.TextBatchLoader, lm_train.LMBrain)
+
+    def timed_asr_loaders(*args):
+        train, valid, tests = saved[0](*args)
+        asr_loaders.append(TimedLoader(train))
+        return asr_loaders[-1], valid, tests
+
+    def timed_text_loader(*args, **kwargs):
+        loader = saved[2](*args, **kwargs)
+        if kwargs.get("shuffle"):
+            lm_loaders.append(TimedLoader(loader))
+            return lm_loaders[-1]
+        return loader
+
+    try:
+        root, asr_out, lm_out = work / "LibriSpeech", work / "asr", work / "lm"
+        t0 = time.perf_counter()
+        _, audio_s = build_corpus(str(root), n_train_spk=ASR_LM_SPEAKERS[0], n_test_spk=ASR_LM_SPEAKERS[1],
+                                  utts=ASR_LM_UTTS, words_per_utt=ASR_LM_WORDS, seed=SEED + 13)
+        corpus_s = time.perf_counter() - t0
+        asr_argv = _recipe_argv("transformer.yaml", root, asr_out, f'["{root / "test-clean.csv"}"]',
+                                number_of_epochs=ASR_LM_EPOCHS, stage_one_epochs=1, valid_search_interval=1,
+                                **ASR_LM_ARGS)
+        asr_train.make_loaders, asr_train.ASRBrain = timed_asr_loaders, TimedASRBrain
+        lm_train.TextBatchLoader, lm_train.LMBrain = timed_text_loader, TimedLMBrain
+        rows = 10 * 66  # batch_size x test_beam_size of transformer.yaml
+        if ASR_LM_ARGS:
+            rows = int(ASR_LM_ARGS.get("batch_size", 10)) * int(ASR_LM_ARGS.get("test_beam_size", 66))
+        attn_cap, gather_cap = _asr_decode_captures(rows)
+        with attn_cap, gather_cap:
+            first, wall1, launches1, peak1, added1 = _main_run(asr_train, asr_argv, counters)
+        fit_report = _run_report(first, wall1, launches1, peak1, added1, asr_loaders[0])
+        fit_report["decodes"] = first.decodes
+        fit_report["optimizer"] = first._optimizer_name
+        second, wall2, launches2, peak2, added2 = _main_run(asr_train, asr_argv + ["--eval_only"], counters)
+        eval_report = _run_report(second, wall2, launches2, peak2, added2, None)
+        eval_report["decodes"] = second.decodes
+        total = {k: launches1[k] + launches2[k] for k in counters}
+        attn_name = "attention_step_chunked" if total["attention_step_chunked"] else "attention_step"
+        off = [k for k in ("attention_step_paged", "attention_step_paged_chunked", "lm_megastep") if total[k]]
+        if off or not (total["fused_fbank"] and total["beam_gather"] and total[attn_name]):
+            raise AssertionError(f"asr main() launched {launches1}, then {launches2}")
+        if attn_cap.args is None or gather_cap.args is None:
+            raise AssertionError("the ASR test decode's kernel inputs were not captured")
+        checks = _asr_checks(first, second, asr_out, asr_argv, asr_loaders[0])
+        checks["attention_check"] = _check_captured_attention(attn_cap.args)
+        a, src, step = gather_cap.args
+        k2_checks: list = []
+        k2_err = _check_k2(a, src, (step,), "asr test decode", k2_checks)
+        checks["k2_check"] = {"cache": list(a.shape), "step": step, "max_abs_err": k2_err, "checks": k2_checks}
+        tokenizer_path = asr_out / "save" / "tokenizer.json"
+        attn_cap.args = gather_cap.args = None
+        del first, second, a, src
+        gc.collect()
+
+        words = sorted({w for f in (root / "train-clean").rglob("*.trans.txt")
+                        for ln in f.read_text().splitlines() for w in ln.split(" ")[1:]})
+        train_csv, valid_csv = _lm_csvs(work, words)
+        lm_argv = [str(Path(__file__).resolve().parent / "configs" / "lm.yaml")]
+        for k, v in {"train_csv": str(train_csv), "valid_csv": str(valid_csv), "test_csv": f'["{valid_csv}"]',
+                     "output_folder": str(lm_out), "save_folder": str(lm_out / "save"),
+                     "train_log": str(lm_out / "train_log.txt"), "number_of_epochs": str(ASR_LM_EPOCHS),
+                     "tokenizer_path": str(tokenizer_path),
+                     **{k: str(v) for k, v in ASR_LM_ARGS.items() if k.startswith(("lm_", "output_"))},
+                     "device": DEVICE}.items():
+            lm_argv += [f"--{k}", v]
+        lm_brain, wall3, launches3, peak3, added3 = _main_run(lm_train, lm_argv, counters)
+        if any(launches3.values()):
+            raise AssertionError(f"lm main() launched {launches3}")
+        lm_report = _run_report(lm_brain, wall3, launches3, peak3, added3, lm_loaders[0])
+        lm_report.update(_lm_checks(lm_brain, lm_out, lm_argv, lm_loaders[0], saved[3]))
+        del lm_brain
+        emit({"phase": "asr_lm", "card": card,
+              "asr": {"config": "configs/transformer.yaml", "corpus": {
+                  "train_utterances": 2 * ASR_LM_SPEAKERS[0] * ASR_LM_UTTS,
+                  "test_utterances": 2 * ASR_LM_SPEAKERS[1] * ASR_LM_UTTS, "audio_s": audio_s,
+                  "words_per_utt": ASR_LM_WORDS, "build_s": corpus_s},
+                  "fit": fit_report, "eval_only": eval_report, **checks},
+              "lm": {"config": "configs/lm.yaml", "sentences": list(LM_SENTENCES), **lm_report},
+              "seconds": time.perf_counter() - t_phase})
+        return total
+    finally:
+        (asr_train.make_loaders, asr_train.ASRBrain, lm_train.TextBatchLoader, lm_train.LMBrain) = saved
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -2714,11 +3096,14 @@ def main() -> int:
     recipe_launches = phase_recipe(asr, lm, models[1], models[2], card)
     main_launches = phase_main(asr, lm, models[1], models[2], card)
     gender_launches = phase_gender(card)
+    asr_launches = phase_asr_lm(card)
     k1["launches"] += (recipe_launches["fused_fbank"] + main_launches["fused_fbank"]
                        + gender_launches["fused_fbank"])
     k1["launches_by_path"]["recipe"] = recipe_launches["fused_fbank"]
     k1["launches_by_path"]["main"] = main_launches["fused_fbank"]
     k1["launches_by_path"]["gender"] = gender_launches["fused_fbank"]
+    k1["launches_by_path"]["asr_train"] = asr_launches["fused_fbank"]
+    k1["launches"] += asr_launches["fused_fbank"]
     for entry in decode_kernels:
         entry["launches"] = decode_launches[entry["name"]]
         if entry["name"] in ("beam_gather", "attention_step"):  # the recipe's test decodes: f32, physical
@@ -2726,6 +3111,10 @@ def main() -> int:
                                          "recipe": recipe_launches[entry["name"]],
                                          "main": main_launches[entry["name"]]}
             entry["launches"] += recipe_launches[entry["name"]] + main_launches[entry["name"]]
+        if entry["name"] in ("beam_gather", "attention_step", "attention_step_chunked"):  # the ASR recipe's
+            entry.setdefault("launches_by_path", {"decode": entry["launches"]})["asr_train"] = \
+                asr_launches[entry["name"]]
+            entry["launches"] += asr_launches[entry["name"]]
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

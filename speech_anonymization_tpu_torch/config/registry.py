@@ -10,8 +10,8 @@ config format. Here tags resolve only against:
   * dotted paths inside the ``speech_anonymization_tpu_torch`` package (never
     the JAX package's ``speech_anonymization_tpu.``).
 
-Names whose targets are not ported yet raise ``NotImplementedError`` when a
-config resolves them; they are never mapped to something else.
+Every name the JAX package registers is registered here, with the same kind
+of target (a class, a factory, or the function itself).
 """
 
 from __future__ import annotations
@@ -22,10 +22,6 @@ from typing import Any
 REGISTRY: dict[str, Any] = {}
 
 _ALLOWED_PREFIXES = ("speech_anonymization_tpu_torch.",)
-
-# the JAX package's registered names whose targets the port lacks
-_NOT_PORTED_ITEM = "ROADMAP.md Queue 1 item 5 (the other recipes)"
-NOT_PORTED = ("l1_loss", "kldiv_loss", "ctc_loss")
 
 
 def register(name: str | None = None):
@@ -38,9 +34,6 @@ def register(name: str | None = None):
 
 def resolve_path(path: str) -> Any:
     """Resolve a tag path to a callable/class via registry or package import."""
-    if path in NOT_PORTED:
-        raise NotImplementedError(f"config tag '{path}' is not ported to the PyTorch package yet: "
-                                  f"{_NOT_PORTED_ITEM}")
     if path in REGISTRY:
         return REGISTRY[path]
     if path.startswith(_ALLOWED_PREFIXES):
@@ -106,7 +99,10 @@ def _register_builtins():
         "Xvector": Xvector,
         "XvectorClassifier": XvectorClassifier,
         "mse_loss": lambda **kw: L.mse_loss,
+        "l1_loss": lambda **kw: L.l1_loss,
         "nll_loss": lambda **kw: L.nll_loss,
+        "kldiv_loss": L.kldiv_loss,
+        "ctc_loss": L.ctc_loss,
         "cosine_similarity_loss": lambda **kw: L.cosine_similarity_loss,
         "confusion_loss": lambda **kw: L.confusion_loss,
         "classification_error": lambda **kw: L.classification_error,

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .transformer import ConvolutionFrontEnd, TransformerASR
+from .init import flax_init_
+from .transformer import ConvolutionFrontEnd, DropoutRng, TransformerASR
 
 
 class ASRHeads(nn.Module):
@@ -33,12 +34,17 @@ class ASRHeads(nn.Module):
 
 
 class ASRModel(nn.Module):
-    """CNN front end + TransformerASR + ctc/seq heads, at ``ASRModel()``'s published widths."""
+    """CNN front end + TransformerASR + ctc/seq heads, at ``ASRModel()``'s
+    published widths. With ``generator``, a fresh model takes flax's
+    initialisers drawn from it (``models/init.py``); without, torch's (the
+    weights are then loaded from a checkpoint). ``dropout``: train-mode
+    dropout in every attention and feed-forward (``train=True`` with a
+    ``DropoutRng``)."""
 
     def __init__(self, input_feats: int = 80, d_model: int = 768, nhead: int = 8,
                  num_encoder_layers: int = 12, num_decoder_layers: int = 6, d_ffn: int = 3072,
-                 output_neurons: int = 5000, pad_index: int = 0,
-                 device: str | torch.device = "cuda"):
+                 output_neurons: int = 5000, pad_index: int = 0, dropout: float = 0.0,
+                 generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
         super().__init__()
         self.d_model, self.nhead, self.num_decoder_layers = d_model, nhead, num_decoder_layers
         self.cnn = ConvolutionFrontEnd()
@@ -46,21 +52,25 @@ class ASRModel(nn.Module):
         self.transformer = TransformerASR(
             input_size=freq_out * 512, tgt_vocab=output_neurons, d_model=d_model, nhead=nhead,
             num_encoder_layers=num_encoder_layers, num_decoder_layers=num_decoder_layers,
-            d_ffn=d_ffn, pad_index=pad_index)
+            d_ffn=d_ffn, pad_index=pad_index, dropout=dropout)
         self.heads = ASRHeads(d_model, output_neurons)
+        if generator is not None:
+            flax_init_(self, generator)
         self.to(device)
 
-    def encode(self, feats, wav_lens=None):
+    def encode(self, feats, wav_lens=None, train: bool = False, rng: DropoutRng | None = None):
         """(B, T, F) normalized feats -> (B, T/4, d_model) encoder states."""
-        return self.transformer.encode(self.cnn(feats), wav_lens)
+        return self.transformer.encode(self.cnn(feats), wav_lens, train, rng)
 
-    def decode(self, tokens_bos, enc_out, wav_lens=None):
-        return self.transformer.decode(tokens_bos, enc_out, wav_lens)
+    def decode(self, tokens_bos, enc_out, wav_lens=None, train: bool = False,
+               rng: DropoutRng | None = None):
+        return self.transformer.decode(tokens_bos, enc_out, wav_lens, train, rng)
 
-    def forward(self, feats, tokens_bos, wav_lens=None):
+    def forward(self, feats, tokens_bos, wav_lens=None, train: bool = False,
+                rng: DropoutRng | None = None):
         """-> (enc_out, dec_out, p_ctc, p_seq)."""
-        enc_out = self.encode(feats, wav_lens)
-        dec_out = self.decode(tokens_bos, enc_out, wav_lens)
+        enc_out = self.encode(feats, wav_lens, train, rng)
+        dec_out = self.decode(tokens_bos, enc_out, wav_lens, train, rng)
         p_ctc, p_seq = self.heads(enc_out, dec_out)
         return enc_out, dec_out, p_ctc, p_seq
 

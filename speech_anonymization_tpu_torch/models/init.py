@@ -1,9 +1,11 @@
-"""flax's default initialisers for the port's anonymizer models.
+"""flax's default initialisers for the port's models.
 
-Every anonymizer family and sex head of the JAX package takes flax's
-defaults: ``lecun_normal`` kernels (a normal truncated at two standard
-deviations, scaled to variance 1/fan_in) and zero biases; norm layers start
-at scale 1 and bias 0 (and BatchNorm's statistics at mean 0, variance 1).
+Every anonymizer family and sex head of the JAX package, and its transformer
+ASR and LM, take flax's defaults: ``lecun_normal`` kernels (a normal
+truncated at two standard deviations, scaled to variance 1/fan_in) and zero
+biases; norm layers start at scale 1 and bias 0 (and BatchNorm's statistics
+at mean 0, variance 1); token embeddings ``nn.Embed``'s ``default_embed_init``,
+an untruncated normal of variance 1/features.
 :func:`flax_init_` gives a port module the same distribution, with fan_in
 counted as flax counts it on its own kernel layout: ``(in,) + kernel`` for a
 convolution or a dense layer (torch's ``weight[0].numel()``), and
@@ -29,20 +31,35 @@ _KERNELS = (nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d, nn.Linear)
 _NORMS = (nn.BatchNorm1d, nn.InstanceNorm1d, nn.InstanceNorm2d, nn.LayerNorm)
 
 
+def truncated_normal(shape, std: float, generator: torch.Generator | None = None) -> torch.Tensor:
+    """A normal of ``std`` truncated at two standard deviations, on the CPU in
+    f32: drawn whole, then only the elements outside redrawn until none is
+    (``nn.init.trunc_normal_`` redraws the whole tensor each round, seconds
+    for a 161 M-parameter model, and its algorithm differs between torch
+    versions)."""
+    out = torch.empty(shape, dtype=torch.float32).normal_(0.0, std, generator=generator)
+    while True:
+        bad = out.abs() > 2.0 * std
+        n = int(bad.sum())
+        if not n:
+            return out
+        out[bad] = torch.empty(n).normal_(0.0, std, generator=generator)
+
+
 @torch.no_grad()
 def flax_init_(module: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
-    """Fill every kernel, bias and norm parameter of ``module`` in place, as
-    flax initialises them; the kernels in module order from ``generator``
-    (torch's default generator when None)."""
+    """Fill every kernel, bias, norm and embedding parameter of ``module`` in
+    place, as flax initialises them; the kernels and embeddings in module
+    order from ``generator`` (torch's default generator when None)."""
     for sub in module.modules():
-        if isinstance(sub, _KERNELS):
+        if isinstance(sub, nn.Embedding):
+            w = sub.weight
+            w.copy_(torch.empty(w.shape).normal_(0.0, math.sqrt(1.0 / w.shape[1]), generator=generator))
+        elif isinstance(sub, _KERNELS):
             w = sub.weight
             # torch's ConvTranspose1d weight is (in, out, k), flax's kernel (k, in, out)
             fan_in = w.shape[0] * w.shape[2] if isinstance(sub, nn.ConvTranspose1d) else w[0].numel()
-            std = math.sqrt(1.0 / fan_in) / TRUNCATED_STD
-            draw = torch.empty(w.shape, dtype=torch.float32)
-            nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-            w.copy_(draw)
+            w.copy_(truncated_normal(w.shape, math.sqrt(1.0 / fan_in) / TRUNCATED_STD, generator))
             if sub.bias is not None:
                 sub.bias.zero_()
         elif isinstance(sub, _NORMS):

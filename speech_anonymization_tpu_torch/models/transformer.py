@@ -15,6 +15,12 @@ names mirror the flax tree, so ``utils/convert.py`` maps it one to one.
 Numerics follow flax: LayerNorm eps 1e-6, tanh-approximate GELU, SAME
 (asymmetric) convolution padding, masked scores set to -1e9.
 
+Train-mode dropout (``dropout`` > 0 and ``train=True``, the JAX package's
+sites: the attention weights after the softmax and the feed-forward's hidden
+activation) takes its keep masks from a :class:`DropoutRng` passed down the
+call, as flax's apply takes ``rngs={"dropout": key}``. ``train=False`` or
+``dropout`` 0 runs the plain forward; the decode steps never drop.
+
 The decode step runs the kernels: with paged caches (the default on the
 card) self-attention through K5/K6 (``ops/attention_step_paged.py``) and a
 beam reorder that gathers an int table; with physical caches
@@ -50,9 +56,53 @@ from ..ops.attention_step_paged import (
 )
 from ..ops.beam_gather import beam_gather
 from ..ops.lm_megastep import lm_megastep, prepare_lm_megastep
+from .init import flax_init_
 
 NEG_INF = -1e9
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+class DropoutRng:
+    """Train-mode dropout's keep masks, as flax's ``nn.Dropout`` makes them:
+    keep with probability 1 - rate, kept values divided by 1 - rate (an IEEE
+    f32 division), dropped ones 0. The masks are drawn from ``generator`` (on
+    its own device; a CUDA generator draws on the card), or taken from
+    ``masks`` in call order (a test feeds the masks flax drew). With
+    ``record=True`` every mask used is kept in ``used``, in call order."""
+
+    def __init__(self, generator: torch.Generator | None = None,
+                 masks: Sequence[torch.Tensor] | None = None, record: bool = False):
+        if (generator is None) == (masks is None):
+            raise ValueError("DropoutRng takes a generator or given masks")
+        self.generator = generator
+        self.masks = list(masks) if masks is not None else None
+        self.used: list[torch.Tensor] | None = [] if record else None
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        keep_prob = 1.0 - rate
+        if self.masks is not None:
+            keep = self.masks.pop(0).to(device=x.device, dtype=torch.bool)
+            if keep.shape != x.shape:
+                raise ValueError(f"given dropout mask {tuple(keep.shape)} for {tuple(x.shape)}")
+        else:
+            g = self.generator
+            keep = (torch.rand(x.shape, generator=g, device=g.device) < keep_prob).to(x.device)
+        if self.used is not None:
+            self.used.append(keep)
+        # a 0-d tensor on x's device: CUDA turns a division by a host scalar
+        # into a product by its reciprocal, flax divides
+        kp = torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / kp, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, rng: DropoutRng | None) -> torch.Tensor:
+    """``x`` through train-mode dropout at ``rate``; ``x`` itself unless
+    ``train`` and ``rate`` > 0."""
+    if rate > 0 and train:
+        if rng is None:
+            raise ValueError("train-mode dropout needs a DropoutRng")
+        return rng(x, rate)
+    return x
 
 
 def lengths_to_padding_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -104,9 +154,10 @@ class ConvolutionFrontEnd(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.nhead, self.d_head = d_model, nhead, d_model // nhead
+        self.dropout = dropout
         self.q = nn.Linear(d_model, d_model)
         self.k = nn.Linear(d_model, d_model)
         self.v = nn.Linear(d_model, d_model)
@@ -120,11 +171,11 @@ class MultiHeadAttention(nn.Module):
         """Key/value heads (B, T, H, Dh) of ``x`` (cross-attention memory caching)."""
         return self.heads(self.k, x), self.heads(self.v, x)
 
-    def _context(self, qh, kh, vh, mask):
+    def _context(self, qh, kh, vh, mask, train: bool = False, rng: DropoutRng | None = None):
         scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(self.d_head)
         if mask is not None:
             scores = scores.masked_fill(~mask, NEG_INF)
-        weights = torch.softmax(scores, dim=-1)
+        weights = dropout(torch.softmax(scores, dim=-1), self.dropout, train, rng)
         return torch.einsum("bhqk,bkhd->bqhd", weights, vh)
 
     def attend_kv(self, q, kh, vh, mask=None):
@@ -174,38 +225,43 @@ class MultiHeadAttention(nn.Module):
         w_step = weights[..., step:step + 1]  # (N, H, 1, 1)
         return out + w_step.permute(0, 2, 1, 3) * vh
 
-    def forward(self, q, kv, mask=None):
+    def forward(self, q, kv, mask=None, train: bool = False, rng: DropoutRng | None = None):
         """Full (non-incremental) attention."""
-        ctx = self._context(self.heads(self.q, q), self.heads(self.k, kv), self.heads(self.v, kv), mask)
+        ctx = self._context(self.heads(self.q, q), self.heads(self.k, kv), self.heads(self.v, kv), mask,
+                            train, rng)
         return self.out(ctx.flatten(-2))
 
 
 class FeedForward(nn.Module):
-    """Dense -> GELU -> Dense; erf GELU with ``exact_gelu`` (``sb_compat``), else tanh."""
+    """Dense -> GELU -> [dropout] -> Dense; erf GELU with ``exact_gelu``
+    (``sb_compat``), else tanh."""
 
-    def __init__(self, d_model: int, d_ffn: int, exact_gelu: bool = False):
+    def __init__(self, d_model: int, d_ffn: int, exact_gelu: bool = False, dropout: float = 0.0):
         super().__init__()
         self.dense0 = nn.Linear(d_model, d_ffn)
         self.dense1 = nn.Linear(d_ffn, d_model)
         self.approximate = "none" if exact_gelu else "tanh"
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.dense1(F.gelu(self.dense0(x), approximate=self.approximate))
+    def forward(self, x, train: bool = False, rng: DropoutRng | None = None):
+        h = F.gelu(self.dense0(x), approximate=self.approximate)
+        return self.dense1(dropout(h, self.dropout, train, rng))
 
 
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer."""
 
-    def __init__(self, d_model: int, nhead: int, d_ffn: int, exact_gelu: bool = False):
+    def __init__(self, d_model: int, nhead: int, d_ffn: int, exact_gelu: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
-        self.attn = MultiHeadAttention(d_model, nhead)
+        self.attn = MultiHeadAttention(d_model, nhead, dropout)
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ff = FeedForward(d_model, d_ffn, exact_gelu)
+        self.ff = FeedForward(d_model, d_ffn, exact_gelu, dropout)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x, mask=None):
-        x = self.ln1(x + self.attn(x, x, mask))
-        return self.ln2(x + self.ff(x))
+    def forward(self, x, mask=None, train: bool = False, rng: DropoutRng | None = None):
+        x = self.ln1(x + self.attn(x, x, mask, train, rng))
+        return self.ln2(x + self.ff(x, train, rng))
 
     def decode_step(self, x, attend):
         """Cached single-token step. ``attend(qh, kh, vh) -> (N, 1, H, Dh)``
@@ -219,23 +275,24 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, d_ffn: int):
+    def __init__(self, d_model: int, nhead: int, d_ffn: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead)
-        self.cross_attn = MultiHeadAttention(d_model, nhead)
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ln3 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ff = FeedForward(d_model, d_ffn)
+        self.ff = FeedForward(d_model, d_ffn, dropout=dropout)
 
     def cross_kv(self, memory):
         """Cross-attention K/V heads of the encoder memory, once per decode."""
         return self.cross_attn.kv(memory)
 
-    def forward(self, x, memory, self_mask=None, cross_mask=None):
-        x = self.ln1(x + self.self_attn(x, x, self_mask))
-        x = self.ln2(x + self.cross_attn(x, memory, cross_mask))
-        return self.ln3(x + self.ff(x))
+    def forward(self, x, memory, self_mask=None, cross_mask=None, train: bool = False,
+                rng: DropoutRng | None = None):
+        x = self.ln1(x + self.self_attn(x, x, self_mask, train, rng))
+        x = self.ln2(x + self.cross_attn(x, memory, cross_mask, train, rng))
+        return self.ln3(x + self.ff(x, train, rng))
 
     def decode_step(self, x, attend, cross_kv, cross_mask):
         """Cached single-token step with beam-grouped cross-attention.
@@ -459,7 +516,7 @@ class TransformerASR(nn.Module):
 
     def __init__(self, input_size: int = 10240, tgt_vocab: int = 5000, d_model: int = 768,
                  nhead: int = 8, num_encoder_layers: int = 12, num_decoder_layers: int = 6,
-                 d_ffn: int = 3072, max_len: int = 5000, pad_index: int = 0):
+                 d_ffn: int = 3072, max_len: int = 5000, pad_index: int = 0, dropout: float = 0.0):
         super().__init__()
         self.d_model, self.nhead, self.pad_index = d_model, nhead, pad_index
         self.num_decoder_layers = num_decoder_layers
@@ -467,21 +524,22 @@ class TransformerASR(nn.Module):
         self.register_buffer("pe", sinusoidal_positions(max_len, d_model), persistent=False)
         self.embed = nn.Embedding(tgt_vocab, d_model)
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, d_ffn) for _ in range(num_encoder_layers))
+            EncoderLayer(d_model, nhead, d_ffn, dropout=dropout) for _ in range(num_encoder_layers))
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, d_ffn) for _ in range(num_decoder_layers))
+            DecoderLayer(d_model, nhead, d_ffn, dropout) for _ in range(num_decoder_layers))
 
-    def encode(self, src, src_lengths=None):
+    def encode(self, src, src_lengths=None, train: bool = False, rng: DropoutRng | None = None):
         t = src.shape[1]
         x = self.input_proj(src) + self.pe[None, :t]
         mask = None
         if src_lengths is not None:
             mask = lengths_to_padding_mask(src_lengths, t)[:, None, None, :]
         for layer in self.encoder_layers:
-            x = layer(x, mask)
+            x = layer(x, mask, train, rng)
         return x
 
-    def decode(self, tgt_tokens, memory, src_lengths=None):
+    def decode(self, tgt_tokens, memory, src_lengths=None, train: bool = False,
+               rng: DropoutRng | None = None):
         u = tgt_tokens.shape[1]
         x = self.embed(tgt_tokens) * math.sqrt(self.d_model) + self.pe[None, :u]
         causal = torch.tril(torch.ones(u, u, dtype=torch.bool, device=x.device))[None, None]
@@ -490,7 +548,7 @@ class TransformerASR(nn.Module):
         if src_lengths is not None:
             cross_mask = lengths_to_padding_mask(src_lengths, memory.shape[1])[:, None, None, :]
         for layer in self.decoder_layers:
-            x = layer(x, memory, self_mask, cross_mask)
+            x = layer(x, memory, self_mask, cross_mask, train, rng)
         return x
 
     def cross_kv(self, memory):
@@ -533,20 +591,23 @@ class TransformerLM(nn.Module):
     checkpoints): exact erf GELU in the layers, a final LayerNorm ``norm`` and
     the head ``out_a`` (d_model -> d_model / 2) -> ``out_ln`` (eps 1e-5) ->
     ``out_b``. The defaults are the reference LM's published widths (92.7 M
-    parameters).
+    parameters). With ``generator``, a fresh model takes flax's initialisers
+    drawn from it (``models/init.py``); without, torch's (the weights are
+    then loaded from a checkpoint).
     """
 
     def __init__(self, vocab: int = 5000, d_model: int = 768, nhead: int = 12,
                  num_layers: int = 12, d_ffn: int = 3072, max_len: int = 5000,
-                 pad_index: int = 0, sb_compat: bool = False,
-                 device: str | torch.device = "cuda"):
+                 pad_index: int = 0, sb_compat: bool = False, dropout: float = 0.0,
+                 generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
         super().__init__()
         self.d_model, self.nhead, self.num_layers, self.d_ffn = d_model, nhead, num_layers, d_ffn
         self.pad_index, self.sb_compat = pad_index, sb_compat
         self.embed = nn.Embedding(vocab, d_model)
         self.register_buffer("pe", sinusoidal_positions(max_len, d_model), persistent=False)
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, d_ffn, exact_gelu=sb_compat) for _ in range(num_layers))
+            EncoderLayer(d_model, nhead, d_ffn, exact_gelu=sb_compat, dropout=dropout)
+            for _ in range(num_layers))
         if sb_compat:
             self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
             self.out_a = nn.Linear(d_model, d_model // 2)
@@ -554,6 +615,8 @@ class TransformerLM(nn.Module):
             self.out_b = nn.Linear(d_model // 2, vocab)
         else:
             self.out = nn.Linear(d_model, vocab)
+        if generator is not None:
+            flax_init_(self, generator)
         self.to(device)
 
     def _head(self, x):
@@ -561,14 +624,14 @@ class TransformerLM(nn.Module):
             return self.out_b(self.out_ln(self.out_a(self.norm(x))))
         return self.out(x)
 
-    def forward(self, tokens):
+    def forward(self, tokens, train: bool = False, rng: DropoutRng | None = None):
         """(B, U) tokens -> (B, U, vocab) logits."""
         u = tokens.shape[1]
         x = self.embed(tokens) * math.sqrt(self.d_model) + self.pe[None, :u]
         causal = torch.tril(torch.ones(u, u, dtype=torch.bool, device=x.device))[None, None]
         mask = causal & (tokens != self.pad_index)[:, None, None, :]
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, train, rng)
         return self._head(x)
 
     def init_cache(self, batch: int, u_max: int, dtype: torch.dtype = torch.float32,

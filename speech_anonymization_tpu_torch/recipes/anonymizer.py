@@ -90,9 +90,9 @@ from ..train.epoch_loop import EpochCounter
 from ..train.experiment import create_experiment_directory
 from ..train.logger import FileTrainLogger
 from ..train.schedulers import NoamScheduler
-from ..train.state import TrainState, adam_like_reference, apply_updates, clip_by_global_norm, global_norm
+from ..train.state import TrainState, adam_like_reference, kept_step
 from ..utils.convert import (anonymizer_batch_stats, anonymizer_state_dict, anonymizer_variables,
-                             normalizer_tree)
+                             normalizer_state, normalizer_tree)
 from .asr_bundle import ASRBundle, load_asr_bundle
 
 # (recon, sex, utility, confusion): the recipe's defaults for evaluation
@@ -385,13 +385,8 @@ class AnonymizerTrainer:
         opt_key, opt = ("clf", self.clf_opt) if train_mode == "sex_classifier" else ("gen", self.gen_opt)
         mask = self.masks[train_mode]
         g = {k: a * mask[k] for k, a in self.state.accum_grads.items()}
-        if self.clip is not None:
-            g, gnorm = clip_by_global_norm(g, float(self.clip))
-        else:
-            gnorm = global_norm(g.values())
-        finite = torch.isfinite(gnorm) & torch.isfinite(loss)
-        updates, self.state.opt_state[opt_key] = opt.update(g, self.state.opt_state[opt_key], lr)
-        apply_updates(self.params, updates, keep=finite)
+        self.state.opt_state[opt_key] = kept_step(self.params, g, opt, self.state.opt_state[opt_key], lr, loss,
+                                                  self.clip)
         self.state.reset_accumulation()
 
     # -- schedule ----------------------------------------------------------------------
@@ -544,9 +539,7 @@ class SexAnonymizationBrain(Brain):
         set_model_state(self.model, model_state)
 
     def _set_normalizer(self, tree: dict) -> None:
-        self.trainer.state.norm_state = NormalizerState(
-            *(torch.from_numpy(np.array(tree[k], np.float32)).to(self.device)
-              for k in NormalizerState._fields))
+        self.trainer.state.norm_state = normalizer_state(tree, self.device)
 
     # -- batches -------------------------------------------------------------------
 
@@ -735,6 +728,20 @@ def set_tf32(enabled: bool) -> None:
     torch.backends.cudnn.allow_tf32 = enabled
 
 
+def resolve_device(name: str, device: str | None) -> str:
+    """A recipe's ``--device`` (default ``cuda``); on the card TF32 goes off.
+    Stops (``SystemExit``) when no card is there for ``cuda``: a recipe never
+    falls back to the CPU."""
+    device = str(device or "cuda")
+    if device.startswith("cuda"):
+        if not torch.cuda.is_available():
+            raise SystemExit(f"{name}: no CUDA device; pass --device cpu to run on the CPU")
+        set_tf32(False)
+    elif device != "cpu":
+        raise SystemExit(f"{name}: unknown --device {device!r} (cuda or cpu)")
+    return device
+
+
 def main(argv: Sequence[str] | None = None) -> SexAnonymizationBrain:
     """The anonymizer recipe, end to end: ``<config.yaml> [--key value ...]
     [--eval_only] [--device cuda|cpu]``, the JAX recipe's command line.
@@ -758,13 +765,7 @@ def main(argv: Sequence[str] | None = None) -> SexAnonymizationBrain:
     main-process gating are not ported yet. Returns the brain.
     """
     config_path, run_opts, overrides = parse_arguments(list(argv) if argv is not None else sys.argv[1:])
-    device = str(run_opts.get("device", "cuda"))
-    if device.startswith("cuda"):
-        if not torch.cuda.is_available():
-            raise SystemExit("anonymizer recipe: no CUDA device; pass --device cpu to run on the CPU")
-        set_tf32(False)
-    elif device != "cpu":
-        raise SystemExit(f"anonymizer recipe: unknown --device {device!r} (cuda or cpu)")
+    device = resolve_device("anonymizer recipe", run_opts.get("device"))
     hparams = load_config(config_path, overrides, device=device)
     create_experiment_directory(hparams["output_folder"], config_path, overrides)
     prepare_librispeech(

@@ -34,6 +34,10 @@ layer, row and position, quantized as each step writes them), at any length:
 up to the whole-row bound (``max_u_whole_row(d_model, 2)``, 426 positions at
 d_model 768) K5 (paged) or K3 with K2 (physical) take it, above it K6 on the
 fused page-64 cache (the LM's step one K7 launch) or K4 with K2.
+
+:func:`beam_decode` is the decode itself (encode, CTC log-probs, the
+cross-attention K/V once, the cache under the paging rule, the beam search),
+shared by the bundle and the ASR recipe's own valid and test decodes.
 """
 
 from __future__ import annotations
@@ -51,7 +55,37 @@ from ..models.transformer import TransformerLM, beam_reorder_cache, make_kv_cach
 from ..train.checkpoint import recover_trees
 from ..utils.convert import asr_state_dict, load_numpy_state, lm_state_dict
 
-_CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+def decode_cache(n: int, u_max: int, num_layers: int, nhead: int, d_model: int, dtype: torch.dtype,
+                 paged_kv: bool, device, pad_index: int = 0) -> dict:
+    """A decode cache of ``n`` rows and ``u_max`` positions, paged when
+    ``paged_kv`` and the JAX rule (``use_paged_cache``) allow it."""
+    paged = paged_kv and use_paged_cache(n, u_max, d_model, dtype, device)
+    return make_kv_cache(n, u_max, num_layers, nhead, d_model // nhead, dtype, pad_index,
+                         device=device, paged=paged)
+
+
+@torch.no_grad()
+def beam_decode(model: ASRModel, feats: torch.Tensor, lens: torch.Tensor, cfg: BeamSearchConfig,
+                cache_dtype: torch.dtype = torch.float32, paged_kv: bool = True,
+                max_steps: int | None = None, lm_cached: tuple | None = None,
+                return_stats: bool = False):
+    """Beam-decode normalized (B, T, F) features -> (tokens, lengths, scores[, stats])."""
+    enc = model.encode(feats, lens)
+    p_ctc = torch.log_softmax(model.heads.ctc_logits(enc), dim=-1)
+    # cross-attention memory K/V projected once per decode, at the batch
+    # level: decode steps group the B * beam query rows over it
+    cross = model.cross_kv(enc)
+    att_cached = (
+        lambda n, u_max: decode_cache(n, u_max, model.num_decoder_layers, model.nhead, model.d_model,
+                                      cache_dtype, paged_kv, enc.device),
+        lambda state, prev, step: model.decode_step_cached(prev, enc, state, step, lens, cross),
+        beam_reorder_cache,
+    )
+    return beam_search(att_cached, enc, lens, p_ctc, cfg, max_steps=max_steps, lm_cached=lm_cached,
+                       return_stats=return_stats)
 
 
 class ASRBundle:
@@ -66,7 +100,7 @@ class ASRBundle:
         # the recipe default float32 keeps the scores stable against the
         # reference's f32 decode; 'bfloat16' halves the cache traffic and
         # 'int8' (quantized serving, codes with per-position scales) halves it again
-        self.cache_dtype = _CACHE_DTYPES[hparams.get("decode_cache_dtype", "float32")]
+        self.cache_dtype = CACHE_DTYPES[hparams.get("decode_cache_dtype", "float32")]
         self.paged_kv = bool(hparams.get("decode_paged_kv", True))
         self.lm_weight = float(hparams.get("lm_weight", 0.6)) if lm is not None else 0.0
         # K7's weights, stacked once per bundle (not once per decode); the
@@ -114,40 +148,28 @@ class ASRBundle:
 
     def make_cache(self, n: int, u_max: int, device) -> dict:
         m = self.model
-        return make_kv_cache(n, u_max, m.num_decoder_layers, m.nhead, m.d_model // m.nhead,
-                             self.cache_dtype, device=device, paged=self.pages(n, u_max, device))
+        return decode_cache(n, u_max, m.num_decoder_layers, m.nhead, m.d_model, self.cache_dtype,
+                            self.paged_kv, device)
 
     def make_lm_cache(self, n: int, u_max: int, device) -> dict:
         lm = self.lm
-        paged = self.paged_kv and use_paged_cache(n, u_max, lm.d_model, self.cache_dtype, device)
-        return make_kv_cache(n, u_max, lm.num_layers, lm.nhead, lm.d_model // lm.nhead,
-                             self.cache_dtype, lm.pad_index, device=device, paged=paged)
+        return decode_cache(n, u_max, lm.num_layers, lm.nhead, lm.d_model, self.cache_dtype,
+                            self.paged_kv, device, lm.pad_index)
 
     @torch.no_grad()
     def _decode_test(self, feats, lens):
         """Beam-decode normalized (B, T, F) features -> (tokens, lengths, scores[, stats])."""
-        m = self.model
-        enc = m.encode(feats, lens)
-        p_ctc = torch.log_softmax(m.heads.ctc_logits(enc), dim=-1)
-        # cross-attention memory K/V projected once per decode, at the batch
-        # level: decode steps group the B * beam query rows over it
-        cross = m.cross_kv(enc)
-        att_cached = (
-            lambda n, u_max: self.make_cache(n, u_max, enc.device),
-            lambda state, prev, step: m.decode_step_cached(prev, enc, state, step, lens, cross),
-            beam_reorder_cache,
-        )
         lm_cached = None
         if self.lm is not None and self.lm_weight > 0:
             lm_cached = (
-                lambda n, u_max: self.make_lm_cache(n, u_max, enc.device),
+                lambda n, u_max: self.make_lm_cache(n, u_max, feats.device),
                 lambda state, prev, step: self.lm.decode_step(prev, state, step, self.lm_mega),
                 beam_reorder_cache,
             )
         max_steps = self.hparams.get("max_decode_steps")
-        return beam_search(att_cached, enc, lens, p_ctc, self.cfg,
-                           max_steps=int(max_steps) if max_steps else None, lm_cached=lm_cached,
-                           return_stats=bool(self.hparams.get("decode_return_stats")))
+        return beam_decode(self.model, feats, lens, self.cfg, self.cache_dtype, self.paged_kv,
+                           int(max_steps) if max_steps else None, lm_cached,
+                           bool(self.hparams.get("decode_return_stats")))
 
     # -- anonymizer evaluation hooks ----------------------------------------
 

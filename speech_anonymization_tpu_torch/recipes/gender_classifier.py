@@ -58,10 +58,11 @@ from ..train.brain import Brain, Stage
 from ..train.checkpoint import Checkpointer, PytreeRecoverable
 from ..train.experiment import create_experiment_directory
 from ..train.state import TrainState, adam_like_reference, guarded_step
-from ..utils.convert import anonymizer_variables, indexed_state_dict, normalizer_tree, xvector_variables
+from ..utils.convert import (anonymizer_variables, indexed_state_dict, normalizer_state, normalizer_tree,
+                             xvector_variables)
 from ..models.autoencoders import FullyConnectedAutoencoder
 from .anonymizer import (MODEL_TYPES, _flat, copy_into, frontier_pick, model_state_tree, pad_time_to_multiple,
-                         set_model_params, set_model_state, set_tf32)
+                         resolve_device, set_model_params, set_model_state)
 
 
 class GenderDraws(NamedTuple):
@@ -238,9 +239,7 @@ class GenderBrain(Brain):
                       _flat(tree[name]["batch_stats"]))
 
     def _set_normalizer(self, tree: dict) -> None:
-        self.state.norm_state = NormalizerState(
-            *(torch.from_numpy(np.array(tree[k], np.float32)).to(self.device)
-              for k in NormalizerState._fields))
+        self.state.norm_state = normalizer_state(tree, self.device)
 
     # -- hooks ---------------------------------------------------------------------
 
@@ -390,13 +389,7 @@ def run(argv: Sequence[str] | None, name: str, make_pipeline=None) -> GenderBrai
     """:func:`main`'s steps; ``make_pipeline(hparams)``, when given, makes the
     datasets' audio pipeline (the pitch-norm recipe's)."""
     config_path, run_opts, overrides = parse_arguments(list(argv) if argv is not None else sys.argv[1:])
-    device = str(run_opts.get("device", "cuda"))
-    if device.startswith("cuda"):
-        if not torch.cuda.is_available():
-            raise SystemExit(f"{name}: no CUDA device; pass --device cpu to run on the CPU")
-        set_tf32(False)
-    elif device != "cpu":
-        raise SystemExit(f"{name}: unknown --device {device!r} (cuda or cpu)")
+    device = resolve_device(name, run_opts.get("device"))
     hparams = load_config(config_path, overrides, device=device)
     create_experiment_directory(hparams["output_folder"], config_path, overrides)
     prepare_librispeech(

@@ -12,6 +12,9 @@ Counterpart of ``speech_anonymization_tpu/train/state.py``:
   * :func:`guarded_step`: ``make_update_fn``'s update at the accumulation
     count (the gender recipe's): clip the buffer, and only where the norm and
     the loss are finite, step the parameters AND the optimizer state;
+  * :func:`kept_step`: the anonymizer, ASR and LM recipes' update: clip, the
+    optimizer's step (its state advances whatever the check says), the
+    parameters kept where the norm or the loss is not finite;
   * :func:`adam_like_reference` (b1 0.9, b2 0.98, eps 1e-9) and
     :func:`sgd_like_reference` (nesterov momentum 0.99): optax's ``adam`` and
     ``sgd`` over an explicit state, keyed by parameter name. The lr is a
@@ -155,6 +158,24 @@ class TrainState:
     def reset_accumulation(self) -> None:
         self.accum_grads = {k: torch.zeros_like(a) for k, a in self.accum_grads.items()}
         self.accum_count = 0
+
+
+@torch.no_grad()
+def kept_step(params: Tensors, grads: Tensors, opt: Adam | SGD, opt_state, lr: float, loss: torch.Tensor,
+              clip_norm: float | None):
+    """The update of the anonymizer, ASR and LM recipes (the JAX recipes'
+    ``jnp.where(finite, new, old)`` on the parameters alone): ``grads``
+    clipped by their global norm (``clip_norm``, or only measured when None),
+    ``opt``'s step from ``opt_state``, and ``params`` updated in place only
+    where the norm and ``loss`` are finite, with no host sync. -> the new
+    optimizer state, advanced either way."""
+    if clip_norm is not None:
+        grads, gnorm = clip_by_global_norm(grads, float(clip_norm))
+    else:
+        gnorm = global_norm(grads.values())
+    updates, new_state = opt.update(grads, opt_state, lr)
+    apply_updates(params, updates, keep=torch.isfinite(gnorm) & torch.isfinite(loss))
+    return new_state
 
 
 @torch.no_grad()

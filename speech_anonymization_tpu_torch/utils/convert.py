@@ -50,6 +50,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.normalization import NormalizerState
+
 
 def linear_from_flax(p: Mapping) -> dict:
     return {"weight": np.asarray(p["kernel"]).T, "bias": np.asarray(p["bias"])}
@@ -317,6 +319,13 @@ def normalizer_tree(state) -> dict:
     named tuple (views of the state's tensors)."""
     return {"count": state.count.detach(), "glob_mean": state.glob_mean.detach(),
             "glob_std": state.glob_std.detach()}
+
+
+def normalizer_state(tree: Mapping, device) -> NormalizerState:
+    """:func:`normalizer_tree`'s inverse: a decoded map (numpy leaves) -> a
+    ``NormalizerState`` of f32 tensors on ``device``."""
+    return NormalizerState(*(torch.from_numpy(np.array(tree[k], np.float32)).to(device)
+                             for k in NormalizerState._fields))
 
 
 def _linear_to_flax(m: nn.Linear) -> dict:

@@ -4,8 +4,10 @@ kernel on int8 caches too: K2, K3 and K5 whole-row, K4, K6 and K7 above the
 whole-row bound), the anonymization and decode slices (physical and
 paged caches, f32, bf16 and int8, with and without the LM) on the card
 against the CPU, the anonymizer's training step (one convae
-accumulation cycle on the card against the CPU; K1 once a micro-batch) and
-the gender recipe's (one GenderBrain step, plain and augmented).
+accumulation cycle on the card against the CPU; K1 once a micro-batch), the
+gender recipe's (one GenderBrain step, plain and augmented), and the ASR and
+LM recipes' (one ASRBrain step, ``ctc_loss`` on feasible and infeasible rows,
+one LMBrain step at dropout 0.1 on given masks).
 Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -47,8 +49,9 @@ from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, No
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle
 from speech_anonymization_tpu_torch.recipes.gender_classifier import GenderBrain
-from speech_anonymization_tpu_torch.tools.train_parity import (compare_cycle, compare_gender_step, convae_hparams,
-                                                              gender_hparams, train_batch)
+from speech_anonymization_tpu_torch.tools.train_parity import (MOMENT_RTOL, compare_cycle, compare_gender_step,
+                                                              convae_hparams, gender_hparams, noise_floor,
+                                                              step_gaps, tensor_gaps, train_batch)
 from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_
 
@@ -1139,3 +1142,137 @@ def test_train_step_launches_k1_once_per_micro_batch(cuda):
     assert fused_fbank.launches == len(batches)
     assert all(bool(torch.isfinite(x)) for x in losses)
     assert tr.state.opt_state["gen"].count == 1 and tr.state.accum_count == 1
+
+
+# -- the ASR and LM recipes -----------------------------------------------------
+
+ASR_TRAIN = dict(d_model=64, nhead=4, num_encoder_layers=2, num_decoder_layers=1, d_ffn=128, output_neurons=100)
+# card against CPU: losses within 1e-5 relative, measured; the moments and
+# parameters as tools/train_parity.py holds the anonymizer's (cuDNN and cuBLAS
+# sum in other orders, and CTC's CUDA backward accumulates in its own)
+RECIPE_LOSS_RTOL = 1e-5
+CTC_GRAD_ATOL = 1e-5
+CTC_INFEASIBLE_GRAD_ATOL = 2e-3  # the ~1e5 loss's f32 limit (tests/test_torch_seq_losses.py)
+
+
+def _recipe_hparams(device, tmp, **extra) -> dict:
+    from speech_anonymization_tpu_torch.train.epoch_loop import EpochCounter
+    from speech_anonymization_tpu_torch.train.logger import FileTrainLogger
+
+    return {"seed": 3, "gradient_clipping": 5.0, "noam_annealing": NoamScheduler(1.0, 10, 64),
+            "compute_features": Fbank(device=device), "normalize": InputNormalizer(dim=80),
+            "train_logger": FileTrainLogger(str(tmp / device / "log.txt")), "epoch_counter": EpochCounter(2),
+            **extra}
+
+
+def _asr_batch(b=4, samples=32_000, seed=30):
+    from types import SimpleNamespace
+
+    wavs, lens, _, tokens = train_batch(b, samples, seed, vocab=ASR_TRAIN["output_neurons"], tokens=12)
+    rng = np.random.default_rng(seed)
+    n = rng.integers(6, 12, b)
+    toks = np.where(np.arange(12)[None] < n[:, None], tokens.numpy()[:, :12], 0)
+    bos = np.concatenate([np.ones((b, 1), np.int64), toks], 1)
+    eos = np.zeros_like(bos)
+    for i, k in enumerate(n):
+        eos[i, : k + 1] = [*toks[i, :k], 2]
+    return SimpleNamespace(sig=(wavs.numpy(), lens.numpy()), tokens_bos=(bos, (n + 1) / 13.0),
+                           tokens_eos=(eos, ((n + 1) / 13.0).astype(np.float32)),
+                           tokens=(toks, (n / 12.0).astype(np.float32)), id=[str(i) for i in range(b)],
+                           wrd=["a"] * b)
+
+
+def _opt_and_param_gaps(card_opt, cpu_opt, card_params, cpu_params, start, lr) -> dict:
+    host = lambda d: {k: v.detach().cpu().numpy() for k, v in d.items()}  # noqa: E731
+    mu, nu, cmu, cnu = host(card_opt.mu), host(card_opt.nu), host(cpu_opt.mu), host(cpu_opt.nu)
+    assert card_opt.count == cpu_opt.count == 1
+    failures = []
+    tensor_gaps(mu, cmu, MOMENT_RTOL, "mu", failures)
+    tensor_gaps(nu, cnu, MOMENT_RTOL, "nu", failures)
+    got, want = host(card_params), host(cpu_params)
+    sign_only = sum(step_gaps(k, got[k], want[k], start[k], (mu[k], cmu[k]), (nu[k], cnu[k]), 1, lr,
+                              noise_floor(cmu), failures)[0] for k in want)
+    assert not failures, failures
+    return {"sign_only": sign_only, "params": sum(v.size for v in want.values())}
+
+
+def test_asr_train_step_on_card_matches_cpu(cuda, tmp_path):
+    """One ASRBrain micro-batch at accumulation 1 (4 x 2 s, CTC + KLdiv) on the
+    card and on the CPU from the same seeded weights: loss, normalizer, Adam's
+    moments and the updated parameters; K1 launched once."""
+    from speech_anonymization_tpu_torch.recipes.asr_train import ASRBrain
+
+    brains = {d: ASRBrain(_recipe_hparams(d, tmp_path, **ASR_TRAIN), None, device=d) for d in ("cuda", "cpu")}
+    start = {k: v.detach().numpy().copy() for k, v in brains["cpu"].params.items()}
+    batch = _asr_batch()
+    fused_fbank.launches = 0
+    losses = {d: float(b.fit_batch(batch, 1)) for d, b in brains.items()}
+    assert fused_fbank.launches == 1
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=RECIPE_LOSS_RTOL)
+    for k in NormalizerState._fields:
+        np.testing.assert_allclose(getattr(brains["cuda"].state.norm_state, k).cpu().numpy(),
+                                   getattr(brains["cpu"].state.norm_state, k).numpy(), rtol=1e-4, atol=1e-4)
+    report = _opt_and_param_gaps(brains["cuda"].state.opt_state["opt"], brains["cpu"].state.opt_state["opt"],
+                                 brains["cuda"].params, brains["cpu"].params, start,
+                                 brains["cpu"].noam.current_lr)
+    assert report["sign_only"] <= 0.01 * report["params"], report
+
+
+@pytest.mark.parametrize("feasible", [True, False])
+def test_ctc_loss_on_card_matches_cpu(cuda, feasible):
+    """F.ctc_loss's CUDA kernels on the rows an alignment fits, the plain
+    recursion on the one none fits (5 repeated labels over 3 frames): value
+    and gradient w.r.t. the logits, card against CPU."""
+    from speech_anonymization_tpu_torch.losses.basic import ctc_feasible, ctc_loss
+
+    rng = np.random.default_rng(40)
+    logits = (2.0 * rng.standard_normal((4, 12, 7))).astype(np.float32)
+    targets = rng.integers(1, 7, (4, 5))
+    lens = np.array([1.0, 0.75, 0.5, 0.9 if feasible else 0.25], np.float32)
+    if not feasible:
+        targets[3] = 3
+    tg_lens = np.array([1.0, 0.6, 0.4, 1.0], np.float32)
+    assert ctc_feasible(targets, lens, 12, tg_lens)[3] == feasible
+    out = {}
+    for d in ("cuda", "cpu"):
+        x = torch.tensor(logits, device=d, requires_grad=True)
+        loss = ctc_loss(torch.log_softmax(x, -1), torch.tensor(targets, device=d), torch.tensor(lens, device=d),
+                        torch.tensor(tg_lens, device=d), reduction="sum", host=(targets, lens, tg_lens))
+        (grad,) = torch.autograd.grad(loss, x)
+        out[d] = (float(loss.detach()), grad.cpu().numpy())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=RECIPE_LOSS_RTOL)
+    np.testing.assert_allclose(out["cuda"][1][:3], out["cpu"][1][:3], atol=CTC_GRAD_ATOL)
+    np.testing.assert_allclose(out["cuda"][1][3], out["cpu"][1][3],
+                               atol=CTC_GRAD_ATOL if feasible else CTC_INFEASIBLE_GRAD_ATOL)
+    assert feasible or out["cpu"][0] > 1e5
+
+
+def test_lm_dropout_step_on_card_matches_cpu(cuda, tmp_path):
+    """One LMBrain step at lm_dropout 0.1 (batch 6 x 16 tokens) on the card and
+    on the CPU from the same seeded weights and the same given masks."""
+    from speech_anonymization_tpu_torch.models.transformer import DropoutRng
+    from speech_anonymization_tpu_torch.recipes.lm_train import LMBrain
+
+    widths = {"output_neurons": 100, "lm_d_model": 64, "lm_nhead": 4, "lm_num_layers": 2, "lm_d_ffn": 128}
+    brains = {d: LMBrain(_recipe_hparams(d, tmp_path, **widths, lm_dropout=0.1, lm_label_smoothing=0.1), None,
+                         device=d) for d in ("cuda", "cpu")}
+    rng = np.random.default_rng(50)
+    bos = rng.integers(3, 100, (6, 16)).astype(np.int32)
+    bos[:, 0] = 1
+    bos[3, 9:] = 0
+    eos = np.roll(bos, -1, 1)
+    eos[:, -1] = 2
+    batch = (bos, eos, np.full(6, 1.0, np.float32))
+    g = torch.Generator().manual_seed(51)
+    shapes = [(6, 4, 16, 16), (6, 16, 128)] * 2  # a layer's attention weights, then its FFN's hidden
+    masks = [torch.rand(s, generator=g) < 0.9 for s in shapes]
+    start = {k: v.detach().numpy().copy() for k, v in brains["cpu"].params.items()}
+    losses = {}
+    for d, b in brains.items():
+        b.dropout_rng = DropoutRng(masks=list(masks))
+        losses[d] = float(b.fit_batch(batch, 1))
+        assert not b.dropout_rng.masks
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=RECIPE_LOSS_RTOL)
+    report = _opt_and_param_gaps(brains["cuda"].opt_state, brains["cpu"].opt_state, brains["cuda"].params,
+                                 brains["cpu"].params, start, brains["cpu"].noam.current_lr)
+    assert report["sign_only"] <= 0.01 * report["params"], report
