@@ -229,7 +229,29 @@ failure raises and exits non-zero:
            ``load_lm`` on its directory giving the least-loss tree's logits.
            Reports each run's wall, stage walls, ms a micro-batch and an
            update, the loader's share, the checkpoint saves' ms, each decode's
-           wall and ms a step, peak memory and the launches.
+           wall and ms a step, peak memory and the launches;
+  reference  the reference's own checkpoints: seeded state dicts in
+           SpeechBrain's layout at full width (tools/sb_layout.py; asr.ckpt at
+           transformer.yaml's widths, lm.ckpt, an FC-AE with the HEAD sex
+           classifier under save/CKPT+.../model.ckpt, normalizer.ckpt from
+           D2's fbank statistics, noam_scheduler.ckpt, counter.ckpt) written
+           with torch.save, then read by the port's loaders on the card
+           (utils/reference_ckpts.py, utils/sb_compat.py): every key of
+           asr.ckpt and lm.ckpt read, the parameter counts the files', the
+           states equal to what was written; the loaded ASRModel(sb_compat)
+           on the card against the CPU (PARITY_ATOL) and its cached decode (K3)
+           against decode_one_step (REF_CACHED_ATOL); D2's test decode of the
+           published pair (K1 -> the loaded normalizer -> the sb_compat ASR,
+           beam 66, CTC 0.4, the sb_compat LM fused at 0.6, paged: K6 x 6 and
+           one K7 exact-GELU launch a step), counts reset right before and
+           read right after, then timed (two decodes); K7's exact-GELU build
+           (a layer at a time and whole, K7's tolerances) and K6 (1e-5, the
+           pages and slots exact) against their twins on that decode's own
+           step-125 inputs, K7 timed beside its twin, its tanh build and the
+           per-layer path; gender_classifier's recon variant through main()
+           (configs/gender_classifier_recon.yaml, 1 epoch, the gender phase's
+           corpus) on the seeded reference save/ directory: K1 once a batch,
+           its frozen FC-AE's reconstruction 0.0 from load_reference_fcae's.
 
 Then the whole run's wall time (``{"phase": "wall", ...}``), the card's name
 and power limit (nvidia-smi), the kernel table as one JSON object, and last
@@ -272,6 +294,7 @@ from speech_anonymization_tpu_torch.eval.evaluator import FeatureClassifier  # n
 from speech_anonymization_tpu_torch.models import (  # noqa: E402
     ASRModel,
     ConvAutoencoder,
+    FullyConnectedAutoencoder,
     TransformerLM,
     Xvector,
     XvectorClassifier,
@@ -317,7 +340,7 @@ from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
     make_kv_cache,
 )
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle, load_asr_bundle, load_lm  # noqa: E402
-from speech_anonymization_tpu_torch.tools import profile_lm_megastep  # noqa: E402
+from speech_anonymization_tpu_torch.tools import profile_lm_megastep, sb_layout  # noqa: E402
 from speech_anonymization_tpu_torch.tools.profile_k3 import K3_CASES, N as K3_N, k3_inputs  # noqa: E402
 from speech_anonymization_tpu_torch.tools.train_parity import (  # noqa: E402
     compare_cycle,
@@ -340,6 +363,19 @@ from speech_anonymization_tpu_torch.utils.convert import (  # noqa: E402
     load_numpy_state,
     normalizer_tree,
     xvector_variables,
+)
+from speech_anonymization_tpu_torch.utils.reference_ckpts import (  # noqa: E402
+    load_reference_asr,
+    load_reference_fcae,
+    load_reference_lm,
+    port_sb_asr_state_dict,
+    port_sb_lm_state_dict,
+)
+from speech_anonymization_tpu_torch.utils.sb_compat import (  # noqa: E402
+    load_counter_ckpt,
+    load_noam_ckpt,
+    load_normalizer_ckpt,
+    load_state_dict_ckpt,
 )
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_  # noqa: E402
 
@@ -1105,71 +1141,101 @@ def _bf16_ulps(a: torch.Tensor, b: torch.Tensor, slack: float = 0.0) -> torch.Te
     return torch.where((a == b) | (a.isnan() & b.isnan()), torch.zeros_like(ulps), ulps)
 
 
-@torch.no_grad()
-def phase_k7(lm: TransformerLM, gen: torch.Generator) -> dict:
-    """K7 at D2's LM cache against its plain twin, f32 and bf16, then timed at
-    step 125 (f32) beside the twin and the per-layer path on the same state."""
-    wall, vecs = lm.prepare_megastep()
-    nhead, layers, nf = lm.nhead, lm.num_layers, lm.d_ffn // lm.d_model
-    nb = 4 + 2 * nf  # weight blocks a layer
-    checks, max_err = [], 0.0
+def _k7_call(kernel, x0, mask, cache, step, wall, vecs, nhead, exact_gelu=False):
+    """x_out of one K7 (or twin) call on a fused page-64 cache dict."""
+    return kernel(x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step, wall,
+                  vecs, nhead, exact_gelu=exact_gelu)[0]
 
-    def run(kernel, x0, mask, cache, step, exact_gelu=False):
-        return kernel(x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step,
-                      wall, vecs, nhead, exact_gelu=exact_gelu)[0]
+
+@torch.no_grad()
+def _k7_check(lm: TransformerLM, wall, vecs, x0, mask, cache, step: int, exact: bool) -> dict:
+    """K7 against its plain twin from the same state (``cache`` is written;
+    the twin runs on a copy): a layer at a time, both fed the kernel's x (x
+    within K7_LAYER_ATOL, every written page and slot within one bf16 ulp),
+    then one launch for all layers (x_out's max and mean gap, the head's
+    log-probs). Raises on a disagreement; returns the check's report."""
+    nhead, layers = lm.nhead, lm.num_layers
+    nb = wall.shape[0] // layers  # weight blocks a layer
+    twin_cache = {k: v.clone() for k, v in cache.items()}
 
     def layer_of(layer, c):
         return {"kv": c["kv"][layer:layer + 1], "kv_act": c["kv_act"][layer:layer + 1],
                 "table": c["table"], "act_src": c["act_src"]}
 
+    pages = {key: {"differing": 0, "beyond_one_ulp": 0, "max_ulps_past_slack": 0.0,
+                   "nan_matches": True} for key in ("kv", "kv_act")}
+    x, layer_errs = x0, []
+    for layer in range(layers):
+        lw, lv = wall[layer * nb:(layer + 1) * nb], vecs[layer:layer + 1]
+        got_l = _k7_call(lm_megastep, x, mask, layer_of(layer, cache), step, lw, lv, nhead, exact)
+        want_l = _k7_call(lm_megastep_plain, x, mask, layer_of(layer, twin_cache), step, lw, lv, nhead,
+                          exact)
+        layer_errs.append(float((got_l - want_l).abs().max()))
+        for key, stats in pages.items():
+            a, b = cache[key][layer], twin_cache[key][layer]
+            ulps = _bf16_ulps(a, b, K7_ULP_SLACK)
+            stats["differing"] += int(((a != b) & ~(a.isnan() & b.isnan())).sum())
+            stats["beyond_one_ulp"] += int((ulps > 1).sum())
+            stats["max_ulps_past_slack"] = max(stats["max_ulps_past_slack"], float(ulps.max()))
+            stats["nan_matches"] &= bool((a.isnan() == b.isnan()).all())
+            del ulps
+        x = got_l
+    # one launch for every layer against the twin from the same state (the
+    # step never reads what it writes: the written pages are rewritten)
+    got = _k7_call(lm_megastep, x0, mask, cache, step, wall, vecs, nhead, exact)
+    want = _k7_call(lm_megastep_plain, x0, mask, twin_cache, step, wall, vecs, nhead, exact)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    mean_err = float((got - want).abs().mean())
+    lp_got, lp_want = (torch.log_softmax(lm._head(x), -1) for x in (got, want))
+    lp_err = float((lp_got - lp_want).abs().max())
+    lp_ok = bool(torch.allclose(lp_got, lp_want, rtol=K7_LOGP_RTOL, atol=K7_LOGP_ATOL))
+    ok = (bool(torch.isfinite(got).all()) and err <= K7_ATOL and mean_err <= K7_MEAN_ATOL
+          and lp_ok and max(layer_errs) <= K7_LAYER_ATOL
+          and all(p["beyond_one_ulp"] == 0 and p["nan_matches"] for p in pages.values()))
+    check = {"dtype": str(cache["kv"].dtype), "step": step, "exact_gelu": exact, "max_abs_err": err,
+             "mean_abs_err": mean_err, "log_prob_max_abs_err": lp_err,
+             "layer_by_layer_max_abs_err": layer_errs, "written": pages, "ok": ok}
+    if not ok:
+        raise AssertionError(f"lm_megastep disagrees with its plain twin: {check}")
+    del twin_cache
+    return check
+
+
+def _k7_work(lm: TransformerLM, wall, vecs, x0, mask, cache, step: int) -> tuple[int, int, int]:
+    """One K7 step's (fp32 flops, tensor-core flops, bytes) on this step's
+    valid positions. q/k/v, the context and the layers' x stay in K7's
+    L2-resident scratch: the function moves each layer's cache bytes, the mask
+    and table once, the weights, and x in and out."""
+    nhead, layers, nf = lm.nhead, lm.num_layers, lm.d_ffn // lm.d_model
+    n, m = x0.shape
+    valid = int(mask[:, :step + 1].sum())
+    flops = layers * (4 * valid * (m // nhead) * nhead + n * nhead * (step + 1))
+    tc_flops = 2 * n * m * m * (4 + 2 * nf) * layers
+    nbytes = (layers * _paged_cache_bytes(cache, mask, step, cache["kv"].element_size())
+              + _mask_table_bytes(cache, step) + wall.numel() * 2 + vecs.numel() * 4 + 2 * n * m * 4)
+    return flops, tc_flops, nbytes
+
+
+@torch.no_grad()
+def phase_k7(lm: TransformerLM, gen: torch.Generator) -> dict:
+    """K7 at D2's LM cache against its plain twin, f32 and bf16, then timed at
+    step 125 (f32) beside the twin and the per-layer path on the same state."""
+    wall, vecs = lm.prepare_megastep()
+    nhead, layers = lm.nhead, lm.num_layers
+    checks, max_err = [], 0.0
+
+    def run(kernel, x0, mask, cache, step):
+        return _k7_call(kernel, x0, mask, cache, step, wall, vecs, nhead)
+
     cases = [(dtype, step, False) for dtype in (torch.float32, torch.bfloat16)
              for step in (0, 63, 64, 125, 251)] + [(torch.bfloat16, 125, True)]
     for dtype, step, exact in cases:
         x0, _, _, mask, cache = _paged_inputs("D2", dtype, True, step, gen, layers, nhead)
-        twin_cache = {k: v.clone() for k, v in cache.items()}
-        # 1. a layer at a time, both fed the kernel's x: every layer's written
-        # pages and slots within one bf16 ulp, its x within K7_LAYER_ATOL
-        pages = {key: {"differing": 0, "beyond_one_ulp": 0, "max_ulps_past_slack": 0.0,
-                       "nan_matches": True} for key in ("kv", "kv_act")}
-        x, layer_errs = x0, []
-        for layer in range(layers):
-            lw, lv = wall[layer * nb:(layer + 1) * nb], vecs[layer:layer + 1]
-            c, tc = layer_of(layer, cache), layer_of(layer, twin_cache)
-            got_l = lm_megastep(x, mask, c["kv"], c["kv_act"], c["table"], c["act_src"], step, lw, lv,
-                                nhead, exact_gelu=exact)[0]
-            want_l = lm_megastep_plain(x, mask, tc["kv"], tc["kv_act"], tc["table"], tc["act_src"],
-                                       step, lw, lv, nhead, exact_gelu=exact)[0]
-            layer_errs.append(float((got_l - want_l).abs().max()))
-            for key, stats in pages.items():
-                a, b = cache[key][layer], twin_cache[key][layer]
-                ulps = _bf16_ulps(a, b, K7_ULP_SLACK)
-                stats["differing"] += int(((a != b) & ~(a.isnan() & b.isnan())).sum())
-                stats["beyond_one_ulp"] += int((ulps > 1).sum())
-                stats["max_ulps_past_slack"] = max(stats["max_ulps_past_slack"], float(ulps.max()))
-                stats["nan_matches"] &= bool((a.isnan() == b.isnan()).all())
-                del ulps
-            x = got_l
-        # 2. one launch for every layer against the twin from the same state
-        # (the step never reads what it writes: the written pages are rewritten)
-        got = run(lm_megastep, x0, mask, cache, step, exact)
-        want = run(lm_megastep_plain, x0, mask, twin_cache, step, exact)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        mean_err = float((got - want).abs().mean())
-        lp_got, lp_want = (torch.log_softmax(lm._head(x), -1) for x in (got, want))
-        lp_err = float((lp_got - lp_want).abs().max())
-        lp_ok = bool(torch.allclose(lp_got, lp_want, rtol=K7_LOGP_RTOL, atol=K7_LOGP_ATOL))
-        ok = (bool(torch.isfinite(got).all()) and err <= K7_ATOL and mean_err <= K7_MEAN_ATOL
-              and lp_ok and max(layer_errs) <= K7_LAYER_ATOL
-              and all(p["beyond_one_ulp"] == 0 and p["nan_matches"] for p in pages.values()))
-        checks.append({"dtype": str(dtype), "step": step, "exact_gelu": exact, "max_abs_err": err,
-                       "mean_abs_err": mean_err, "log_prob_max_abs_err": lp_err,
-                       "layer_by_layer_max_abs_err": layer_errs, "written": pages, "ok": ok})
-        if not ok:
-            raise AssertionError(f"lm_megastep disagrees with its plain twin: {checks[-1]}")
+        checks.append(_k7_check(lm, wall, vecs, x0, mask, cache, step, exact))
         if dtype == torch.float32:
-            max_err = max(max_err, err)
-        del x0, mask, cache, twin_cache, got, want
+            max_err = max(max_err, checks[-1]["max_abs_err"])
+        del x0, mask, cache
         torch.cuda.empty_cache()
 
     step = 125
@@ -1183,16 +1249,7 @@ def phase_k7(lm: TransformerLM, gen: torch.Generator) -> dict:
     x0b, _, _, maskb, cacheb = _paged_inputs("D2", torch.bfloat16, True, step, gen, layers, nhead)
     bf16_ms = cuda_ms(lambda: run(lm_megastep, x0b, maskb, cacheb, step), iters=10)
     del x0b, maskb, cacheb
-    n, m = x0.shape
-    d = m // nhead
-    valid = int(mask[:, :step + 1].sum())
-    flops = layers * (4 * valid * d * nhead + n * nhead * (step + 1))
-    tc_flops = 2 * n * m * m * (4 + 2 * nf) * layers
-    # q/k/v, the context and the layers' x stay in K7's L2-resident scratch:
-    # the function moves each layer's cache bytes, the mask and table once,
-    # the weights, and x in and out
-    nbytes = (layers * _paged_cache_bytes(cache, mask, step, 4) + _mask_table_bytes(cache, step)
-              + wall.numel() * 2 + vecs.numel() * 4 + 2 * n * m * 4)
+    flops, tc_flops, nbytes = _k7_work(lm, wall, vecs, x0, mask, cache, step)
     entry = kernel_entry("lm_megastep", max_err, ms, plain_ms, flops, nbytes, None, tc_flops)
     entry.update(per_layer_ms=per_layer_ms, bf16_ms=bf16_ms, barrier_us=phases["barrier_us"],
                  us_per_layer=phases["us_per_layer"])
@@ -3058,6 +3115,322 @@ def phase_asr_lm(card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+REF_SEEDS = {"asr": SEED + 11, "lm": SEED + 12, "fcae": SEED + 13}
+REF_SHAPE = "D2"  # the decode: 8 x 10.07 s, beam 66, the LM fused at 0.6, 252 steps
+REF_CAPTURE_STEP = 125  # the decode step whose K7 and K6 inputs are checked
+REF_PARITY = (2, 400, 16)  # card vs CPU: utterances, feature frames, teacher-forced tokens
+REF_CACHED_STEPS = 4
+REF_CACHED_ATOL = 2e-4  # decode_step_cached vs decode_one_step: the JAX package's own bound
+REF_CKPT = "CKPT+2022-05-06+15-54-03+00"  # a reference save/ directory's checkpoint name
+REF_NOAM = {"losses": [3.5, 2.25, 1.125], "n_steps": 31250, "normalize": 768 ** -0.5}
+REF_COUNTER = 17
+
+
+class KeyLog(dict):
+    """A state dict that records which of its keys were read."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.read: set = set()
+
+    def __getitem__(self, key):
+        self.read.add(key)
+        return super().__getitem__(key)
+
+    def get(self, key, default=None):
+        if key in self:
+            self.read.add(key)
+        return super().get(key, default)
+
+
+def _reference_files(work: Path, stats: torch.Tensor) -> tuple[dict, dict]:
+    """The reference's checkpoint files, seeded, in SpeechBrain's layout at
+    full width (``tools/sb_layout.py``): asr.ckpt (transformer.yaml's ASR),
+    lm.ckpt (its LM), an FC-AE with the HEAD sex classifier under
+    ``save/CKPT+.../model.ckpt``, normalizer.ckpt (``stats``: (2, 80) mean
+    and std), noam_scheduler.ckpt and counter.ckpt. -> (paths, state dicts)."""
+    paths = {"asr": work / "asr.ckpt", "lm": work / "lm.ckpt", "fcae": work / "save" / REF_CKPT / "model.ckpt",
+             "normalizer": work / "normalizer.ckpt", "noam": work / "noam_scheduler.ckpt",
+             "counter": work / "counter.ckpt"}
+    layouts = {"asr": sb_layout.asr_layout(), "lm": sb_layout.lm_layout(), "fcae": sb_layout.fcae_layout(True)}
+    sds = {name: sb_layout.write_seeded(str(paths[name]), layout, REF_SEEDS[name])
+           for name, layout in layouts.items()}
+    torch.save({"count": 8, "glob_mean": stats[0].cpu(), "glob_std": stats[1].cpu(), "spk_dict_mean": {},
+                "spk_dict_std": {}, "spk_dict_count": {}}, paths["normalizer"])
+    torch.save(REF_NOAM, paths["noam"])
+    paths["counter"].write_text(f"{REF_COUNTER}\n")
+    return paths, sds
+
+
+def _reference_load(name: str, path: Path, sd: dict, to_tree, loader) -> tuple[torch.nn.Module, dict]:
+    """``loader`` on the card, timed; every key of the file read by the
+    port's mapping (``to_tree`` on a ``KeyLog``) and the model's parameter
+    count equal to the file's. Raises otherwise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = loader(str(path), device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log = KeyLog(load_state_dict_ckpt(str(path)))
+    to_tree(log)
+    unread = sorted(set(log) - log.read)
+    n_file = sum(v.numel() for v in sd.values())
+    n_model = sum(p.numel() for p in model.parameters())
+    on_card = all(p.device.type == torch.device(DEVICE).type for p in model.parameters())
+    if unread or n_file != n_model or not on_card:
+        raise AssertionError(f"{name}: keys not read {unread[:6]}, {n_file} file vs {n_model} model "
+                             f"parameters, on the card {on_card}")
+    return model, {"load_s": load_s, "keys": len(log), "parameters": n_model,
+                   "file_mb": path.stat().st_size / 1e6}
+
+
+def _reference_states(paths: dict, stats: torch.Tensor) -> tuple[NormalizerState, dict]:
+    """normalizer.ckpt (on the card), noam_scheduler.ckpt and counter.ckpt
+    through the port's readers, each equal to what was written."""
+    state = load_normalizer_ckpt(str(paths["normalizer"]), device=DEVICE)
+    sched = NoamScheduler()
+    load_noam_ckpt(str(paths["noam"]), sched)
+    counter = load_counter_ckpt(str(paths["counter"]))
+    ok = (float(state.count) == 8.0 and state.glob_mean.device.type == torch.device(DEVICE).type
+          and torch.equal(state.glob_mean, stats[0]) and torch.equal(state.glob_std, stats[1])
+          and sched.n_steps == REF_NOAM["n_steps"] and sched.losses == REF_NOAM["losses"]
+          and sched.current_lr == sched.lr_at(REF_NOAM["n_steps"]) and counter == REF_COUNTER)
+    if not ok:
+        raise AssertionError(f"reference states: count {state.count}, noam {sched.n_steps} {sched.losses}, "
+                             f"counter {counter}")
+    return state, {"normalizer_count": float(state.count), "noam_n_steps": sched.n_steps,
+                   "noam_lr": sched.current_lr, "counter": counter}
+
+
+@torch.no_grad()
+def _reference_model_checks(asr: ASRModel, feats: torch.Tensor) -> dict:
+    """The loaded sb_compat ASR on the card: the encoder and a teacher-forced
+    decoder pass against the same weights on the CPU (PARITY_ATOL), and
+    ``decode_step_cached`` (physical cache: K3) against ``decode_one_step``
+    for REF_CACHED_STEPS steps (REF_CACHED_ATOL)."""
+    b, frames, u = REF_PARITY
+    rng = np.random.default_rng(SEED + 15)
+    toks = torch.from_numpy(rng.integers(3, 5000, (b, u)))
+    toks[:, 0] = 1
+    lens = torch.tensor([1.0, 0.8])
+    x = feats[:b, :frames].contiguous()
+    got = asr(x, toks.to(DEVICE), lens.to(DEVICE))
+    want = copy.deepcopy(asr).cpu()(x.cpu(), toks, lens)
+    gaps = {name: float((g.cpu() - w).abs().max()) for name, g, w in zip(("enc", "dec", "p_ctc", "p_seq"),
+                                                                        got, want)}
+    enc = got[0]
+    cross = asr.cross_kv(enc)
+    cache = make_kv_cache(b, u, asr.num_decoder_layers, asr.nhead, asr.d_model // asr.nhead, device=DEVICE)
+    tk, ln = toks.to(DEVICE), lens.to(DEVICE)
+    cached_gaps = []
+    for step in range(REF_CACHED_STEPS):
+        full = asr.decode_one_step(tk, enc, ln, step)
+        cached, cache = asr.decode_step_cached(tk[:, step], enc, cache, step, ln, cross)
+        cached_gaps.append(float((cached - full).abs().max()))
+    report = {"card_vs_cpu_max_abs": gaps, "atol": PARITY_ATOL, "cached_vs_full_max_abs": cached_gaps,
+              "cached_atol": REF_CACHED_ATOL, "shape": [b, frames, u]}
+    if not (max(gaps.values()) <= PARITY_ATOL and max(cached_gaps) <= REF_CACHED_ATOL):
+        raise AssertionError(f"the loaded sb_compat ASR on the card: {report}")
+    return report
+
+
+@torch.no_grad()
+def _reference_k7(lm: TransformerLM, mega: tuple, captured) -> dict:
+    """K7's exact-GELU build on the decode's own step inputs against its twin
+    (``_k7_check``), then timed beside its twin, the tanh build and the
+    per-layer path (cuBLAS f32 GEMMs + K6 x 12) on the same cache."""
+    x0, mask, cache, step = captured
+    wall, vecs = mega
+    check = _k7_check(lm, wall, vecs, x0, mask, cache, step, True)
+
+    def run(kernel, exact):
+        return _k7_call(kernel, x0, mask, cache, step, wall, vecs, lm.nhead, exact)
+
+    ms = cuda_ms(lambda: run(lm_megastep, True), iters=10)
+    tanh_ms = cuda_ms(lambda: run(lm_megastep, False), iters=10)
+    plain_ms = cuda_ms(lambda: run(lm_megastep_plain, True), iters=3, warmup=1)
+    per_layer_ms = cuda_ms(lambda: lm.step_layers(x0, cache, mask, step), iters=10)
+    flops, tc_flops, nbytes = _k7_work(lm, wall, vecs, x0, mask, cache, step)
+    op_ms, bytes_ms = ops_ms(flops, tc_flops), 1e3 * nbytes / PEAK_BYTES_PER_S
+    return {"check": check, "step": step, "cache": list(cache["kv"].shape),
+            "distinct_parents": int(torch.unique(cache["act_src"]).numel()), "ms": ms, "tanh_ms": tanh_ms,
+            "exact_over_tanh": ms / tanh_ms, "plain_ms": plain_ms, "per_layer_ms": per_layer_ms,
+            "bound_ms": max(op_ms, bytes_ms), "bound_by": "operations" if op_ms >= bytes_ms else "bytes",
+            "max_abs_err": check["max_abs_err"]}
+
+
+@torch.no_grad()
+def _reference_k6(captured) -> dict:
+    """K6 on the decode's own step inputs (the ASR's first decoder layer)
+    against its twin: out within ATTN_RTOL/ATTN_ATOL, every written page and
+    slot equal; timed beside the twin."""
+    q, kh, vh, mask, cache, step, nhead = captured
+    twin = {k: v.clone() for k, v in cache.items()}
+    got = attention_step_paged_chunked(q, kh, vh, mask, cache, step, 0, nhead)
+    want = attention_step_paged_fused_plain(q, kh, vh, mask, twin, step, 0, nhead)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL)) and _equal_buffers(cache, twin)
+    report = {"step": step, "cache": list(cache["kv"].shape), "max_abs_err": err, "ok": ok,
+              "rtol": ATTN_RTOL, "atol": ATTN_ATOL}
+    if not ok:
+        raise AssertionError(f"attention_step_paged_chunked disagrees with its twin on the decode's inputs: {report}")
+    report["ms"] = cuda_ms(lambda: attention_step_paged_chunked(q, kh, vh, mask, cache, step, 0, nhead))
+    report["plain_ms"] = cuda_ms(lambda: attention_step_paged_fused_plain(q, kh, vh, mask, twin, step, 0, nhead))
+    return report
+
+
+def _reference_decode(asr: ASRModel, lm: TransformerLM, fbank: Fbank, wavs: torch.Tensor,
+                      norm_state: NormalizerState, counters: dict) -> tuple[dict, dict, tuple, tuple]:
+    """The published pair's test decode on the card: D2's waveforms -> K1 ->
+    the loaded normalizer -> the sb_compat ASR, beam 66, CTC 0.4, the
+    sb_compat LM fused at 0.6, the default paged layout (K6 x 6 and one K7
+    exact-GELU launch a step). Counts reset right before and read right
+    after (capturing K7's and K6's inputs at REF_CAPTURE_STEP); then two
+    decodes timed. -> (report, launches, K7 capture, K6 capture)."""
+    batch, n_samples, max_steps = DECODE_SHAPES[REF_SHAPE]
+    steps = _decode_steps(REF_SHAPE)
+    lens = torch.ones(batch, device=DEVICE)
+    bundle = ASRBundle(asr, StubTokenizer(), {**DECODE_HPARAMS, "lm_weight": 0.6,
+                                              "max_decode_steps": max_steps}, lm=lm)
+    rows = batch * bundle.beam_size
+    if bundle.lm_mega is None or not bundle.pages(rows, steps + 1, DEVICE):
+        raise AssertionError("the reference decode must take the paged layout with K7")
+    k7 = Capture(lm, "step_layers", lambda x, cache, mask, step, mega: step == REF_CAPTURE_STEP,
+                 lambda x, cache, mask, step, mega: (x.clone(), mask.clone(),
+                                                     {k: v.clone() for k, v in cache.items()}, step))
+    k6 = Capture(transformer, "cached_attention_step_paged",
+                 lambda q, kh, vh, mask, cache, step, layer, nhead: (
+                     step == REF_CAPTURE_STEP and layer == 0 and nhead == asr.nhead),
+                 lambda q, kh, vh, mask, cache, step, layer, nhead: (
+                     q.clone(), kh.clone(), vh.clone(), mask.clone(),
+                     {k: (v[:1] if k in ("kv", "kv_act") else v).clone() for k, v in cache.items()},
+                     step, nhead))
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    lm_megastep.exact_launches = 0
+    t0 = time.perf_counter()
+    with k7, k6:
+        feats, _ = InputNormalizer(dim=80)(norm_state, fbank(wavs), lens, training=False)
+        toks, lengths, scores = bundle._decode_test(feats, lens)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    exact = lm_megastep.exact_launches
+    expected = {"fused_fbank": 1, **_expected_launches(REF_SHAPE, "paged", True, True, "float32", steps)}
+    if launches != expected or exact != steps or k7.args is None or k6.args is None:
+        raise AssertionError(f"the reference decode launched {launches} (K7 exact-GELU {exact}), expected "
+                             f"{expected} and {steps}")
+    _finite("reference decode scores", scores, (batch,))
+    if tuple(toks.shape) != (batch, steps) or not bool(((lengths >= 0) & (lengths <= steps)).all()):
+        raise AssertionError(f"reference decode: tokens {tuple(toks.shape)}, lengths {lengths.tolist()}")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # the models, and the captured inputs
+    median_s = host_median_s(lambda: bundle._decode_test(feats, lens), iters=2, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    audio_s = batch * n_samples / SAMPLE_RATE
+    report = {"shape": REF_SHAPE, "batch": batch, "samples": n_samples, "beam": bundle.beam_size,
+              "lm_weight": bundle.lm_weight, "steps": steps, "layout": "paged", "first_decode_s": first_s,
+              "decode_median_s": median_s, "ms_per_step": 1e3 * median_s / steps, "audio_s": audio_s,
+              "audio_s_per_wall_s": audio_s / median_s,
+              "peak_mem_gib": peak / 2**30, "added_gib": (peak - resident) / 2**30,
+              "k7_exact_gelu_launches": exact,
+              "distinct_hypotheses": len({tuple(h) for h in hyps_to_lists(toks, lengths)}),
+              "lengths": lengths.tolist(), "scores": scores.tolist()}
+    return report, launches, k7.args, k6.args
+
+
+def _reference_recon(work: Path, fcae_path: Path, counters: dict) -> tuple[dict, dict]:
+    """gender_classifier's recon variant through ``main(argv)``
+    (configs/gender_classifier_recon.yaml, 1 epoch, the gender phase's
+    corpus) with ``trained_recon_model_dir`` the seeded reference ``save/``:
+    K1 once a batch, nothing else (``_gender_run``); its frozen anonymizer's
+    reconstruction of one batch equal (0.0) to ``load_reference_fcae``'s."""
+    root = work / "LibriSpeech"
+    build_corpus(str(root), n_train_spk=GENDER_SPEAKERS[0], n_test_spk=GENDER_SPEAKERS[1],
+                 utts=GENDER_UTTS, words_per_utt=GENDER_WORDS, seed=SEED + 5)
+    make_loaders, brain_cls = gender.make_loaders, gender.GenderBrain
+    loaders: list = []
+
+    def timed_loaders(*args):
+        train, valid, test = make_loaders(*args)
+        loaders.append((TimedLoader(train), TimedLoader(test)))
+        return loaders[-1][0], valid, loaders[-1][1]
+
+    gender.make_loaders, gender.GenderBrain = timed_loaders, TimedGenderBrain
+    try:
+        argv = _gender_argv("gender_classifier_recon.yaml", root, work / "recon", number_of_epochs=1,
+                            trained_recon_model_dir=str(fcae_path.parents[1]), recon_model_type="fcae")
+        brain, run = _gender_run(gender, argv, counters, loaders)
+    finally:
+        gender.make_loaders, gender.GenderBrain = make_loaders, brain_cls
+    wavs, lens = (torch.as_tensor(x, device=DEVICE) for x in loaders[0][0].first.sig)
+    with torch.no_grad():
+        feats, _ = brain.normalizer(brain.state.norm_state, brain.fbank(wavs), lens, training=False)
+        want = load_reference_fcae(str(fcae_path), device=DEVICE)[0].eval()(feats)[0]
+        got = brain.recon_model(feats)[0]
+    gap = float((got - want).abs().max())
+    if not isinstance(brain.recon_model, FullyConnectedAutoencoder) or gap != 0.0:
+        raise AssertionError(f"the recon run's frozen anonymizer is not the reference FC-AE: gap {gap}")
+    run["recon_max_abs_gap"] = gap
+    return run, run["launches"]
+
+
+def phase_reference(fbank: Fbank, card: str) -> dict:
+    """The reference's own checkpoints on the card, seeded in SpeechBrain's
+    layout at full width: load the ASR and the LM (every key read, the
+    parameter counts the files'), check the loaded ASR on the card against
+    the CPU and its cached decode against ``decode_one_step``, decode D2 with
+    the LM fused through K7's exact-GELU build (the path's launches counted),
+    hold K7 (exact GELU) and K6 against their twins on that decode's own step
+    inputs, and run gender_classifier's recon variant on the seeded FC-AE.
+    Returns the launches by kernel of the decode and the recon run."""
+    t_phase = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="reference_"))
+    counters = {c.__name__: c for c in (fused_fbank, beam_gather, attention_step, attention_step_chunked,
+                                        attention_step_paged, attention_step_paged_chunked, lm_megastep)}
+    try:
+        batch, n_samples, _ = DECODE_SHAPES[REF_SHAPE]
+        rng = np.random.default_rng(SEED + 14)
+        wavs = torch.from_numpy((rng.standard_normal((batch, n_samples)) * 0.1).astype(np.float32)).to(DEVICE)
+        with torch.no_grad():
+            raw = fbank(wavs)
+        stats = torch.stack([raw.mean((0, 1)), raw.std((0, 1))])
+        t0 = time.perf_counter()
+        paths, sds = _reference_files(work, stats)
+        write_s = time.perf_counter() - t0
+        asr, asr_load = _reference_load("asr.ckpt", paths["asr"], sds["asr"], port_sb_asr_state_dict,
+                                        load_reference_asr)
+        lm, lm_load = _reference_load("lm.ckpt", paths["lm"], sds["lm"], port_sb_lm_state_dict,
+                                      load_reference_lm)
+        del sds
+        norm_state, states = _reference_states(paths, stats)
+        with torch.no_grad():
+            feats, _ = InputNormalizer(dim=80)(norm_state, raw, torch.ones(batch, device=DEVICE))
+        model_checks = _reference_model_checks(asr, feats)
+        del raw, feats
+        decode, launches, k7_args, k6_args = _reference_decode(asr, lm, fbank, wavs, norm_state, counters)
+        del wavs
+        torch.cuda.empty_cache()
+        bundle_mega = lm.prepare_megastep()
+        k7 = _reference_k7(lm, bundle_mega, k7_args)
+        del k7_args, bundle_mega
+        torch.cuda.empty_cache()
+        k6 = _reference_k6(k6_args)
+        del k6_args, asr, lm
+        torch.cuda.empty_cache()
+        recon, recon_launches = _reference_recon(work, paths["fcae"], counters)
+        total = {k: launches[k] + recon_launches[k] for k in counters}
+        emit({"phase": "reference", "card": card, "files": {"write_s": write_s, "seeds": REF_SEEDS},
+              "asr": asr_load, "lm": lm_load, "states": states, "model": model_checks, "decode": decode,
+              "decode_launches": launches, "k7_exact_gelu": k7, "k6": k6, "recon": recon,
+              "launches": total, "seconds": time.perf_counter() - t_phase})
+        return total
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -3097,6 +3470,7 @@ def main() -> int:
     main_launches = phase_main(asr, lm, models[1], models[2], card)
     gender_launches = phase_gender(card)
     asr_launches = phase_asr_lm(card)
+    ref_launches = phase_reference(fbank, card)
     k1["launches"] += (recipe_launches["fused_fbank"] + main_launches["fused_fbank"]
                        + gender_launches["fused_fbank"])
     k1["launches_by_path"]["recipe"] = recipe_launches["fused_fbank"]
@@ -3115,6 +3489,11 @@ def main() -> int:
             entry.setdefault("launches_by_path", {"decode": entry["launches"]})["asr_train"] = \
                 asr_launches[entry["name"]]
             entry["launches"] += asr_launches[entry["name"]]
+    for entry in (k1, *decode_kernels):  # the reference checkpoints' decode and recon run
+        if ref_launches.get(entry["name"]):
+            entry.setdefault("launches_by_path", {"decode": entry["launches"]})["reference"] = \
+                ref_launches[entry["name"]]
+            entry["launches"] += ref_launches[entry["name"]]
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -1,10 +1,13 @@
 """ASR model: conv front end + transformer + CTC/seq linear heads.
 
 Counterpart of ``speech_anonymization_tpu/models/asr.py`` ``ASRHeads`` and
-``ASRModel`` (non-``sb_compat``): ``encode`` (the utility-loss and decode
-input), ``decode`` (full teacher-forced decoder), ``cross_kv`` and
-``decode_step_cached`` (the beam search's step). The model takes
-normalized features: the reference bypasses the ASR's own normalization.
+``ASRModel``: ``encode`` (the utility-loss and decode input), ``decode``
+(full teacher-forced decoder), ``cross_kv`` and ``decode_step_cached`` (the
+beam search's step), and ``decode_one_step`` (the full-prefix step, no
+cache). ``sb_compat`` builds the layout of the reference's published
+SpeechBrain ASR (``utils/reference_ckpts.py`` ``load_reference_asr``). The
+model takes normalized features: the reference bypasses the ASR's own
+normalization.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 from torch import nn
 
 from .init import flax_init_
-from .transformer import ConvolutionFrontEnd, DropoutRng, TransformerASR
+from .transformer import ConvolutionFrontEnd, DropoutRng, SBConvFrontEnd, TransformerASR
 
 
 class ASRHeads(nn.Module):
@@ -39,20 +42,24 @@ class ASRModel(nn.Module):
     initialisers drawn from it (``models/init.py``); without, torch's (the
     weights are then loaded from a checkpoint). ``dropout``: train-mode
     dropout in every attention and feed-forward (``train=True`` with a
-    ``DropoutRng``)."""
+    ``DropoutRng``). ``sb_compat``: SpeechBrain's conv front end
+    (``SBConvFrontEnd``), exact GELU and the final encoder and decoder
+    LayerNorms, for checkpoints ported from the reference's layout."""
 
     def __init__(self, input_feats: int = 80, d_model: int = 768, nhead: int = 8,
                  num_encoder_layers: int = 12, num_decoder_layers: int = 6, d_ffn: int = 3072,
                  output_neurons: int = 5000, pad_index: int = 0, dropout: float = 0.0,
-                 generator: torch.Generator | None = None, device: str | torch.device = "cuda"):
+                 sb_compat: bool = False, generator: torch.Generator | None = None,
+                 device: str | torch.device = "cuda"):
         super().__init__()
         self.d_model, self.nhead, self.num_decoder_layers = d_model, nhead, num_decoder_layers
-        self.cnn = ConvolutionFrontEnd()
+        self.sb_compat = sb_compat
+        self.cnn = SBConvFrontEnd(input_feats) if sb_compat else ConvolutionFrontEnd()
         freq_out = ((input_feats + 1) // 2 + 1) // 2  # two stride-2 convs: 80 -> 20
         self.transformer = TransformerASR(
             input_size=freq_out * 512, tgt_vocab=output_neurons, d_model=d_model, nhead=nhead,
             num_encoder_layers=num_encoder_layers, num_decoder_layers=num_decoder_layers,
-            d_ffn=d_ffn, pad_index=pad_index, dropout=dropout)
+            d_ffn=d_ffn, pad_index=pad_index, dropout=dropout, sb_compat=sb_compat)
         self.heads = ASRHeads(d_model, output_neurons)
         if generator is not None:
             flax_init_(self, generator)
@@ -82,3 +89,11 @@ class ASRModel(nn.Module):
         """KV-cached single-step decode: (N,) token -> ((N, V) logits, cache)."""
         hidden, cache = self.transformer.decode_step(token, enc_out, cache, step, wav_lens, cross_kv)
         return self.heads.seq_logits(hidden), cache
+
+    def decode_one_step(self, tokens_prefix, enc_out, wav_lens=None, step: int | None = None):
+        """Raw next-token logits (the beam search applies temperature and
+        log-softmax): the (N, U) prefix decoded in full, no cache -> (N, V) at
+        column ``step`` (the last valid one of a static buffer), or at the last
+        column when ``step`` is None."""
+        logits = self.heads.seq_logits(self.transformer.decode(tokens_prefix, enc_out, wav_lens))
+        return logits[:, -1 if step is None else step]

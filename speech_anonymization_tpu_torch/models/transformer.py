@@ -1,11 +1,13 @@
 """Transformer ASR stack and its KV-cached beam-decode step.
 
-Counterpart of ``speech_anonymization_tpu/models/transformer.py`` (the
-non-``sb_compat`` ASR path and its physical and paged decode caches):
-``ConvolutionFrontEnd`` (3 conv2d blocks, 4x time subsampling), post-norm
-encoder/decoder layers (8 heads, GELU feed-forward), ``TransformerASR`` with
-``encode``, ``decode``, ``cross_kv`` and ``decode_step``, the cache
-helpers ``use_paged_cache``, ``make_kv_cache``, ``beam_reorder_cache`` and
+Counterpart of ``speech_anonymization_tpu/models/transformer.py`` (the ASR
+path and its physical and paged decode caches): ``ConvolutionFrontEnd`` (3
+conv2d blocks, 4x time subsampling) and ``SBConvFrontEnd`` (SpeechBrain's
+layout, for ported reference checkpoints), post-norm encoder/decoder layers
+(8 heads, GELU feed-forward), ``TransformerASR`` with ``encode``,
+``decode``, ``cross_kv`` and ``decode_step`` (``sb_compat``: exact GELU and
+final encoder and decoder LayerNorms), the cache helpers
+``use_paged_cache``, ``make_kv_cache``, ``beam_reorder_cache`` and
 ``make_attends``, and the shallow-fusion ``TransformerLM`` (``forward``,
 both heads, ``decode_step`` per layer or through K7).
 
@@ -153,6 +155,35 @@ class ConvolutionFrontEnd(nn.Module):
         return h.permute(0, 2, 3, 1).reshape(b, t, f * c)
 
 
+class SBConvFrontEnd(nn.Module):
+    """SpeechBrain's ConvolutionFrontEnd, the layout the reference's published
+    ASR was trained under: per block a Conv2d with a symmetric ``k // 2`` pad
+    (not XLA's SAME, whose (0, 1) pad at an even length shifts the windows),
+    a LayerNorm over the trailing (freq, channel) axes (eps 1e-5, weight
+    (F', C)), then LeakyReLU (slope 0.01). (B, T, F) -> (B, T/4, F/4 *
+    channels[-1]); ``convs[i]`` / ``norms[i]`` hold flax's ``conv_i`` / ``norm_i``."""
+
+    def __init__(self, input_feats: int = 80, out_channels: Sequence[int] = (128, 256, 512),
+                 kernel_sizes: Sequence[int] = (3, 3, 1), strides: Sequence[int] = (2, 2, 1)):
+        super().__init__()
+        chans, freqs = [1, *out_channels], [input_feats]
+        for k, s in zip(kernel_sizes, strides):
+            freqs.append((freqs[-1] + 2 * (k // 2) - k) // s + 1)
+        self.convs = nn.ModuleList(
+            nn.Conv2d(chans[i], chans[i + 1], k, stride=s, padding=k // 2)
+            for i, (k, s) in enumerate(zip(kernel_sizes, strides))
+        )
+        self.norms = nn.ModuleList(nn.LayerNorm((f, c), eps=1e-5)
+                                   for f, c in zip(freqs[1:], out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x[:, None]  # (B, 1, T, F)
+        for conv, norm in zip(self.convs, self.norms):
+            h = F.leaky_relu(norm(conv(h).permute(0, 2, 3, 1)), 0.01).permute(0, 3, 1, 2)
+        b, c, t, f = h.shape
+        return h.permute(0, 2, 3, 1).reshape(b, t, f * c)
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
@@ -275,14 +306,17 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, d_ffn: int, dropout: float = 0.0):
+    """Post-norm decoder layer (erf GELU with ``exact_gelu``)."""
+
+    def __init__(self, d_model: int, nhead: int, d_ffn: int, dropout: float = 0.0,
+                 exact_gelu: bool = False):
         super().__init__()
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.cross_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.ln3 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.ff = FeedForward(d_model, d_ffn, dropout=dropout)
+        self.ff = FeedForward(d_model, d_ffn, exact_gelu, dropout)
 
     def cross_kv(self, memory):
         """Cross-attention K/V heads of the encoder memory, once per decode."""
@@ -512,21 +546,32 @@ def make_attends(attns: Sequence[MultiHeadAttention], cache: dict, mask_nu: torc
 
 
 class TransformerASR(nn.Module):
-    """Encoder-decoder ASR transformer (post-norm, sinusoidal positions)."""
+    """Encoder-decoder ASR transformer (post-norm, sinusoidal positions).
+
+    ``sb_compat`` (checkpoints ported from SpeechBrain's layout): exact erf
+    GELU in every layer, and a final LayerNorm after the encoder stack
+    (``enc_norm``) and after the decoder stack (``dec_norm``, in ``decode``
+    and ``decode_step``), both at flax's default eps, as the JAX package's."""
 
     def __init__(self, input_size: int = 10240, tgt_vocab: int = 5000, d_model: int = 768,
                  nhead: int = 8, num_encoder_layers: int = 12, num_decoder_layers: int = 6,
-                 d_ffn: int = 3072, max_len: int = 5000, pad_index: int = 0, dropout: float = 0.0):
+                 d_ffn: int = 3072, max_len: int = 5000, pad_index: int = 0, dropout: float = 0.0,
+                 sb_compat: bool = False):
         super().__init__()
         self.d_model, self.nhead, self.pad_index = d_model, nhead, pad_index
-        self.num_decoder_layers = num_decoder_layers
+        self.num_decoder_layers, self.sb_compat = num_decoder_layers, sb_compat
         self.input_proj = nn.Linear(input_size, d_model)
         self.register_buffer("pe", sinusoidal_positions(max_len, d_model), persistent=False)
         self.embed = nn.Embedding(tgt_vocab, d_model)
         self.encoder_layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, d_ffn, dropout=dropout) for _ in range(num_encoder_layers))
+            EncoderLayer(d_model, nhead, d_ffn, exact_gelu=sb_compat, dropout=dropout)
+            for _ in range(num_encoder_layers))
         self.decoder_layers = nn.ModuleList(
-            DecoderLayer(d_model, nhead, d_ffn, dropout) for _ in range(num_decoder_layers))
+            DecoderLayer(d_model, nhead, d_ffn, dropout, exact_gelu=sb_compat)
+            for _ in range(num_decoder_layers))
+        if sb_compat:
+            self.enc_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+            self.dec_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def encode(self, src, src_lengths=None, train: bool = False, rng: DropoutRng | None = None):
         t = src.shape[1]
@@ -536,7 +581,7 @@ class TransformerASR(nn.Module):
             mask = lengths_to_padding_mask(src_lengths, t)[:, None, None, :]
         for layer in self.encoder_layers:
             x = layer(x, mask, train, rng)
-        return x
+        return self.enc_norm(x) if self.sb_compat else x
 
     def decode(self, tgt_tokens, memory, src_lengths=None, train: bool = False,
                rng: DropoutRng | None = None):
@@ -549,7 +594,7 @@ class TransformerASR(nn.Module):
             cross_mask = lengths_to_padding_mask(src_lengths, memory.shape[1])[:, None, None, :]
         for layer in self.decoder_layers:
             x = layer(x, memory, self_mask, cross_mask, train, rng)
-        return x
+        return self.dec_norm(x) if self.sb_compat else x
 
     def cross_kv(self, memory):
         """Per-layer cross-attention K/V of the encoder memory."""
@@ -580,6 +625,8 @@ class TransformerASR(nn.Module):
             x, kh, vh = layer.decode_step(x, attends[i], ckv, cross_mask)
             khs.append(kh)
             vhs.append(vh)
+        if self.sb_compat:
+            x = self.dec_norm(x)
         return x[:, 0], {**finalize(khs, vhs), "tokens": tok_buf}
 
 

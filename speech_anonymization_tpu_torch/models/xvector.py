@@ -56,16 +56,17 @@ class Xvector(nn.Module):
 
 
 class XvectorClassifier(nn.Module):
-    """LeakyReLU, BN, ``lin_blocks`` x (Dense, LeakyReLU, BN), Dense, log-softmax."""
+    """LeakyReLU, BN, ``lin_blocks`` x (Dense, LeakyReLU, BN), Dense, log-softmax.
+    ``in_features``: the embedding width (default ``lin_neurons``; flax infers
+    it from the input)."""
 
     def __init__(self, lin_blocks: int = 1, lin_neurons: int = 128, out_neurons: int = 2,
-                 device: str | torch.device = "cuda"):
+                 in_features: int | None = None, device: str | torch.device = "cuda"):
         super().__init__()
-        self.norms = nn.ModuleList(
-            BatchNorm(lin_neurons, eps=1e-5) for _ in range(lin_blocks + 1)
-        )
+        widths = [in_features or lin_neurons] + [lin_neurons] * lin_blocks
+        self.norms = nn.ModuleList(BatchNorm(w, eps=1e-5) for w in widths)
         self.dense = nn.ModuleList(
-            [nn.Linear(lin_neurons, lin_neurons) for _ in range(lin_blocks)]
+            [nn.Linear(w, lin_neurons) for w in widths[:-1]]
             + [nn.Linear(lin_neurons, out_neurons)]
         )
         self.to(device)

@@ -15,7 +15,8 @@ scales at ``(layer, :, step)`` in place; cached codes read as ``code *
 scale`` in f32.
 
 :func:`lm_megastep` launches the kernel for CUDA tensors (one cooperative
-launch, counted in ``lm_megastep.launches``) and runs
+launch, counted in ``lm_megastep.launches``; the exact-GELU build's, the
+``sb_compat`` LM's, also in ``lm_megastep.exact_launches``) and runs
 :func:`lm_megastep_plain`, which follows the kernel's rounding points, only
 for tensors on the CPU. Both refuse what the kernel does not take: int8
 codes without their scales, the split layout, a page other than 64, a
@@ -207,7 +208,8 @@ def _launch(x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead,
 
 def lm_megastep(x0, mask, cache_kv, act_kv, table, act_src, step: int, wall, vecs, nhead: int,
                 exact_gelu: bool = False, k_scale=None, v_scale=None):
-    """K7 (counts one in ``lm_megastep.launches``); arguments and outputs as
+    """K7 (counts one in ``lm_megastep.launches``, and with ``exact_gelu`` in
+    ``lm_megastep.exact_launches``); arguments and outputs as
     :func:`lm_megastep_plain`, which it runs only for CPU tensors."""
     operands = (x0, mask, cache_kv, act_kv, table, act_src, step, wall, vecs, nhead)
     device = cache_kv.device
@@ -218,7 +220,9 @@ def lm_megastep(x0, mask, cache_kv, act_kv, table, act_src, step: int, wall, vec
     layers, d_ffn = _check(*operands, k_scale, v_scale)
     x = _launch(*operands, exact_gelu, k_scale, v_scale, layers, d_ffn)
     lm_megastep.launches += 1
+    lm_megastep.exact_launches += bool(exact_gelu)
     return x, cache_kv, act_kv
 
 
 lm_megastep.launches = 0
+lm_megastep.exact_launches = 0

@@ -58,6 +58,7 @@ from ..train.brain import Brain, Stage
 from ..train.checkpoint import Checkpointer, PytreeRecoverable
 from ..train.experiment import create_experiment_directory
 from ..train.state import TrainState, adam_like_reference, guarded_step
+from ..utils.reference_ckpts import find_best_ckpt_dir, load_reference_fcae
 from ..utils.convert import (anonymizer_variables, indexed_state_dict, normalizer_state, normalizer_tree,
                              xvector_variables)
 from ..models.autoencoders import FullyConnectedAutoencoder
@@ -327,28 +328,34 @@ def _reference_ckpt(ckpt_dir: str) -> str | None:
     """The reference's ``model.ckpt`` the JAX package would load for fcae: in
     ``ckpt_dir`` itself, or in its last ``CKPT+*`` directory; None if neither
     is a torch archive."""
-    cands = [os.path.join(ckpt_dir, "model.ckpt")]
-    subdirs = sorted(d for d in os.listdir(ckpt_dir) if d.startswith("CKPT+"))
-    if subdirs:
-        cands.append(os.path.join(ckpt_dir, subdirs[-1], "model.ckpt"))
-    return next((c for c in cands if _is_torch_ckpt(c)), None)
+    direct = os.path.join(ckpt_dir, "model.ckpt")
+    if _is_torch_ckpt(direct):
+        return direct
+    try:
+        cand = os.path.join(find_best_ckpt_dir(ckpt_dir), "model.ckpt")
+    except FileNotFoundError:
+        return None
+    return cand if _is_torch_ckpt(cand) else None
 
 
 def load_recon_model(ckpt_dir: str, model_type: str = "fcae", n_mels: int = 80,
                      ckpt_select: str = "max_utility", min_utility: float = 0.85,
                      device: str | torch.device = "cuda") -> torch.nn.Module:
-    """The recon variant's frozen anonymizer (``model_type``), in eval mode,
-    from an anonymizer-recipe checkpoint directory in the JAX package's
-    format: its ``model`` and ``model_state`` from the checkpoint with the most
+    """The recon variant's frozen anonymizer (``model_type``), in eval mode.
+
+    For fcae, a reference checkpoint (a torch ``model.ckpt`` in ``ckpt_dir``
+    or in its last ``CKPT+*`` directory: gender_classifier_recon.yaml's
+    ``trained_recon_model_path`` may name the reference's ``save/``) is ported
+    by ``utils/reference_ckpts.py`` ``load_reference_fcae``. Otherwise the
+    directory holds anonymizer-recipe checkpoints in the JAX package's format:
+    its ``model`` and ``model_state`` from the checkpoint with the most
     Utility_Retention (``max_utility``) or the ``valid_frontier`` pick (valid
     ACC_external nearest chance among those with Utility_Retention >=
     ``min_utility``), the checkpoint the anonymizer's own frontier evaluation
-    reports. ``n_mels`` is the models' fixed 80. The reference's own torch
-    checkpoints are not read yet (ROADMAP.md Queue 1 item 4)."""
+    reports. ``n_mels`` is the models' fixed 80."""
     reference = _reference_ckpt(ckpt_dir) if model_type == "fcae" else None
     if reference is not None:
-        raise NotImplementedError(f"{reference} is a reference (torch) checkpoint: its loader, "
-                                  "utils/reference_ckpts.py, is ROADMAP.md Queue 1 item 4")
+        return load_reference_fcae(reference, device=device)[0].eval().requires_grad_(False)
     model = MODEL_TYPES[model_type](device=device)
     ckptr = Checkpointer(ckpt_dir, {
         "model": PytreeRecoverable(lambda: anonymizer_variables(model)["params"],

@@ -22,6 +22,7 @@ class NoamScheduler:
         self.normalize = model_size ** (-0.5)
         self.n_steps = 0
         self.current_lr = lr_initial
+        self.losses: list[float] = []  # a reference checkpoint's, kept as read (utils/sb_compat.py)
 
     def __call__(self) -> float:
         """Advance one optimizer update; return the new lr."""

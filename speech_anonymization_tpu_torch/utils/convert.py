@@ -33,7 +33,10 @@ the model's own. :func:`asr_variables`, :func:`lm_variables` and
 :func:`lm_state_dict` and :func:`indexed_state_dict`, for writing the frozen
 models' checkpoints in the JAX package's format.
 
-And, for the ASR model (:func:`asr_state_dict`) and the LM (:func:`lm_state_dict`):
+And, for the ASR model (:func:`asr_state_dict`, either front end: flax's
+``Conv_i``/``LayerNorm_i`` or, ``sb_compat``, ``conv_i``/``norm_i`` -> ``cnn.convs.i``
+/ ``cnn.norms.i``; ``sb_compat``'s ``enc_norm``/``dec_norm`` -> ``transformer.enc_norm``
+/ ``transformer.dec_norm``) and the LM (:func:`lm_state_dict`):
 
   flax Conv kernel (kh, kw, in, out)   -> Conv2d weight (out, in, kh, kw)
   DenseGeneral q/k/v kernel (D, H, Dh), bias (H, Dh) -> Linear (H*Dh, D), (H*Dh,)
@@ -190,14 +193,15 @@ _DECODER_LAYER = {"self_attn": ("self_attn", attention_from_flax),
 
 
 def asr_state_dict(variables: Mapping) -> dict:
-    """ASRModel variables (non-``sb_compat``) -> ``models.ASRModel`` state_dict (numpy values)."""
+    """ASRModel variables (either front end, ``sb_compat`` or not) ->
+    ``models.ASRModel`` state_dict (numpy values)."""
     params = variables["params"]
     out: dict = {}
     for name, p in params["cnn"].items():
         kind, idx = name.rsplit("_", 1)
-        if kind == "Conv":
+        if kind in ("Conv", "conv"):
             _put(out, f"cnn.convs.{idx}", conv2d_from_flax(p))
-        elif kind == "LayerNorm":
+        elif kind in ("LayerNorm", "norm"):
             _put(out, f"cnn.norms.{idx}", layernorm_from_flax(p))
         else:
             raise KeyError(f"no conversion rule for flax layer cnn/{name!r}")
@@ -208,6 +212,8 @@ def asr_state_dict(variables: Mapping) -> dict:
             _put(out, "transformer.input_proj", linear_from_flax(p))
         elif name == "embed":
             out["transformer.embed.weight"] = np.asarray(p["embedding"])
+        elif name in ("enc_norm", "dec_norm"):
+            _put(out, f"transformer.{name}", layernorm_from_flax(p))
         elif name.startswith(("enc_", "dec_")):
             kind, idx = name.split("_")
             rules, stack = ((_ENCODER_LAYER, "encoder_layers") if kind == "enc"
@@ -361,13 +367,18 @@ def _layer_to_flax(layer: nn.Module, rules: Mapping) -> dict:
 
 def asr_variables(model: nn.Module) -> dict:
     """A port ``ASRModel`` -> its flax variables (:func:`asr_state_dict`'s inverse),
-    as views of the model's tensors."""
+    as views of the model's tensors; ``sb_compat`` models in the names of the
+    JAX package's ``ASRModel(sb_compat=True)``."""
+    conv_name, norm_name = ("conv", "norm") if model.sb_compat else ("Conv", "LayerNorm")
     cnn = {}
     for i, (conv, norm) in enumerate(zip(model.cnn.convs, model.cnn.norms)):
-        cnn[f"Conv_{i}"] = {"kernel": conv.weight.detach().permute(2, 3, 1, 0), "bias": conv.bias.detach()}
-        cnn[f"LayerNorm_{i}"] = _layernorm_to_flax(norm)
+        cnn[f"{conv_name}_{i}"] = {"kernel": conv.weight.detach().permute(2, 3, 1, 0),
+                                   "bias": conv.bias.detach()}
+        cnn[f"{norm_name}_{i}"] = _layernorm_to_flax(norm)
     tr = model.transformer
     transformer = {"input_proj": _linear_to_flax(tr.input_proj), "embed": {"embedding": tr.embed.weight.detach()}}
+    if model.sb_compat:
+        transformer.update(enc_norm=_layernorm_to_flax(tr.enc_norm), dec_norm=_layernorm_to_flax(tr.dec_norm))
     for i, layer in enumerate(tr.encoder_layers):
         transformer[f"enc_{i}"] = _layer_to_flax(layer, _ENCODER_LAYER)
     for i, layer in enumerate(tr.decoder_layers):

@@ -35,7 +35,7 @@ def seeded_init_(module: nn.Module, seed: int) -> nn.Module:
         elif isinstance(sub, nn.Embedding):
             fill(sub.weight, rng.standard_normal(tuple(sub.weight.shape)) / np.sqrt(sub.embedding_dim))
         elif isinstance(sub, _NORMS):
-            n = sub.weight.shape[0]
+            n = tuple(sub.weight.shape)  # (F', C) for SBConvFrontEnd's norms
             fill(sub.weight, 1.0 + 0.1 * rng.standard_normal(n))
             fill(sub.bias, 0.1 * rng.standard_normal(n))
             if isinstance(sub, nn.BatchNorm1d):

@@ -5,9 +5,12 @@ whole-row bound), the anonymization and decode slices (physical and
 paged caches, f32, bf16 and int8, with and without the LM) on the card
 against the CPU, the anonymizer's training step (one convae
 accumulation cycle on the card against the CPU; K1 once a micro-batch), the
-gender recipe's (one GenderBrain step, plain and augmented), and the ASR and
+gender recipe's (one GenderBrain step, plain and augmented), the ASR and
 LM recipes' (one ASRBrain step, ``ctc_loss`` on feasible and infeasible rows,
-one LMBrain step at dropout 0.1 on given masks).
+one LMBrain step at dropout 0.1 on given masks), and the reference's own
+checkpoints (the ``sb_compat`` ASR on the card against the CPU, its decode
+with the ``sb_compat`` LM through K7's exact-GELU build, the loaders on
+seeded SpeechBrain-layout files).
 Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -52,7 +55,9 @@ from speech_anonymization_tpu_torch.recipes.gender_classifier import GenderBrain
 from speech_anonymization_tpu_torch.tools.train_parity import (MOMENT_RTOL, compare_cycle, compare_gender_step,
                                                               convae_hparams, gender_hparams, noise_floor,
                                                               step_gaps, tensor_gaps, train_batch)
+from speech_anonymization_tpu_torch.tools import sb_layout
 from speech_anonymization_tpu_torch.train.schedulers import NoamScheduler
+from speech_anonymization_tpu_torch.utils.reference_ckpts import load_reference_asr, load_reference_lm
 from speech_anonymization_tpu_torch.utils.seeded_init import seeded_init_
 
 pytestmark = pytest.mark.cuda
@@ -1276,3 +1281,91 @@ def test_lm_dropout_step_on_card_matches_cpu(cuda, tmp_path):
     report = _opt_and_param_gaps(brains["cuda"].opt_state, brains["cpu"].opt_state, brains["cuda"].params,
                                  brains["cpu"].params, start, brains["cpu"].noam.current_lr)
     assert report["sign_only"] <= 0.01 * report["params"], report
+
+
+# the reference's own checkpoints: the sb_compat ASR and LM
+
+SB_ASR = dict(d_model=256, nhead=4, num_encoder_layers=2, num_decoder_layers=2, d_ffn=512,
+              output_neurons=64)
+
+
+@torch.no_grad()
+def test_sb_compat_asr_on_card_matches_cpu(cuda):
+    """``ASRModel(sb_compat=True)`` (SpeechBrain's front end, exact GELU, final
+    norms) from flax's initialisers on one seed: the full forward on the card
+    against the CPU (1e-3, the card-vs-CPU recon bound), and the card's cached
+    decode (K3) against its ``decode_one_step`` (2e-4)."""
+    models = {d: ASRModel(**SB_ASR, sb_compat=True, generator=torch.Generator().manual_seed(3), device=d).eval()
+              for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(4)
+    feats = torch.from_numpy(rng.standard_normal((2, 250, 80)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(3, 64, (2, 8)))
+    toks[:, 0] = 1
+    lens = torch.tensor([1.0, 0.8])
+    want = models["cpu"](feats, toks, lens)
+    got = models["cuda"](feats.to(cuda), toks.to(cuda), lens.to(cuda))
+    for name, g, w in zip(("enc", "dec", "p_ctc", "p_seq"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-3, rtol=0, err_msg=name)
+    m = models["cuda"]
+    enc, tk, ln = got[0], toks.to(cuda), lens.to(cuda)
+    cache = make_kv_cache(2, 8, 2, 4, 64, device=cuda)
+    cross = m.cross_kv(enc)
+    counts = attention_step.launches
+    for step in range(8):
+        full = m.decode_one_step(tk, enc, ln, step)
+        cached, cache = m.decode_step_cached(tk[:, step], enc, cache, step, ln, cross)
+        np.testing.assert_allclose(cached.cpu().numpy(), full.cpu().numpy(), atol=2e-4, rtol=0,
+                                   err_msg=str(step))
+    assert attention_step.launches - counts == 2 * 8
+
+
+def test_sb_compat_lm_fused_decode_runs_exact_gelu_k7(cuda):
+    """A small sb_compat ASR with a d_model 768 sb_compat LM whose cache takes
+    the fused page-64 layout (220 steps: U 256): every LM step is one K7
+    launch of the exact-GELU build."""
+    model = ASRModel(d_model=128, nhead=4, num_encoder_layers=1, num_decoder_layers=1, d_ffn=128,
+                     output_neurons=40, sb_compat=True, generator=torch.Generator().manual_seed(0),
+                     device=cuda).eval()
+    lm = TransformerLM(vocab=40, d_model=768, nhead=12, num_layers=2, d_ffn=1536, sb_compat=True,
+                       generator=torch.Generator().manual_seed(1), device=cuda).eval()
+    feats = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 900, 80)).astype(
+        np.float32)).to(cuda)
+    lens = torch.tensor([1.0, 0.85], device=cuda)
+    bundle = ASRBundle(model, _Tok(), {"test_beam_size": 4, "ctc_weight_decode": 0.4, "temperature": 1.15,
+                                       "max_decode_steps": 220}, lm=lm)
+    assert bundle.lm_mega is not None and bundle.lm_weight == 0.6
+    counts = (lm_megastep.launches, lm_megastep.exact_launches)
+    toks, lengths, scores = bundle._decode_test(feats, lens)
+    torch.cuda.synchronize()
+    assert (lm_megastep.launches - counts[0], lm_megastep.exact_launches - counts[1]) == (220, 220)
+    assert torch.isfinite(scores).all() and toks.shape == (2, 220)
+
+
+@torch.no_grad()
+def test_reference_loaders_on_card(cuda, tmp_path):
+    """``load_reference_asr`` / ``load_reference_lm`` on cuda from seeded
+    SpeechBrain-layout files: every parameter on the card and from the file
+    (a strict load; the counts equal), and the same outputs as the CPU load."""
+    asr_w = dict(d_model=256, num_encoder_layers=2, num_decoder_layers=2, d_ffn=512)
+    lm_w = dict(d_model=256, num_layers=2, d_ffn=512)
+    files = {"asr": sb_layout.write_seeded(str(tmp_path / "asr.ckpt"), sb_layout.asr_layout(**asr_w, vocab=64), 0),
+             "lm": sb_layout.write_seeded(str(tmp_path / "lm.ckpt"), sb_layout.lm_layout(**lm_w, vocab=64), 1)}
+    asr = {d: load_reference_asr(str(tmp_path / "asr.ckpt"), nhead=4, output_neurons=64, device=d, **asr_w)
+           for d in ("cpu", "cuda")}
+    lm = {d: load_reference_lm(str(tmp_path / "lm.ckpt"), nhead=4, vocab=64, device=d, **lm_w)
+          for d in ("cpu", "cuda")}
+    for name, models in (("asr", asr), ("lm", lm)):
+        params = list(models["cuda"].parameters())
+        assert all(p.is_cuda for p in params)
+        assert sum(p.numel() for p in params) == sum(v.numel() for v in files[name].values())
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.standard_normal((2, 120, 80)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(3, 64, (2, 6)))
+    toks[:, 0] = 1
+    lens = torch.ones(2)
+    want = asr["cpu"](feats, toks, lens)
+    got = asr["cuda"](feats.to(cuda), toks.to(cuda), lens.to(cuda))
+    for name, g, w in zip(("enc", "dec", "p_ctc", "p_seq"), got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-3, rtol=0, err_msg=name)
+    np.testing.assert_allclose(lm["cuda"](toks.to(cuda)).cpu().numpy(), lm["cpu"](toks).numpy(), atol=1e-3,
+                               rtol=0)

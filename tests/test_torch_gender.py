@@ -344,9 +344,13 @@ def test_load_recon_model_picks_as_jax(tmp_path, model_type, select, epoch, monk
 
 
 def test_reference_torch_checkpoint_is_refused(tmp_path):
+    """A torch archive in the last ``CKPT+*`` goes to the reference loader for
+    fcae (``utils/reference_ckpts.py``; a valid one is ported, see
+    ``test_torch_reference_ckpts.py``), which refuses a broken one; other
+    model types never read it."""
     (tmp_path / "CKPT+x").mkdir()
     (tmp_path / "CKPT+x" / "model.ckpt").write_bytes(b"PK\x03\x04rest")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(RuntimeError, match="zip archive"):
         recipe.load_recon_model(str(tmp_path), "fcae", device="cpu")
     with pytest.raises(FileNotFoundError):
         recipe.load_recon_model(str(tmp_path), "convae", device="cpu")
