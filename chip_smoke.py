@@ -92,6 +92,21 @@ failure raises and exits non-zero:
            same weights, batches and draws (tools/train_parity.py): the
            generator phase and a recon + utility one, 4 speech-like
            utterances of 2 s, a small ASR, at the CPU tests' tolerances;
+  distributed  parallel/ on torch.distributed at ``train``'s configuration
+           (one cycle of the generator phase, 8 x 10.07 s speech-like
+           utterances, the frozen full-width ASR's utility, the global
+           batch's SpecAugment draws): (a) world size 1 over NCCL in this
+           process from the SATPU_* environment (a free localhost port), the
+           barrier and run_on_main, the cycle through
+           ``AnonymizerTrainer(mesh=make_mesh())`` against the same cycle at
+           ``mesh=None`` on the same tensors (tools/train_parity.py
+           ``compare_records``), K1 once a micro-batch, the group torn down
+           after; (b) two spawned ranks on the one card over gloo (a file
+           store), each on its 4 rows: rank 0's cycle against (a)'s
+           unsharded one, each rank's K1 once a micro-batch and against its
+           plain version on its shard; a rank's failure fails the smoke.
+           Reports each part's wall, ms a micro-batch per rank, the gradient
+           all-reduce's ms, peak memory and K1's launches per rank;
   parity   the same weights and two utterances on the card and on the CPU;
   decode   the decode path at the full published ASR width (ASRModel(), 161 M
            parameters), beam 66, CTC 0.4, temperature 1.15, f32 caches:
@@ -269,7 +284,9 @@ import functools
 import gc
 import json
 import re
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -342,9 +359,19 @@ from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle, load_asr_bundle, load_lm  # noqa: E402
 from speech_anonymization_tpu_torch.tools import profile_lm_megastep, sb_layout  # noqa: E402
 from speech_anonymization_tpu_torch.tools.profile_k3 import K3_CASES, N as K3_N, k3_inputs  # noqa: E402
+from speech_anonymization_tpu_torch.parallel import (  # noqa: E402
+    global_barrier,
+    initialize_distributed,
+    local_rows,
+    make_mesh,
+    run_on_main,
+    shutdown_distributed,
+)
 from speech_anonymization_tpu_torch.tools.train_parity import (  # noqa: E402
     compare_cycle,
+    compare_records,
     convae_hparams,
+    cycle_record,
     train_batch,
 )
 from speech_anonymization_tpu_torch.train.checkpoint import Checkpointer, PytreeRecoverable, read_tree  # noqa: E402
@@ -1740,6 +1767,169 @@ def phase_train_parity() -> None:
         emit({"phase": "train_parity", "weights": schedule[0]["weights"], "mode": schedule[0]["train"],
               "utterances": TRAIN_PARITY_BATCH, "samples": TRAIN_PARITY_SAMPLES,
               "asr": TRAIN_PARITY_ASR, "seconds": time.perf_counter() - t0, **report})
+
+
+DIST_RANKS = 2  # part (b): gloo ranks on the one card
+DIST_SCHEDULE = [recipe.DEFAULT_SCHEDULE[0]]  # the generator phase: sex 0.8, utility 0.2
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_trainer(asr: ASRModel, device: str, mesh=None) -> recipe.AnonymizerTrainer:
+    """``train``'s configuration (the full-width frozen ASR's utility, seeded
+    ConvAutoencoder), Noam at lr 1e-3 so that one update shows in f32 weights."""
+    hp = convae_hparams(device, DIST_SCHEDULE, NoamScheduler(1e-3, 1, 1))
+    trainer = recipe.AnonymizerTrainer(hp, asr_bundle=ASRBundle(asr, StubTokenizer(), DECODE_HPARAMS),
+                                       device=device, mesh=mesh)
+    seeded_init_(trainer.model, SEED)
+    return trainer
+
+
+def _timed_cycle(trainer, batches, draws) -> tuple[dict, list]:
+    """``cycle_record`` of one cycle, each micro-batch's wall ended by a synchronise."""
+    walls, fit = [], trainer.fit_batch
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    trainer.fit_batch = timed
+    return cycle_record(trainer, batches, 0, draws), walls
+
+
+def _distributed_rank(rank: int, world: int, folder: str, device: str, asr_widths: dict) -> None:
+    """Part (b)'s rank: gloo on the one card (NCCL refuses two ranks on one
+    device), its rows of the global batches, the global draws; one update
+    cycle through ``AnonymizerTrainer(mesh=)``; K1 counted over the cycle and
+    held to its plain version on the rank's shard; the gradient all-reduce
+    timed. Writes its record and measurements to ``rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:  # a CPU rehearsal of the phase: no device to synchronise or measure
+        torch.cuda.synchronize = torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+        torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    initialize_distributed(f"file://{Path(folder) / 'store'}", world, rank, backend="gloo")
+    try:
+        inputs = torch.load(Path(folder) / "inputs.pt", weights_only=False)
+        mesh = make_mesh(device=device)
+        asr = seeded_init_(ASRModel(**asr_widths, device=device), SEED + 3)
+        trainer = _dist_trainer(asr, device, mesh)
+        batches = [tuple(local_rows(x, mesh).to(device) for x in b) for b in inputs["batches"]]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_fbank.launches = 0
+        record, walls = _timed_cycle(trainer, batches, inputs["draws"])
+        launches = fused_fbank.launches
+        if device == "cuda" and launches != len(batches):
+            raise AssertionError(f"rank {rank}: K1 launched {launches} times in {len(batches)} micro-batches")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        k1_err, _ = check_k1(batches[0][0], trainer.fbank, f"distributed rank {rank}")
+        flat = torch.zeros(sum(p.numel() for p in trainer.params.values()), device=device)
+        allreduce_s = host_median_s(lambda: (torch.distributed.all_reduce(flat), torch.cuda.synchronize()))
+        torch.save({"record": record, "walls": walls, "k1_launches": launches, "k1_max_abs_err": k1_err,
+                    "peak_mem_gib": peak, "allreduce_ms": 1e3 * allreduce_s, "grad_floats": flat.numel()},
+                   Path(folder) / f"rank{rank}.pt")
+    finally:
+        shutdown_distributed()
+
+
+def phase_distributed(asr: ASRModel, card: str, asr_widths: dict | None = None) -> dict:
+    """``parallel/`` on the card, at ``train``'s configuration: one update
+    cycle (accumulation 3, TRAIN_BATCH x 10.07 s, the generator phase with
+    the full-width frozen ASR's utility) of the ConvAutoencoder. (a) World
+    size 1 over NCCL in this process, from the recipes' environment
+    (``SATPU_COORDINATOR`` on a free localhost port): the barrier,
+    ``run_on_main``, then the cycle through ``AnonymizerTrainer(mesh=
+    make_mesh())`` against the same cycle at ``mesh=None`` on the same input
+    tensors and draws (``compare_records``), K1 once a micro-batch; the group
+    torn down after. (b) DIST_RANKS spawned ranks on the one card over gloo,
+    each on its rows of the same batches: rank 0's cycle against (a)'s
+    unsharded one, every other rank's updated parameters equal to rank 0's, every rank's K1 once a micro-batch and within K1_RTOL /
+    K1_ATOL of its plain version on its shard. A rank's failure fails the
+    spawn and the smoke. Reports each part's wall, ms a micro-batch per rank,
+    the gradient all-reduce's ms, each rank's peak memory and K1's launches.
+    ``asr_widths``: the ranks' ASR (seeded as ``asr`` is); default full width.
+    Returns K1's launches in this process."""
+    t_phase = time.perf_counter()
+    asr_widths = asr_widths or {}
+    batches = [train_batch(TRAIN_BATCH, N_SAMPLES, SEED + 30 + i, "cpu", asr.heads.seq_lin.out_features,
+                           TRAIN_TOKENS) for i in range(3)]
+    frames = 1 + N_SAMPLES // 160
+    aug = convae_hparams("cpu")["augmentation"]
+    draws = [aug.draw((TRAIN_BATCH, frames + (-frames) % 36, 80), torch.Generator().manual_seed(SEED + 33 + i))
+             for i in range(3)]
+    on_card = [tuple(x.to(DEVICE) for x in b) for b in batches]
+    # (a) one rank over NCCL
+    t0 = time.perf_counter()
+    os.environ.update(SATPU_COORDINATOR=f"127.0.0.1:{_free_port()}", SATPU_NUM_PROCESSES="1",
+                      SATPU_PROCESS_ID="0")
+    try:
+        if not initialize_distributed():
+            raise AssertionError("initialize_distributed did not start a group from the environment")
+        backend = torch.distributed.get_backend()
+        global_barrier()
+        if run_on_main(lambda: "rank 0 ran") != "rank 0 ran":
+            raise AssertionError("run_on_main did not run on rank 0")
+        plain = _dist_trainer(asr, DEVICE)
+        start = {k: p.detach().clone().cpu() for k, p in plain.params.items()}
+        want, plain_walls = _timed_cycle(plain, on_card, draws)
+        del plain
+        mesh = make_mesh()
+        trainer = _dist_trainer(asr, DEVICE, mesh)
+        torch.cuda.synchronize()
+        fused_fbank.launches = 0
+        got, mesh_walls = _timed_cycle(trainer, on_card, draws)
+        launches = {"fused_fbank": fused_fbank.launches}
+        del trainer
+    finally:
+        shutdown_distributed()
+        for name in ("SATPU_COORDINATOR", "SATPU_NUM_PROCESSES", "SATPU_PROCESS_ID"):
+            os.environ.pop(name, None)
+    if launches["fused_fbank"] != len(on_card):
+        raise AssertionError(f"K1 launched {launches['fused_fbank']} times in {len(on_card)} micro-batches")
+    one_rank = compare_records(got, want, start, "the one-rank NCCL mesh and mesh=None")
+    wall_a = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    # (b) two gloo ranks on the one card
+    t0 = time.perf_counter()
+    folder = Path(tempfile.mkdtemp(prefix="distributed_"))
+    try:
+        torch.save({"batches": batches, "draws": draws}, folder / "inputs.pt")
+        torch.multiprocessing.start_processes(_distributed_rank, args=(DIST_RANKS, str(folder), DEVICE, asr_widths),
+                                              nprocs=DIST_RANKS, join=True, start_method="spawn")
+        ranks = [torch.load(folder / f"rank{r}.pt", weights_only=False) for r in range(DIST_RANKS)]
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    two_ranks = compare_records(ranks[0]["record"], want, start, f"{DIST_RANKS} gloo ranks and mesh=None")
+    for r, other in enumerate(ranks[1:], 1):  # every rank took rank 0's update, bit for bit
+        for k, p in ranks[0]["record"]["params"].items():
+            if not torch.equal(p, other["record"]["params"][k]):
+                raise AssertionError(f"rank {r}'s {k} differs from rank 0's after the update")
+    wall_b = time.perf_counter() - t0
+    emit({"phase": "distributed", "card": card, "batch": TRAIN_BATCH, "samples": N_SAMPLES,
+          "micro_batches": len(on_card), "schedule": DIST_SCHEDULE[0],
+          "one_rank_nccl": {"backend": backend, "wall_s": wall_a, "launches": launches,
+                            "ms_per_micro_batch": [1e3 * w for w in mesh_walls],
+                            "mesh_none_ms_per_micro_batch": [1e3 * w for w in plain_walls], "gaps": one_rank},
+          "gloo_ranks": {"ranks": DIST_RANKS, "wall_s": wall_b, "gaps_rank0": two_ranks,
+                         "ms_per_micro_batch": [[1e3 * w for w in r["walls"]] for r in ranks],
+                         "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+                         "grad_floats": ranks[0]["grad_floats"],
+                         "peak_mem_gib": [r["peak_mem_gib"] for r in ranks],
+                         "k1_launches": [r["k1_launches"] for r in ranks],
+                         "k1_max_abs_err": [r["k1_max_abs_err"] for r in ranks], "k1_rtol": K1_RTOL,
+                         "k1_atol": K1_ATOL},
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def phase_parity(wavs, lens, labels, fbank, normalizer, models) -> None:
@@ -3459,8 +3649,10 @@ def main() -> int:
     asr = seeded_init_(ASRModel(device=DEVICE), SEED + 3)
     train_launches = phase_train(asr, card)
     phase_train_parity()
-    k1["launches"] = launches["fused_fbank"] + train_launches["fused_fbank"]
-    k1["launches_by_path"] = {"slice": launches["fused_fbank"], "train": train_launches["fused_fbank"]}
+    dist_launches = phase_distributed(asr, card)
+    k1["launches"] = launches["fused_fbank"] + train_launches["fused_fbank"] + dist_launches["fused_fbank"]
+    k1["launches_by_path"] = {"slice": launches["fused_fbank"], "train": train_launches["fused_fbank"],
+                              "distributed": dist_launches["fused_fbank"]}
     phase_parity(wavs, lens, labels, fbank, normalizer, models)
     del wavs
 

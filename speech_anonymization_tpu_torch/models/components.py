@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.mesh import psum
+
 
 def glu(x: torch.Tensor) -> torch.Tensor:
     """The reference's custom 'GLU': ``x * sigmoid(x)``, i.e. SiLU.
@@ -42,7 +44,17 @@ class BatchNorm(nn.BatchNorm1d):
     bias``, and the running statistics moved toward the batch's at flax's
     momentum 0.9 (torch's 0.1), the running variance toward the BIASED batch
     variance (torch's ``BatchNorm1d`` takes the unbiased one).
+
+    The train statistics are sums of x and x^2 over a count. With a ``mesh``
+    of more than one rank on ``data`` (set by ``parallel.use_mesh``), they are
+    the global batch's, as JAX's jit over a sharded batch computes them: the
+    sums and the count summed over the ranks by a differentiable all-reduce,
+    so the gradient flows through the global mean and variance
+    (``nn.SyncBatchNorm`` would move the running variance toward the
+    unbiased one).
     """
+
+    mesh = None
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -52,8 +64,11 @@ class BatchNorm(nn.BatchNorm1d):
             return super().forward(x)
         axes = [0, *range(2, x.ndim)]
         shape = [1, -1] + [1] * (x.ndim - 2)
-        mean = x.mean(dim=axes)
-        var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+        sums = psum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes), count]), self.mesh)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
         with torch.no_grad():
             keep = 1.0 - self.momentum  # flax's momentum
             self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import pmax
 from .fbank_kernel import fused_fbank, prepare_dft
 
 
@@ -99,7 +100,13 @@ class FbankConfig:
 
 
 class Fbank(nn.Module):
-    """(B, L) or (L,) waveforms -> (B, T, n_mels) log-mel features."""
+    """(B, L) or (L,) waveforms -> (B, T, n_mels) log-mel features.
+
+    With a ``mesh`` (set by ``parallel.use_mesh``), the ``top_db`` floor is
+    the global batch's: the max over every rank's shard. K1's output is per
+    row, so that is the fbank's only cross-rank step."""
+
+    mesh = None
 
     def __init__(self, config: FbankConfig = FbankConfig(), device: str | torch.device = "cuda"):
         super().__init__()
@@ -124,5 +131,5 @@ class Fbank(nn.Module):
             return mel
         x_db = 10.0 * torch.log10(torch.clamp(mel, min=cfg.amin))
         if cfg.top_db is not None and cfg.top_db_mode == "batch":
-            x_db = torch.maximum(x_db, x_db.max() - cfg.top_db)
+            x_db = torch.maximum(x_db, pmax(x_db.max(), self.mesh) - cfg.top_db)
         return x_db

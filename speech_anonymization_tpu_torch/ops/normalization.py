@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import psum
+
 
 class NormalizerState(NamedTuple):
     """Running global statistics."""
@@ -24,7 +26,13 @@ class NormalizerState(NamedTuple):
 
 
 class InputNormalizer:
-    """Global mean/variance normalizer with epoch-gated stat freezing."""
+    """Global mean/variance normalizer with epoch-gated stat freezing.
+
+    With a ``mesh`` (set by ``parallel.use_mesh``), an update folds in the
+    global batch: the per-utterance sums and the utterance count summed over
+    the ranks."""
+
+    mesh = None
 
     def __init__(self, dim: int = 80, update_until_epoch: int = 4, eps: float = 1e-10,
                  mean_norm: bool = True, std_norm: bool = True):
@@ -74,11 +82,14 @@ class InputNormalizer:
         if training:
             mean, std = self._utterance_stats(x, lengths)
             gate = float(epoch < self.update_until_epoch)
-            n_new = x.shape[0] * gate
+            sums = psum(torch.cat([mean.sum(dim=0), std.sum(dim=0), mean.new_full((1,), x.shape[0])]), self.mesh)
+            d = mean.shape[-1]
+            sum_mean, sum_std, b = sums[:d], sums[d:2 * d], sums[2 * d]
+            n_new = b * gate
             total = state.count + n_new
             denom = torch.clamp(total, min=1.0)
-            new_mean = (state.count * state.glob_mean + gate * mean.sum(dim=0)) / denom
-            new_std = (state.count * state.glob_std + gate * std.sum(dim=0)) / denom
+            new_mean = (state.count * state.glob_mean + gate * sum_mean) / denom
+            new_std = (state.count * state.glob_std + gate * sum_std) / denom
             # before any update, the global stats are the identity transform
             first = total > 0
             new_mean = torch.where(first, new_mean, state.glob_mean)

@@ -84,6 +84,8 @@ from ..models.endtoend import ConvReconstruction
 from ..ops.fbank import Fbank
 from ..ops.normalization import InputNormalizer, NormalizerState
 from ..ops.specaugment import SpecAugmentDraws
+from ..parallel.mesh import (Mesh, all_gather_concat, data_parallel_grads, initialize_distributed,
+                             is_main_process, local_rows, psum, run_on_main, use_mesh)
 from ..train.brain import Brain, Stage
 from ..train.checkpoint import Checkpointer, PytreeRecoverable, average_checkpoints
 from ..train.epoch_loop import EpochCounter
@@ -168,22 +170,25 @@ def score_batch(metrics: EvalMetrics, sex_lp: torch.Tensor, recon: torch.Tensor,
                 clean: torch.Tensor, labels: torch.Tensor, lens: torch.Tensor,
                 external_classifier: FeatureClassifier | None = None,
                 asr_bundle: ASRBundle | None = None, ids: Sequence[str] = (),
-                words: Sequence[str] = (), stage: str = "test") -> None:
+                words: Sequence[str] = (), stage: str = "test", mesh: Mesh | None = None) -> None:
     """An evaluated batch into ``metrics``: the internal sex ACC, the x-vector's
     ACC on clean and reconstructed features, and utility (the ASR bundle's, or
-    without one the feature cosine similarity)."""
-    labels_np = labels.cpu().numpy()
-    metrics.sex_acc.append(sex_lp.cpu().numpy(), labels_np)
+    without one the feature cosine similarity). Under a ``mesh`` the batch is
+    this rank's shard: the rank scores its own rows, and the per-row results
+    and labels are gathered over the ranks before they enter ``metrics``."""
+    rows = lambda x: all_gather_concat(x.cpu().numpy(), mesh)  # noqa: E731
+    labels_np = rows(labels)
+    metrics.sex_acc.append(rows(sex_lp), labels_np)
     if external_classifier is not None:
         lp_orig, _, _ = external_classifier.classify_feats(clean)
-        metrics.sex_acc_extern_orig.append(lp_orig.cpu().numpy(), labels_np)
+        metrics.sex_acc_extern_orig.append(rows(lp_orig), labels_np)
         lp_recon, _, _ = external_classifier.classify_feats(recon)
-        metrics.sex_acc_extern.append(lp_recon.cpu().numpy(), labels_np)
+        metrics.sex_acc_extern.append(rows(lp_recon), labels_np)
     if asr_bundle is not None:
-        asr_bundle.eval_batch(metrics, ids, words, recon, clean, lens, stage)
+        asr_bundle.eval_batch(metrics, ids, words, recon, clean, lens, stage, mesh)
     else:
-        metrics.utility_similarity.append(cosine_similarity(recon.cpu().numpy(),
-                                                            clean.cpu().numpy()))
+        metrics.utility_similarity.append(all_gather_concat(
+            cosine_similarity(recon.cpu().numpy(), clean.cpu().numpy()), mesh))
 
 
 def evaluate_batch(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormalizer,
@@ -242,12 +247,27 @@ class AnonymizerTrainer:
     weights may be loaded into ``self.model`` before training. The frozen
     ASR (utility) and external classifier (endtoend's sex signal) are
     attached as they are and take no gradient.
+
+    ``mesh``: data parallelism over its ``data`` axis, as the JAX brain's
+    ``mesh=`` (``parallel/mesh.py``). Each rank is given its shard of the
+    global batch, and every value JAX computes over the global batch is
+    computed over it here: the fbank's floor, the normalizer's update and the
+    head's BatchNorm statistics by collectives (the mesh set on them once,
+    here); each loss term as this rank's share of the global mean, the
+    gradients summed over the ranks in one all-reduce before they are
+    accumulated, and the loss terms summed for the finite guard and the
+    logs; the SpecAugment draws made for the global batch from the one
+    seeded generator, each rank taking its rows. Every rank takes the
+    identical update.
     """
 
     def __init__(self, hparams: dict, external_classifier: FeatureClassifier | None = None,
-                 asr_bundle: ASRBundle | None = None, device: str | torch.device = "cuda"):
+                 asr_bundle: ASRBundle | None = None, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         self.hparams = hparams
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.dp = mesh.size("data") if mesh is not None else 1
         self.model_type = hparams.get("model_type", "convae")
         self.fbank = hparams.get("compute_features") or Fbank(device=device)
         self.normalizer = hparams.get("normalize") or InputNormalizer(dim=80)
@@ -297,6 +317,7 @@ class AnonymizerTrainer:
             self.normalizer.init_state(device))
         self.step = 0  # micro-batches this epoch, as Brain.fit counts them
         self.metrics: dict = {}  # the last micro-batch's loss terms (device scalars)
+        use_mesh(mesh, self.fbank, self.normalizer, self.model)
 
     # -- pure compute ------------------------------------------------------------
 
@@ -314,30 +335,35 @@ class AnonymizerTrainer:
     def _features(self, wavs, lens, epoch: int, train: bool,
                   draws: SpecAugmentDraws | None = None):
         """-> (clean, augmented, new normalizer state); ``clean`` is taken
-        before the augmentation."""
+        before the augmentation. ``draws`` are the global batch's."""
         clean, new_norm = features(self.fbank, self.normalizer, self.state.norm_state, wavs, lens,
                                    epoch, train, self.pad_multiple)
         feats = clean
         if train and self.augmentation is not None:
             if draws is None:
-                draws = self.augmentation.draw(clean.shape, self.generator)
-            feats = self.augmentation(clean, draws)
+                draws = self.augmentation.draw((clean.shape[0] * self.dp, *clean.shape[1:]), self.generator)
+            feats = self.augmentation(clean, local_rows(draws, self.mesh))
         return clean, feats, new_norm
 
     def _loss_terms(self, batch, epoch: int, train: bool, draws: SpecAugmentDraws | None = None):
         """-> (recon_loss, sex_loss, utility, confusion, sex log-probs, recon,
-        clean features, new normalizer state)."""
+        clean features, new normalizer state). The four terms are this rank's
+        shares of the global batch's: each mean over rows divided by the ranks
+        (equal shards; one rank: the mean itself); the cosine utility, a sum
+        over rows divided by T, is its share as it is."""
         wavs, lens, labels = batch[:3]
         clean, aug, new_norm = self._features(wavs, lens, epoch, train, draws)
         recon, sex_lp = self._apply_model(aug)
         b = clean.shape[0]
-        recon_loss = mse_loss(recon.reshape(b, -1), clean.reshape(b, -1))
+        recon_loss = mse_loss(recon.reshape(b, -1), clean.reshape(b, -1)) / self.dp
         if self.asr_bundle is not None and train:
             utility = self.asr_bundle.utility_loss(clean, recon, lens, batch[3])
+            if self.asr_bundle.utility_kind != "cosine":
+                utility = utility / self.dp
         else:
             utility = torch.zeros((), device=clean.device)
-        return (recon_loss, nll_loss(sex_lp, labels), utility, confusion_loss(sex_lp), sex_lp, recon,
-                clean, new_norm)
+        sex_loss, confusion = nll_loss(sex_lp, labels) / self.dp, confusion_loss(sex_lp) / self.dp
+        return recon_loss, sex_loss, utility, confusion, sex_lp, recon, clean, new_norm
 
     def _total(self, recon_loss, sex_loss, utility, confusion, weights: Sequence[float]):
         if self.model_type == "endtoend":
@@ -354,7 +380,8 @@ class AnonymizerTrainer:
         self.model.eval()
         recon_loss, sex_loss, utility, confusion, sex_lp, recon, clean, _ = self._loss_terms(
             tuple(x.to(self.device) for x in batch[:3]), epoch, False)
-        return self._total(recon_loss, sex_loss, utility, confusion, weights), sex_lp, recon, clean
+        loss = psum(self._total(recon_loss, sex_loss, utility, confusion, weights), self.mesh)
+        return loss, sex_lp, recon, clean
 
     # -- update ----------------------------------------------------------------------
 
@@ -368,17 +395,14 @@ class AnonymizerTrainer:
         recon_loss, sex_loss, utility, confusion, _, _, _, new_norm = self._loss_terms(
             batch, epoch, True, draws)
         loss = self._total(recon_loss, sex_loss, utility, confusion, weights)
-        names = list(self.params)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names], allow_unused=True)
-        grads = {k: torch.zeros_like(self.params[k]) if g is None else g
-                 for k, g in zip(names, grads)}
+        grads, terms = data_parallel_grads(loss, (recon_loss, sex_loss, utility, confusion, loss), self.params,
+                                           self.mesh)
         self.state.norm_state = new_norm
         stepped = self.state.accumulate(grads, self.grad_accum)
         if stepped:
-            self._apply(loss.detach(), lr, train_mode)
-        return {"recon_loss": recon_loss.detach(), "sex_loss": sex_loss.detach(),
-                "utility_loss": utility.detach(), "confusion_loss": confusion.detach(),
-                "loss": loss.detach(), "stepped": stepped}
+            self._apply(terms[4], lr, train_mode)
+        metrics = dict(zip(("recon_loss", "sex_loss", "utility_loss", "confusion_loss", "loss"), terms))
+        return {**metrics, "stepped": stepped}
 
     @torch.no_grad()
     def _apply(self, loss: torch.Tensor, lr: float, train_mode: str) -> None:
@@ -479,12 +503,21 @@ class SexAnonymizationBrain(Brain):
     recipe's ``PaddedBatch`` duck type: ``.sig = (wavs, lens)``, ``.gender``,
     ``.id``, ``.wrd`` and, for the utility term, ``.tokens_bos = (tokens, lens)``.
     Call :meth:`init_state` before a checkpointer saves or recovers.
+
+    ``mesh``: the trainer's data parallelism (each batch this rank's shard);
+    each rank scores its own rows of an evaluation batch (the decodes, the
+    classifiers) and the per-row results are gathered over the ranks before
+    they enter the stage's statistics (``score_batch``), so every rank's
+    valid and test statistics are the global batch's. The valid stage's log line and
+    checkpoint come from rank 0 alone, as in the JAX recipe.
     """
 
     def __init__(self, hparams: dict, checkpointer: Checkpointer | None = None,
                  external_classifier: FeatureClassifier | None = None,
-                 asr_bundle: ASRBundle | None = None, device: str | torch.device = "cuda"):
-        self.trainer = AnonymizerTrainer(hparams, external_classifier, asr_bundle, device)
+                 asr_bundle: ASRBundle | None = None, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
+        self.trainer = AnonymizerTrainer(hparams, external_classifier, asr_bundle, device, mesh)
+        self.mesh = mesh
         super().__init__(hparams, checkpointer, hparams.get("ckpt_interval_minutes"))
         self.device = self.trainer.device
         self.model = self.trainer.model
@@ -563,11 +596,11 @@ class SexAnonymizationBrain(Brain):
         loss, sex_lp, recon, clean = self.trainer.eval_batch(db, self.epoch_counter.current, weights)
         if stage == Stage.TEST and self.hparams.get("measure_mi"):
             # the time-mean of the reconstruction, pooled for the test-set MI
-            self._mi_feats.append(recon.cpu().numpy().mean(axis=1))
-            self._mi_labels.append(db[2].cpu().numpy())
+            self._mi_feats.append(all_gather_concat(recon.cpu().numpy().mean(axis=1), self.mesh))
+            self._mi_labels.append(all_gather_concat(db[2].cpu().numpy(), self.mesh))
         score_batch(self.metrics, sex_lp, recon, clean, db[2], db[1], self.external_classifier,
                     self.asr_bundle, getattr(batch, "id", ()), getattr(batch, "wrd", ()),
-                    "test" if stage == Stage.TEST else "valid")
+                    "test" if stage == Stage.TEST else "valid", self.mesh)
         return loss
 
     # -- hooks ---------------------------------------------------------------------
@@ -591,6 +624,8 @@ class SexAnonymizationBrain(Brain):
             "Utility_Retention": m.utility_similarity.summarize(),
         }
         if stage == Stage.VALID:
+            if not is_main_process():
+                return
             self.train_logger.log_stats(
                 {"epoch": epoch, "lr": self.noam.current_lr, "steps": self.noam.n_steps,
                  "optimizer": "Adam"},
@@ -742,6 +777,29 @@ def resolve_device(name: str, device: str | None) -> str:
     return device
 
 
+def launch(device: str) -> bool:
+    """A recipe's multi-process launch, before anything touches the device:
+    ``initialize_distributed`` from the ``SATPU_*`` environment (a no-op
+    without it), over NCCL on the card and gloo on the CPU."""
+    return initialize_distributed(backend="nccl" if device.startswith("cuda") else "gloo")
+
+
+def prepare_data(hparams: dict) -> None:
+    """The LibriSpeech CSVs of ``hparams``' splits, written by rank 0 while the
+    other ranks wait (``run_on_main``)."""
+    run_on_main(
+        prepare_librispeech,
+        data_folder=hparams["data_folder"],
+        tr_splits=hparams.get("train_splits", []),
+        dev_splits=hparams.get("dev_splits", []),
+        te_splits=hparams.get("test_splits", []),
+        save_folder=hparams["data_folder"],
+        merge_lst=hparams.get("train_splits", []),
+        merge_name=hparams.get("train_csv"),
+        skip_prep=hparams.get("skip_prep", False),
+    )
+
+
 def main(argv: Sequence[str] | None = None) -> SexAnonymizationBrain:
     """The anonymizer recipe, end to end: ``<config.yaml> [--key value ...]
     [--eval_only] [--device cuda|cpu]``, the JAX recipe's command line.
@@ -761,23 +819,21 @@ def main(argv: Sequence[str] | None = None) -> SexAnonymizationBrain:
     the brain (a fresh model from flax's initialisers at ``seed``); the newest
     checkpoint recovered; ``fit`` unless ``--eval_only``; then each test set
     evaluated on the checkpoints ranked by Utility_Retention, its WER written to
-    ``wer_<name>.txt``. One process: the multi-process launch and its
-    main-process gating are not ported yet. Returns the brain.
+    ``wer_<name>.txt``. Returns the brain.
+
+    Several processes (``SATPU_COORDINATOR``, ``SATPU_NUM_PROCESSES``,
+    ``SATPU_PROCESS_ID``, or ``SATPU_MULTIHOST=1`` under ``torchrun``; see
+    :func:`launch`): rank 0 prepares the CSVs while the others wait, and
+    writes the valid stage's log lines and checkpoints. As in the JAX recipe,
+    no mesh is given to the brain: each process trains on its own loader's
+    batches, and only those side effects are gated.
     """
     config_path, run_opts, overrides = parse_arguments(list(argv) if argv is not None else sys.argv[1:])
     device = resolve_device("anonymizer recipe", run_opts.get("device"))
+    launch(device)
     hparams = load_config(config_path, overrides, device=device)
     create_experiment_directory(hparams["output_folder"], config_path, overrides)
-    prepare_librispeech(
-        data_folder=hparams["data_folder"],
-        tr_splits=hparams.get("train_splits", []),
-        dev_splits=hparams.get("dev_splits", []),
-        te_splits=hparams.get("test_splits", []),
-        save_folder=hparams["data_folder"],
-        merge_lst=hparams.get("train_splits", []),
-        merge_name=hparams.get("train_csv"),
-        skip_prep=hparams.get("skip_prep", False),
-    )
+    prepare_data(hparams)
     tokenizer = None
     asr_dir = hparams.get("asr_checkpoint_dir")
     if asr_dir:

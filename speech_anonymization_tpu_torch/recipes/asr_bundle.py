@@ -52,6 +52,7 @@ from ..eval.wer import ErrorRateStats
 from ..losses import cosine_similarity_loss, mse_loss
 from ..models.asr import ASRModel
 from ..models.transformer import TransformerLM, beam_reorder_cache, make_kv_cache, use_paged_cache
+from ..parallel.mesh import Mesh, all_gather_concat
 from ..train.checkpoint import recover_trees
 from ..utils.convert import asr_state_dict, load_numpy_state, lm_state_dict
 
@@ -177,20 +178,22 @@ class ASRBundle:
         metrics.wer_metric = ErrorRateStats()
         metrics.wer_metric2 = ErrorRateStats()
 
-    def eval_batch(self, metrics, ids, words, recon, clean, lens, stage: str) -> None:
+    def eval_batch(self, metrics, ids, words, recon, clean, lens, stage: str, mesh: Mesh | None = None) -> None:
         """Encoder similarity into ``metrics.utility_similarity``; at the test
         stage, WER of the reconstructed (``wer_metric``) and the clean
-        (``wer_metric2``) features against ``words`` (one string per utterance)."""
+        (``wer_metric2``) features against ``words`` (one string per utterance).
+        Under a ``mesh`` the rows are this rank's shard: the similarities,
+        hypotheses, ids and words are gathered over the ranks."""
         r = self._encode(recon, lens).cpu().numpy().reshape(len(recon), -1)
         o = self._encode(clean, lens).cpu().numpy().reshape(len(clean), -1)
         den = np.linalg.norm(r, axis=1) * np.linalg.norm(o, axis=1)
-        metrics.utility_similarity.append((r * o).sum(axis=1) / np.maximum(den, 1e-8))
+        metrics.utility_similarity.append(all_gather_concat((r * o).sum(axis=1) / np.maximum(den, 1e-8), mesh))
         if stage == "test":
-            target = [w.split(" ") for w in words]
+            ids, target = all_gather_concat(list(ids), mesh), all_gather_concat([w.split(" ") for w in words], mesh)
             for feats, agg in ((recon, metrics.wer_metric), (clean, metrics.wer_metric2)):
                 toks, lengths = self._decode_test(feats, lens)[:2]
                 pred = [self.tokenizer.decode_ids(h).split(" ") for h in hyps_to_lists(toks, lengths)]
-                agg.append(ids, pred, target)
+                agg.append(ids, all_gather_concat(pred, mesh), target)
 
     def finish_test(self, metrics, wer_file: str | None = None) -> float:
         if wer_file:

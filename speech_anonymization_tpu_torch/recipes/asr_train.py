@@ -44,7 +44,6 @@ import numpy as np
 import torch
 
 from ..config import load_config, parse_arguments
-from ..data import prepare_librispeech
 from ..data.tokenizer import UnigramTokenizer
 from ..decoding import BeamSearchConfig, hyps_to_lists
 from ..eval.wer import ErrorRateStats
@@ -53,13 +52,14 @@ from ..models.asr import ASRModel
 from ..ops.fbank import Fbank
 from ..ops.normalization import InputNormalizer
 from ..ops.specaugment import SpecAugmentDraws
+from ..parallel.mesh import Mesh, all_gather_concat, data_parallel_grads, is_main_process, local_rows, psum, use_mesh
 from ..train.brain import Brain, Stage
 from ..train.checkpoint import Checkpointer, PytreeRecoverable, average_checkpoints
 from ..train.experiment import create_experiment_directory
 from ..train.schedulers import NoamScheduler
 from ..train.state import SGD, Adam, TrainState, kept_step
 from ..utils.convert import asr_state_dict, asr_variables, normalizer_state, normalizer_tree
-from .anonymizer import copy_into, dataio_prepare, make_loaders, resolve_device
+from .anonymizer import copy_into, dataio_prepare, launch, make_loaders, prepare_data, resolve_device
 from .asr_bundle import CACHE_DTYPES, beam_decode
 
 
@@ -87,12 +87,23 @@ class ASRBrain(Brain):
     built here, on ``device``, from flax's initialisers drawn from ``seed``.
     A batch is the loader's ``PaddedBatch``: ``.sig``, ``.tokens_bos``,
     ``.tokens_eos``, ``.tokens`` (each (values, relative lengths)), ``.id``,
-    ``.wrd``. Call :meth:`init_state` before a checkpointer saves or recovers."""
+    ``.wrd``. Call :meth:`init_state` before a checkpointer saves or recovers.
+
+    ``mesh``: data parallelism over its ``data`` axis, as the JAX brain's
+    ``mesh=``, each batch this rank's shard (tokens padded to the global
+    batch's lengths too): the fbank's floor and the normalizer's update over
+    the global batch, the CTC and KLdiv ``batchmean`` terms as this rank's
+    shares of the global ones, the gradients summed over the ranks before they
+    are accumulated, the SpecAugment draws the global batch's; a valid or test
+    batch's decoded words gathered over the ranks before they are scored. The
+    valid stage's log line and checkpoint come from rank 0 alone."""
 
     def __init__(self, hparams: dict, tokenizer, checkpointer: Checkpointer | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: Mesh | None = None):
         super().__init__(hparams, checkpointer, hparams.get("ckpt_interval_minutes"))
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.dp = mesh.size("data") if mesh is not None else 1
         self.tokenizer = tokenizer
         self.fbank: Fbank = hparams.get("compute_features") or Fbank(device=device)
         self.normalizer: InputNormalizer = hparams.get("normalize") or InputNormalizer(dim=80)
@@ -127,6 +138,7 @@ class ASRBrain(Brain):
                                        self.normalizer.init_state(self.device))
         self.metrics: dict = {}  # the last micro-batch's loss terms (device scalars)
         self.wer_metric = ErrorRateStats()
+        use_mesh(mesh, self.fbank, self.normalizer)
 
     # -- compute ---------------------------------------------------------------------
 
@@ -136,18 +148,21 @@ class ASRBrain(Brain):
                                           training=train)
         if train and self.augmentation is not None:
             if draws is None:
-                draws = self.augmentation.draw(feats.shape, self.generator)
-            feats = self.augmentation(feats, draws)
+                draws = self.augmentation.draw((feats.shape[0] * self.dp, *feats.shape[1:]), self.generator)
+            feats = self.augmentation(feats, local_rows(draws, self.mesh))
         return feats, new_norm
 
     def _loss_terms(self, batch: ASRBatch, epoch: int, train: bool,
                     draws: SpecAugmentDraws | None = None):
         """-> (loss, loss_ctc, loss_seq, enc, p_ctc, new normalizer state). The
-        model runs as the JAX recipe applies it: without ``train=True``."""
+        model runs as the JAX recipe applies it: without ``train=True``. Under
+        a mesh the losses are this rank's shares of the global batch's (the
+        ``batchmean`` sums over the global batch size)."""
         feats, new_norm = self._features(batch.wavs, batch.lens, epoch, train, draws)
         enc, _, p_ctc, p_seq = self.model(feats, batch.tokens_bos, batch.lens)
         loss_seq = kldiv_loss(p_seq, batch.tokens_eos, batch.eos_lens, self.label_smoothing)
         loss_ctc = ctc_loss(p_ctc, batch.tokens, batch.lens, batch.tokens_lens, host=batch.host)
+        loss_seq, loss_ctc = loss_seq / self.dp, loss_ctc / self.dp
         loss = self.ctc_weight * loss_ctc + (1.0 - self.ctc_weight) * loss_seq
         return loss, loss_ctc, loss_seq, enc, p_ctc, new_norm
 
@@ -156,15 +171,12 @@ class ASRBrain(Brain):
         """One micro-batch: its gradients into the accumulation buffer and, at
         the count, the update at ``lr``. -> the loss terms and ``stepped``."""
         loss, loss_ctc, loss_seq, _, _, new_norm = self._loss_terms(batch, epoch, True, draws)
-        names = list(self.params)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names], allow_unused=True)
-        grads = {k: torch.zeros_like(self.params[k]) if g is None else g for k, g in zip(names, grads)}
+        grads, terms = data_parallel_grads(loss, (loss, loss_ctc, loss_seq), self.params, self.mesh)
         self.state.norm_state = new_norm
         stepped = self.state.accumulate(grads, self.grad_accum)
         if stepped:
-            self._apply(loss.detach(), lr)
-        return {"loss": loss.detach(), "loss_ctc": loss_ctc.detach(), "loss_seq": loss_seq.detach(),
-                "stepped": stepped}
+            self._apply(terms[0], lr)
+        return {**dict(zip(("loss", "loss_ctc", "loss_seq"), terms)), "stepped": stepped}
 
     def _apply(self, loss: torch.Tensor, lr: float) -> None:
         """The update at the count (``kept_step``: the optimizer state advances
@@ -177,7 +189,7 @@ class ASRBrain(Brain):
     def _eval_loss(self, batch: ASRBatch, epoch: int):
         """-> (loss at the train label smoothing, enc, p_ctc), normalizer frozen."""
         loss, _, _, enc, p_ctc, _ = self._loss_terms(batch, epoch, False)
-        return loss, enc, p_ctc
+        return psum(loss, self.mesh), enc, p_ctc
 
     @torch.no_grad()
     def _decode(self, wavs, lens, epoch: int, beam_size: int, length_normalization: bool):
@@ -269,7 +281,9 @@ class ASRBrain(Brain):
             fn = self._decode_test if stage == Stage.TEST else self._decode_valid
             tokens, lengths = fn(db.wavs, db.lens, epoch)[:2]
             predicted = [self.tokenizer.decode_ids(h).split(" ") for h in hyps_to_lists(tokens, lengths)]
-            self.wer_metric.append(batch.id, predicted, [w.split(" ") for w in batch.wrd])
+            ids, predicted, words = (all_gather_concat(list(rows), self.mesh)
+                                     for rows in (batch.id, predicted, [w.split(" ") for w in batch.wrd]))
+            self.wer_metric.append(ids, predicted, words)
         return loss
 
     # -- hooks ---------------------------------------------------------------------
@@ -286,6 +300,8 @@ class ASRBrain(Brain):
             stats["WER"] = self.wer_metric.summarize("error_rate")
         stats["ACC"] = -stage_loss  # a ranking key: lower loss ranks higher
         if stage == Stage.VALID:
+            if not is_main_process():
+                return
             self.train_logger.log_stats(
                 {"epoch": epoch, "lr": self.noam.current_lr if self._optimizer_name == "Adam" else self.lr_sgd,
                  "steps": self.noam.n_steps, "optimizer": self._optimizer_name},
@@ -335,7 +351,8 @@ def train_tokenizer_if_needed(hparams: dict, train_data) -> UnigramTokenizer:
         tok.Load(tok_path)
     else:
         tok.train(train_data.raw_values("wrd"), vocab_size=int(hparams.get("output_neurons", 5000)))
-        tok.save(tok_path)
+        if is_main_process():
+            tok.save(tok_path)
     return tok
 
 
@@ -349,16 +366,17 @@ def main(argv: Sequence[str] | None = None) -> ASRBrain:
     checkpointer (``async_checkpointing``); the brain; the newest checkpoint
     recovered; ``fit`` unless ``--eval_only``; each test set evaluated on the
     average of the top-5 ``ACC`` checkpoints, its WER in
-    ``wer_<name>.txt``. One process. Returns the brain."""
+    ``wer_<name>.txt``. Returns the brain. Under several processes
+    (``anonymizer.launch``) rank 0 prepares the CSVs, saves a new tokenizer
+    and writes the valid stage's log lines and checkpoints; as in the JAX
+    recipe no mesh is given to the brain, so each process trains on its own
+    batches."""
     config_path, run_opts, overrides = parse_arguments(list(argv) if argv is not None else sys.argv[1:])
     device = resolve_device("asr recipe", run_opts.get("device"))
+    launch(device)
     hparams = load_config(config_path, overrides, device=device)
     create_experiment_directory(hparams["output_folder"], config_path, overrides)
-    prepare_librispeech(
-        data_folder=hparams["data_folder"], tr_splits=hparams.get("train_splits", []),
-        dev_splits=hparams.get("dev_splits", []), te_splits=hparams.get("test_splits", []),
-        save_folder=hparams["data_folder"], merge_lst=hparams.get("train_splits", []),
-        merge_name=hparams.get("train_csv"), skip_prep=hparams.get("skip_prep", False))
+    prepare_data(hparams)
     # the tokenizer first (it needs the train transcripts), then the datasets with it
     bootstrap, _, _ = dataio_prepare(hparams, tokenizer=None)
     tokenizer = train_tokenizer_if_needed(hparams, bootstrap)

@@ -47,13 +47,15 @@ import numpy as np
 import torch
 
 from ..config import load_config, parse_arguments
-from ..data import CategoricalEncoder, DynamicItemDataset, SaveableDataLoader, prepare_librispeech, read_audio
+from ..data import CategoricalEncoder, DynamicItemDataset, SaveableDataLoader, read_audio
 from ..data.dataset import make_buckets
 from ..eval.metrics import AccuracyStats
 from ..losses.basic import classification_error, nll_loss
 from ..models.init import flax_init_
 from ..ops.augment import NoiseDraws
 from ..ops.normalization import NormalizerState
+from ..parallel.mesh import (Mesh, all_gather_concat, data_parallel_grads, is_main_process, local_rows, psum_terms,
+                             use_mesh)
 from ..train.brain import Brain, Stage
 from ..train.checkpoint import Checkpointer, PytreeRecoverable
 from ..train.experiment import create_experiment_directory
@@ -62,8 +64,8 @@ from ..utils.reference_ckpts import find_best_ckpt_dir, load_reference_fcae
 from ..utils.convert import (anonymizer_variables, indexed_state_dict, normalizer_state, normalizer_tree,
                              xvector_variables)
 from ..models.autoencoders import FullyConnectedAutoencoder
-from .anonymizer import (MODEL_TYPES, _flat, copy_into, frontier_pick, model_state_tree, pad_time_to_multiple,
-                         resolve_device, set_model_params, set_model_state)
+from .anonymizer import (MODEL_TYPES, _flat, copy_into, frontier_pick, launch, model_state_tree,
+                         pad_time_to_multiple, prepare_data, resolve_device, set_model_params, set_model_state)
 
 
 class GenderDraws(NamedTuple):
@@ -89,12 +91,26 @@ class GenderBrain(Brain):
     the x-vector (the recon variant). A batch is a ``PaddedBatch`` (``.sig =
     (wavs, lens)``, ``.gender_encoded``) or a tuple ``(wavs, lens, labels)``.
     Call :meth:`init_state` before a checkpointer saves or recovers.
+
+    ``mesh``: data parallelism over its ``data`` axis, as the JAX brain's
+    ``mesh=``, each batch this rank's shard: the fbank's floor, the
+    normalizer's update and the x-vector's train-mode BatchNorms over the
+    global batch (the mesh set on them here), the NLL and the error as this
+    rank's shares of the global means, the gradients summed over the ranks
+    before they are accumulated, the draws (:meth:`draw`) made for the global
+    batch and each rank taking its rows (of the clean and of the corrupted
+    half alike); an evaluation batch's log-probs and labels gathered over the
+    ranks before they are scored. The valid stage's checkpoint comes from
+    rank 0 alone; its log line, as in the JAX recipe, from every rank.
     """
 
     def __init__(self, hparams: dict, checkpointer: Checkpointer | None = None,
-                 recon_model: torch.nn.Module | None = None, device: str | torch.device = "cuda"):
+                 recon_model: torch.nn.Module | None = None, device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         super().__init__(hparams, checkpointer, hparams.get("ckpt_interval_minutes"))
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.dp = mesh.size("data") if mesh is not None else 1
         self.fbank = hparams["compute_features"]
         self.normalizer = hparams["mean_var_norm"]
         self.embedding_model = hparams["embedding_model"]
@@ -122,11 +138,13 @@ class GenderBrain(Brain):
                                        self.normalizer.init_state(self.device))
         self.metrics: dict = {}  # the last micro-batch's loss and error (device scalars)
         self.error_metrics = AccuracyStats()
+        use_mesh(mesh, self.fbank, self.normalizer, self.embedding_model, self.classifier)
 
     # -- compute -------------------------------------------------------------------
 
     def draw(self, shape) -> GenderDraws:
-        """A micro-batch's draws for (B, L) waveforms from the brain's generator."""
+        """A micro-batch's draws for (B, L) waveforms from the brain's generator
+        (under a mesh, B is the global batch's)."""
         env = self.env_corrupt.draw(shape, self.generator) if self.env_corrupt is not None else None
         rows = 2 * shape[0] if env is not None else shape[0]
         aug = (self.augmentation.draw((rows, shape[1]), self.generator)
@@ -170,19 +188,20 @@ class GenderBrain(Brain):
         default to :meth:`draw`'s. -> the loss (a device scalar)."""
         wavs, lens, labels = self._device_batch(batch)
         if draws is None:
-            draws = self.draw(wavs.shape)
+            draws = self.draw((wavs.shape[0] * self.dp, *wavs.shape[1:]))
+        draws = GenderDraws(local_rows(draws.env, self.mesh),
+                            local_rows(draws.aug, self.mesh, blocks=2 if draws.env is not None else 1))
         self.embedding_model.train()
         self.classifier.train()
         log_probs, new_norm = self._forward(wavs, lens, epoch, True, draws)
         if self.env_corrupt is not None:
             labels = torch.cat([labels, labels])
-        loss = nll_loss(log_probs, labels)
-        names = list(self.params)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names])
+        loss = nll_loss(log_probs, labels) / self.dp
+        error = classification_error(log_probs.detach(), labels) / self.dp
+        grads, (loss, error) = data_parallel_grads(loss, (loss, error), self.params, self.mesh)
         self.state.norm_state = new_norm
-        loss = loss.detach()
-        self.metrics = {"loss": loss, "error": classification_error(log_probs.detach(), labels)}
-        if self.state.accumulate(dict(zip(names, grads)), self.accum_steps):
+        self.metrics = {"loss": loss, "error": error}
+        if self.state.accumulate(grads, self.accum_steps):
             guarded_step(self.params, self.state, self.optimizer, "adam", self.lr_annealing.lr, loss,
                          self.clip)
         return loss
@@ -190,18 +209,22 @@ class GenderBrain(Brain):
     @torch.no_grad()
     def eval_step(self, batch, epoch: int | None = None):
         """The JAX recipe's ``_eval_step``: eval mode, the frozen normalizer.
-        -> (loss, error, log-probs)."""
+        -> (loss, error, log-probs); under a mesh the loss and error are the
+        global batch's, the log-probs this rank's rows."""
         wavs, lens, labels = self._device_batch(batch)
         self.embedding_model.eval()
         self.classifier.eval()
         epoch = self.epoch_counter.current if epoch is None else epoch
         log_probs, _ = self._forward(wavs, lens, epoch, False)
-        return nll_loss(log_probs, labels), classification_error(log_probs, labels), log_probs
+        loss, error = psum_terms((nll_loss(log_probs, labels) / self.dp,
+                                  classification_error(log_probs, labels) / self.dp), self.mesh)
+        return loss, error, log_probs
 
     def evaluate_batch(self, batch, stage: Stage) -> torch.Tensor:
         batch = self._device_batch(batch)
         loss, _, log_probs = self.eval_step(batch)
-        self.error_metrics.append(log_probs.cpu().numpy(), batch[2].cpu().numpy())
+        self.error_metrics.append(all_gather_concat(log_probs.cpu().numpy(), self.mesh),
+                                  all_gather_concat(batch[2].cpu().numpy(), self.mesh))
         return loss
 
     # -- state ---------------------------------------------------------------------
@@ -257,7 +280,7 @@ class GenderBrain(Brain):
             old_lr, _ = self.lr_annealing(epoch, stage_loss)
             self.train_logger.log_stats({"Epoch": epoch, "lr": old_lr}, train_stats=self.train_stats,
                                         valid_stats=stats)
-            if self.checkpointer is not None:
+            if self.checkpointer is not None and is_main_process():
                 self.checkpointer.save_and_keep_only({"loss": stage_loss, "error": error, "epoch": epoch},
                                                      min_keys=["error"])
         else:
@@ -387,8 +410,11 @@ def main(argv: Sequence[str] | None = None) -> GenderBrain:
     ``recon_ckpt_select``, ``eval_ckpt_min_utility``) when that directory
     exists, the checkpointer (``async_checkpointing``), the brain (fresh
     models from flax's initialisers at ``seed``), the newest checkpoint
-    recovered, ``fit``, then ``evaluate(test, min_key="error")``. One
-    process. Returns the brain (its ``test_stats``)."""
+    recovered, ``fit``, then ``evaluate(test, min_key="error")``. Returns
+    the brain (its ``test_stats``). Under several processes
+    (``anonymizer.launch``) rank 0 prepares the CSVs and saves the
+    checkpoints; as in the JAX recipe no mesh is given to the brain, so each
+    process trains on its own batches."""
     return run(argv, "gender classifier recipe")
 
 
@@ -397,18 +423,10 @@ def run(argv: Sequence[str] | None, name: str, make_pipeline=None) -> GenderBrai
     datasets' audio pipeline (the pitch-norm recipe's)."""
     config_path, run_opts, overrides = parse_arguments(list(argv) if argv is not None else sys.argv[1:])
     device = resolve_device(name, run_opts.get("device"))
+    launch(device)
     hparams = load_config(config_path, overrides, device=device)
     create_experiment_directory(hparams["output_folder"], config_path, overrides)
-    prepare_librispeech(
-        data_folder=hparams["data_folder"],
-        tr_splits=hparams.get("train_splits", []),
-        dev_splits=hparams.get("dev_splits", []),
-        te_splits=hparams.get("test_splits", []),
-        save_folder=hparams["data_folder"],
-        merge_lst=hparams.get("train_splits", []),
-        merge_name=hparams.get("train_csv"),
-        skip_prep=hparams.get("skip_prep", False),
-    )
+    prepare_data(hparams)
     audio_pipeline = make_pipeline(hparams) if make_pipeline is not None else None
     train_data, valid_data, test_data, _ = dataio_prepare(hparams, audio_pipeline)
     train_loader, valid_loader, test_loader = make_loaders(hparams, train_data, valid_data, test_data)

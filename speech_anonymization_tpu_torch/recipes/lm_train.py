@@ -32,17 +32,17 @@ import numpy as np
 import torch
 
 from ..config import load_config, parse_arguments
-from ..data import prepare_librispeech
 from ..data.tokenizer import UnigramTokenizer
 from ..losses.basic import kldiv_loss
 from ..models.transformer import DropoutRng, TransformerLM
+from ..parallel.mesh import is_main_process
 from ..train.brain import Brain, Stage
 from ..train.checkpoint import Checkpointer, PytreeRecoverable, average_checkpoints
 from ..train.experiment import create_experiment_directory
 from ..train.schedulers import NoamScheduler
 from ..train.state import Adam, kept_step
 from ..utils.convert import lm_state_dict, lm_variables
-from .anonymizer import copy_into, resolve_device
+from .anonymizer import copy_into, launch, prepare_data, resolve_device
 
 
 def _read_transcripts(csv_path: str) -> list[str]:
@@ -191,7 +191,7 @@ class LMBrain(Brain):
         return self._eval_loss(self._device_batch(batch))
 
     def on_stage_end(self, stage: Stage, stage_loss: float, epoch: int | None = None) -> None:
-        if stage == Stage.VALID:
+        if stage == Stage.VALID and is_main_process():
             stats = {"loss": stage_loss, "ppl": float(np.exp(min(stage_loss, 20.0)))}
             self.train_logger.log_stats(
                 {"epoch": epoch, "lr": self.noam.current_lr, "steps": self.noam.n_steps},
@@ -223,18 +223,18 @@ def main(argv: Sequence[str] | None = None) -> LMBrain:
     ``<save_folder>/tokenizer.json``, trained on the train transcripts when
     absent); the loaders; the checkpointer; the brain; the newest checkpoint
     recovered; ``fit`` unless ``--eval_only``; each ``test_csv`` evaluated on
-    the average of the top-5 least-loss checkpoints. One process. Returns the
-    brain."""
+    the average of the top-5 least-loss checkpoints. Returns the brain.
+    Under several processes (``anonymizer.launch``) rank 0 prepares the CSVs,
+    saves a new tokenizer and writes the valid stage's log lines and
+    checkpoints; each process trains on its own batches (``LMBrain`` takes
+    no mesh, as in the JAX package)."""
     config_path, run_opts, overrides = parse_arguments(list(argv) if argv is not None else sys.argv[1:])
     device = resolve_device("lm recipe", run_opts.get("device"))
+    launch(device)
     hparams = load_config(config_path, overrides, device=device)
     create_experiment_directory(hparams["output_folder"], config_path, overrides)
     if hparams.get("data_folder") and hparams.get("train_splits"):
-        prepare_librispeech(
-            data_folder=hparams["data_folder"], tr_splits=hparams.get("train_splits", []),
-            dev_splits=hparams.get("dev_splits", []), te_splits=hparams.get("test_splits", []),
-            save_folder=hparams["data_folder"], merge_lst=hparams.get("train_splits", []),
-            merge_name=hparams.get("train_csv"), skip_prep=hparams.get("skip_prep", False))
+        prepare_data(hparams)
 
     tok_path = hparams.get("tokenizer_path") or os.path.join(hparams["save_folder"], "tokenizer.json")
     tokenizer = UnigramTokenizer()
@@ -243,7 +243,8 @@ def main(argv: Sequence[str] | None = None) -> LMBrain:
         tokenizer.Load(tok_path)
     else:
         tokenizer.train(train_sents, vocab_size=int(hparams.get("output_neurons", 5000)))
-        tokenizer.save(tok_path)
+        if is_main_process():
+            tokenizer.save(tok_path)
 
     buckets = list(hparams.get("lm_token_buckets", [16, 32, 64, 128]))
     batch_size = int(hparams.get("batch_size", 32))

@@ -1,14 +1,18 @@
 """Hold the anonymizer's training step on the card to the same step on the CPU.
 
-Used by ``chip_smoke.py`` (phases ``train`` and ``train_parity``) and by
-``tests/test_torch_cuda.py``; the CPU parity tests against the JAX package
-(``tests/torch_train_helpers.py``) take their tolerances, waveforms and
-per-tensor checks from here too. :func:`compare_cycle` builds one trainer on the
-card and one on the CPU from the same weights (``make_trainer(device)``
-builds each; the card's weights are copied to the CPU's), runs one
-accumulation cycle of the same batches on both (the SpecAugment draws come
-from each trainer's host generator, seeded alike, so they are equal), and
-checks, at the CPU parity tests' tolerances:
+Used by ``chip_smoke.py`` (phases ``train``, ``train_parity`` and
+``distributed``) and by ``tests/test_torch_cuda.py``; the CPU parity tests
+against the JAX package (``tests/torch_train_helpers.py``) and of the
+data-parallel ranks (``tests/test_torch_parallel.py``) take their
+tolerances, waveforms and per-tensor checks from here too. A cycle is
+recorded on the CPU by :func:`cycle_record` and two records of one cycle
+from the same start are held to each other by :func:`compare_records`
+(card and CPU, ranks and one process, the port and the JAX package).
+:func:`compare_cycle` builds one trainer on the card and one on the CPU from
+the same weights (``make_trainer(device)`` builds each; the card's weights
+are copied to the CPU's), runs one accumulation cycle of the same batches on
+both (the SpecAugment draws come from each trainer's host generator, seeded
+alike, so they are equal), and checks, at the CPU parity tests' tolerances:
 
   * after every micro-batch: the loss terms (recon and utility rtol 1e-5, the
     sex and confusion terms and the total 2e-3: the sex head's pooled
@@ -23,7 +27,8 @@ checks, at the CPU parity tests' tolerances:
     a sign that rounding decides) only |step| <= lr, and those elements are
     counted (``sign_only``).
 
-:func:`compare_gender_step` does the same for the gender recipe's
+:func:`compare_gender_step` (on :func:`gender_record` and
+:func:`compare_gender_records`) does the same for the gender recipe's
 ``GenderBrain``: one micro-batch (accumulation 1) on the card and on the CPU
 from the same seeded weights and the same draws: the loss (LOSS_RTOL), the
 error (equal), the statistics and the normalizer as above, Adam's count, its
@@ -192,74 +197,154 @@ def _params(trainer) -> dict:
     return {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
 
 
-def compare_cycle(make_trainer: Callable, batches: Sequence[tuple], epoch: int,
-                  device: str = "cuda") -> dict:
-    """One accumulation cycle of ``batches`` on ``device`` and on the CPU;
-    -> the gaps; raises AssertionError (listing every check beyond its
-    tolerance) at the end."""
-    card, cpu = make_trainer(device), make_trainer("cpu")
-    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
-    if len(batches) != card.grad_accum:
-        raise ValueError(f"one cycle is {card.grad_accum} micro-batches, got {len(batches)}")
-    phase = card._phase(epoch)
-    sex_on = any(phase["weights"].get(k, 0.0) for k in ("sex", "confusion"))
-    grad_rtol, moment_rtol = (SEX_GRAD_RTOL, SEX_MOMENT_RTOL) if sex_on else (GRAD_RTOL, MOMENT_RTOL)
-    start = {k: _np(p) for k, p in _params(cpu).items()}
+def _cpu(tensors: dict) -> dict:
+    return {k: v.detach().clone().cpu() for k, v in tensors.items()}
+
+
+def cycle_record(trainer, batches: Sequence[tuple], epoch: int, draws: Sequence | None = None) -> dict:
+    """Run one accumulation cycle of ``batches`` (each on the trainer's
+    device; ``draws``, the SpecAugment draws of each, or None for the
+    trainer's own) and record, on the CPU, what :func:`compare_records`
+    holds: after every micro-batch the loss terms, the BatchNorm statistics,
+    the normalizer state and (before the update) the accumulated gradients;
+    after it the optimizer's count and moments, the parameters and Noam's lr."""
+    if len(batches) != trainer.grad_accum:
+        raise ValueError(f"one cycle is {trainer.grad_accum} micro-batches, got {len(batches)}")
+    phase = trainer._phase(epoch)
+    micro = []
+    for i, batch in enumerate(batches):
+        trainer.fit_batch(batch, epoch, None if draws is None else draws[i])
+        micro.append({"metrics": {k: float(v) for k, v in trainer.metrics.items() if k != "stepped"},
+                      "stats": _cpu(_stats(trainer.model)),
+                      "norm": [t.detach().clone().cpu() for t in trainer.state.norm_state],
+                      "accum": _cpu(trainer.state.accum_grads) if i < len(batches) - 1 else None})
+    opt_key = "clf" if phase.get("train") == "sex_classifier" else "gen"
+    opt = trainer.state.opt_state[opt_key]
+    return {"micro": micro, "opt_key": opt_key, "count": opt.count, "mu": _cpu(opt.mu), "nu": _cpu(opt.nu),
+            "params": _cpu(_params(trainer)), "lr": trainer.noam.current_lr,
+            "sex_on": any(phase["weights"].get(k, 0.0) for k in ("sex", "confusion"))}
+
+
+def compare_records(got: dict, want: dict, start: dict, what: str = "got and want",
+                    lr_rtol: float = 0.0) -> dict:
+    """Two :func:`cycle_record`s of one cycle from the same ``start``
+    parameters, held at the CPU parity tests' tolerances (the module's
+    docstring). Noam's lr must be equal; ``lr_rtol`` > 0 only where one record
+    is the JAX package's, whose lr is a float32. -> the gaps; raises
+    AssertionError listing every check beyond its tolerance."""
+    grad_rtol, moment_rtol = (SEX_GRAD_RTOL, SEX_MOMENT_RTOL) if want["sex_on"] else (GRAD_RTOL, MOMENT_RTOL)
     report: dict = {"loss_rel_gap": {}, "grad_rel_gap": 0.0, "stats_rel_gap": 0.0}
     failures: list = []
-    for i, batch in enumerate(batches):
-        card.fit_batch(tuple(x.to(device) for x in batch), epoch)
-        cpu.fit_batch(tuple(x.cpu() for x in batch), epoch)
+    for i, (g_mb, w_mb) in enumerate(zip(got["micro"], want["micro"])):
         for k in ("recon_loss", "sex_loss", "utility_loss", "confusion_loss", "loss"):
-            g, w = float(card.metrics[k]), float(cpu.metrics[k])
+            g, w = g_mb["metrics"][k], w_mb["metrics"][k]
             rtol = LOSS_RTOL if k in ("recon_loss", "utility_loss") else SEX_RTOL
             if not abs(g - w) <= rtol * abs(w) + 1e-7:
-                failures.append(f"micro-batch {i}: {k} card {g} cpu {w} beyond rtol {rtol}")
-            report["loss_rel_gap"][k] = max(report["loss_rel_gap"].get(k, 0.0),
-                                            abs(g - w) / max(abs(w), 1e-30))
+                failures.append(f"micro-batch {i}: {k} {g} against {w} beyond rtol {rtol}")
+            report["loss_rel_gap"][k] = max(report["loss_rel_gap"].get(k, 0.0), abs(g - w) / max(abs(w), 1e-30))
         report["stats_rel_gap"] = max(report["stats_rel_gap"], tensor_gaps(
-            _stats(card.model), _stats(cpu.model), STATS_RTOL, "BatchNorm statistics", failures))
-        for name, g, w in zip(("count", "glob_mean", "glob_std"), card.state.norm_state,
-                              cpu.state.norm_state):
+            g_mb["stats"], w_mb["stats"], STATS_RTOL, "BatchNorm statistics", failures))
+        for name, g, w in zip(("count", "glob_mean", "glob_std"), g_mb["norm"], w_mb["norm"]):
             gap = float(np.abs(_np(g) - _np(w)).max())
             report["norm_max_abs_gap"] = max(report.get("norm_max_abs_gap", 0.0), gap)
             if not np.allclose(_np(g), _np(w), rtol=NORM_RTOL, atol=NORM_RTOL):
                 failures.append(f"micro-batch {i}: normalizer {name} differs by {gap}")
-        if i < len(batches) - 1:
+        if w_mb["accum"] is not None:
             report["grad_rel_gap"] = max(report["grad_rel_gap"], tensor_gaps(
-                card.state.accum_grads, cpu.state.accum_grads, grad_rtol, "accumulated grads",
-                failures))
-    opt_key = "clf" if phase.get("train") == "sex_classifier" else "gen"
-    g_opt, w_opt = card.state.opt_state[opt_key], cpu.state.opt_state[opt_key]
-    if g_opt.count != w_opt.count or g_opt.count == 0:
-        raise AssertionError(f"Adam counts: card {g_opt.count}, cpu {w_opt.count}")
-    report["mu_rel_gap"] = tensor_gaps(g_opt.mu, w_opt.mu, moment_rtol, "Adam mu", failures)
-    report["nu_rel_gap"] = tensor_gaps(g_opt.nu, w_opt.nu, moment_rtol, "Adam nu", failures)
-    count, lr = w_opt.count, cpu.noam.current_lr
-    if card.noam.current_lr != lr:
-        raise AssertionError(f"Noam: card lr {card.noam.current_lr}, cpu lr {lr}")
-    floor = noise_floor(w_opt.mu)
-    got_p, want_p = _params(card), _params(cpu)
+                g_mb["accum"], w_mb["accum"], grad_rtol, "accumulated grads", failures))
+    if got["count"] != want["count"] or want["count"] == 0 or got["opt_key"] != want["opt_key"]:
+        raise AssertionError(f"{what}: Adam {got['opt_key']} count {got['count']}, "
+                             f"{want['opt_key']} {want['count']}")
+    report["mu_rel_gap"] = tensor_gaps(got["mu"], want["mu"], moment_rtol, "Adam mu", failures)
+    report["nu_rel_gap"] = tensor_gaps(got["nu"], want["nu"], moment_rtol, "Adam nu", failures)
+    count, lr = want["count"], want["lr"]
+    if abs(got["lr"] - lr) > lr_rtol * lr:
+        raise AssertionError(f"{what}: Noam lr {got['lr']} against {lr}")
+    floor = noise_floor(want["mu"])
     sign_only, worst = 0, 0.0
-    for k in want_p:
-        n, gap = step_gaps(k, got_p[k], want_p[k], start[k], (g_opt.mu[k], w_opt.mu[k]),
-                           (g_opt.nu[k], w_opt.nu[k]), count, lr, floor, failures)
+    for k in want["params"]:
+        n, gap = step_gaps(k, got["params"][k], want["params"][k], start[k], (got["mu"][k], want["mu"][k]),
+                           (got["nu"][k], want["nu"][k]), count, lr, floor, failures)
         sign_only, worst = sign_only + n, max(worst, gap)
     report.update(param_max_abs_gap=worst, sign_only=sign_only,
-                  params=sum(p.numel() for p in want_p.values()), tolerances={
+                  params=sum(_np(p).size for p in want["params"].values()), tolerances={
                       "loss_rtol": LOSS_RTOL, "sex_rtol": SEX_RTOL, "grad_rtol": grad_rtol,
                       "moment_rtol": moment_rtol, "stats_rtol": STATS_RTOL, "norm_rtol": NORM_RTOL,
                       "lr": lr})
     if failures:
-        raise AssertionError(f"card and CPU disagree ({len(failures)} checks): " + "; ".join(failures)
+        raise AssertionError(f"{what} disagree ({len(failures)} checks): " + "; ".join(failures)
                              + f"; report {report}")
     return report
+
+
+def compare_cycle(make_trainer: Callable, batches: Sequence[tuple], epoch: int,
+                  device: str = "cuda") -> dict:
+    """One accumulation cycle of ``batches`` on ``device`` and on the CPU from
+    the same weights (:func:`cycle_record`, :func:`compare_records`); -> the
+    gaps; raises AssertionError (listing every check beyond its tolerance)."""
+    card, cpu = make_trainer(device), make_trainer("cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in card.model.state_dict().items()})
+    start = {k: _np(p) for k, p in _params(cpu).items()}
+    got = cycle_record(card, [tuple(x.to(device) for x in b) for b in batches], epoch)
+    want = cycle_record(cpu, [tuple(x.cpu() for x in b) for b in batches], epoch)
+    return compare_records(got, want, start, "card and CPU")
 
 
 def _gender_state(brain) -> tuple[dict, dict]:
     stats = {f"{name}.{k}": v for name in ("embedding_model", "classifier")
              for k, v in getattr(brain, name).state_dict().items() if k.endswith(("running_mean", "running_var"))}
     return {k: p.detach().clone() for k, p in brain.params.items()}, stats
+
+
+def gender_record(brain, batch: tuple, draws) -> dict:
+    """One ``GenderBrain`` micro-batch, ``(wavs, lens, labels)`` on the
+    brain's device, with ``draws`` (the global batch's); recorded on the CPU:
+    the loss, the error, the BatchNorm statistics, the normalizer state,
+    Adam's count and moments, the parameters and the lr."""
+    loss = float(brain.fit_batch(batch, 0, draws))
+    params, stats = _gender_state(brain)
+    opt = brain.state.opt_state["adam"]
+    return {"loss": loss, "error": float(brain.metrics["error"]), "params": _cpu(params), "stats": _cpu(stats),
+            "norm": [t.detach().clone().cpu() for t in brain.state.norm_state], "count": opt.count,
+            "mu": _cpu(opt.mu), "nu": _cpu(opt.nu), "lr": brain.lr_annealing.lr}
+
+
+def compare_gender_records(got: dict, want: dict, start: dict, what: str = "got and want") -> dict:
+    """Two :func:`gender_record`s of one micro-batch from the same ``start``
+    parameters: the loss (LOSS_RTOL), the error (equal), the statistics and
+    the normalizer as :func:`compare_records` holds them, Adam's count, its
+    moments within SEX_MOMENT_RTOL and the parameters by :func:`step_gaps`.
+    -> the gaps; raises AssertionError listing every check beyond its tolerance."""
+    failures: list = []
+    g, w = got["loss"], want["loss"]
+    if not abs(g - w) <= LOSS_RTOL * abs(w) + 1e-7:
+        failures.append(f"loss {g} against {w} beyond rtol {LOSS_RTOL}")
+    if got["error"] != want["error"]:
+        failures.append(f"error {got['error']} against {want['error']}")
+    report = {"loss_rel_gap": abs(g - w) / max(abs(w), 1e-30), "errors": (got["error"], want["error"]),
+              "stats_rel_gap": tensor_gaps(got["stats"], want["stats"], STATS_RTOL, "BatchNorm statistics",
+                                           failures)}
+    for name, a, b in zip(("count", "glob_mean", "glob_std"), got["norm"], want["norm"]):
+        gap = float(np.abs(_np(a) - _np(b)).max())
+        report["norm_max_abs_gap"] = max(report.get("norm_max_abs_gap", 0.0), gap)
+        if not np.allclose(_np(a), _np(b), rtol=NORM_RTOL, atol=NORM_RTOL):
+            failures.append(f"normalizer {name} differs by {gap}")
+    if got["count"] != want["count"] or want["count"] != 1:
+        raise AssertionError(f"{what}: Adam counts {got['count']}, {want['count']}")
+    report["mu_rel_gap"] = tensor_gaps(got["mu"], want["mu"], SEX_MOMENT_RTOL, "Adam mu", failures)
+    report["nu_rel_gap"] = tensor_gaps(got["nu"], want["nu"], SEX_MOMENT_RTOL, "Adam nu", failures)
+    floor = noise_floor(want["mu"])
+    sign_only, worst = 0, 0.0
+    for k in want["params"]:
+        n, gap = step_gaps(k, got["params"][k], want["params"][k], start[k], (got["mu"][k], want["mu"][k]),
+                           (got["nu"][k], want["nu"][k]), 1, want["lr"], floor, failures)
+        sign_only, worst = sign_only + n, max(worst, gap)
+    report.update(param_max_abs_gap=worst, sign_only=sign_only,
+                  params=sum(_np(p).size for p in want["params"].values()))
+    if failures:
+        raise AssertionError(f"{what} disagree ({len(failures)} checks): " + "; ".join(failures)
+                             + f"; report {report}")
+    return report
 
 
 def compare_gender_step(make_brain: Callable, batch: tuple, device: str = "cuda") -> dict:
@@ -272,37 +357,8 @@ def compare_gender_step(make_brain: Callable, batch: tuple, device: str = "cuda"
     got_start, _ = _gender_state(card)
     if any(not torch.equal(got_start[k].cpu(), v) for k, v in start.items()):
         raise AssertionError("the card and CPU brains start from different weights")
+    start = _cpu(start)
     draws = cpu.draw(batch[0].shape)
-    failures: list = []
-    g = float(card.fit_batch(tuple(x.to(device) for x in batch), 0, draws))
-    w = float(cpu.fit_batch(tuple(x.cpu() for x in batch), 0, draws))
-    if not abs(g - w) <= LOSS_RTOL * abs(w) + 1e-7:
-        failures.append(f"loss card {g} cpu {w} beyond rtol {LOSS_RTOL}")
-    errors = float(card.metrics["error"]), float(cpu.metrics["error"])
-    if errors[0] != errors[1]:
-        failures.append(f"error card {errors[0]} cpu {errors[1]}")
-    (got_p, got_s), (want_p, want_s) = _gender_state(card), _gender_state(cpu)
-    report = {"loss_rel_gap": abs(g - w) / max(abs(w), 1e-30), "errors": errors,
-              "stats_rel_gap": tensor_gaps(got_s, want_s, STATS_RTOL, "BatchNorm statistics", failures)}
-    for name, a, b in zip(("count", "glob_mean", "glob_std"), card.state.norm_state, cpu.state.norm_state):
-        gap = float(np.abs(_np(a) - _np(b)).max())
-        report["norm_max_abs_gap"] = max(report.get("norm_max_abs_gap", 0.0), gap)
-        if not np.allclose(_np(a), _np(b), rtol=NORM_RTOL, atol=NORM_RTOL):
-            failures.append(f"normalizer {name} differs by {gap}")
-    g_opt, w_opt = card.state.opt_state["adam"], cpu.state.opt_state["adam"]
-    if g_opt.count != w_opt.count or w_opt.count != 1:
-        raise AssertionError(f"Adam counts: card {g_opt.count}, cpu {w_opt.count}")
-    report["mu_rel_gap"] = tensor_gaps(g_opt.mu, w_opt.mu, SEX_MOMENT_RTOL, "Adam mu", failures)
-    report["nu_rel_gap"] = tensor_gaps(g_opt.nu, w_opt.nu, SEX_MOMENT_RTOL, "Adam nu", failures)
-    lr, floor = cpu.lr_annealing.lr, noise_floor(w_opt.mu)
-    sign_only, worst = 0, 0.0
-    for k in want_p:
-        n, gap = step_gaps(k, got_p[k], want_p[k], start[k], (g_opt.mu[k], w_opt.mu[k]),
-                           (g_opt.nu[k], w_opt.nu[k]), 1, lr, floor, failures)
-        sign_only, worst = sign_only + n, max(worst, gap)
-    report.update(param_max_abs_gap=worst, sign_only=sign_only,
-                  params=sum(p.numel() for p in want_p.values()))
-    if failures:
-        raise AssertionError(f"card and CPU disagree ({len(failures)} checks): " + "; ".join(failures)
-                             + f"; report {report}")
-    return report
+    got = gender_record(card, tuple(x.to(device) for x in batch), draws)
+    want = gender_record(cpu, tuple(x.cpu() for x in batch), draws)
+    return compare_gender_records(got, want, start, "card and CPU")

@@ -3,8 +3,8 @@
 Counterpart of ``speech_anonymization_tpu/train/brain.py`` (SpeechBrain's
 ``Brain.fit`` / ``evaluate`` skeleton): stage hooks (``on_stage_start``,
 ``on_stage_end``, ``on_fit_start``, ``on_evaluate_start``), per-epoch train
-and valid loops, the average stage loss, time-based interval checkpoints and
-a profiler window. ``step`` counts the epoch's micro-batches: reset each
+and valid loops, the average stage loss, time-based interval checkpoints (from rank 0 alone
+under several processes) and a profiler window. ``step`` counts the epoch's micro-batches: reset each
 epoch, counted before ``fit_batch``.
 
 One difference: the JAX package reads every micro-batch's loss back to the
@@ -21,6 +21,7 @@ from typing import Iterable
 
 import torch
 
+from ..parallel.mesh import is_main_process
 from .checkpoint import Checkpointer
 from .profiler import StepTimer, TraceProfiler
 
@@ -98,7 +99,7 @@ class Brain:
                 if self.profiler is not None:
                     self.profiler.maybe_stop(self.step)
                 count += 1
-                if self.checkpointer is not None and self.ckpt_interval_minutes:
+                if self.checkpointer is not None and self.ckpt_interval_minutes and is_main_process():
                     self.checkpointer.maybe_save_interval({"epoch": epoch, "intra_epoch": True},
                                                           self.ckpt_interval_minutes)
             train_loss = _mean_loss(total, count)

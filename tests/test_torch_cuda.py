@@ -1369,3 +1369,26 @@ def test_reference_loaders_on_card(cuda, tmp_path):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-3, rtol=0, err_msg=name)
     np.testing.assert_allclose(lm["cuda"](toks.to(cuda)).cpu().numpy(), lm["cpu"](toks).numpy(), atol=1e-3,
                                rtol=0)
+
+
+def test_one_rank_nccl_mesh_on_card(cuda, tmp_path):
+    """``initialize_distributed`` over NCCL at world size 1 (a file store):
+    the barrier and ``run_on_main`` complete, the mesh lives on the card with
+    one rank, and ``psum``/``pmax``/``all_gather_rows`` hand back their
+    input, launching nothing; the group is torn down after."""
+    from speech_anonymization_tpu_torch.parallel import (all_gather_rows, global_barrier, initialize_distributed,
+                                                         is_main_process, make_mesh, pmax, psum, run_on_main,
+                                                         shutdown_distributed)
+
+    assert initialize_distributed(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl")
+    try:
+        assert torch.distributed.get_backend() == "nccl" and is_main_process()
+        global_barrier()
+        assert run_on_main(lambda a, b: a * b, 6, b=7) == 42
+        mesh = make_mesh()
+        assert mesh.device.type == "cuda" and (mesh.size("data"), mesh.group("data")) == (1, None)
+        x = torch.arange(6.0, device=cuda).reshape(2, 3)
+        assert psum(x, mesh) is x and pmax(x, mesh) is x and all_gather_rows(x, mesh) is x
+    finally:
+        shutdown_distributed()
+    assert not torch.distributed.is_initialized()

@@ -52,7 +52,8 @@ def test_import_pulls_in_no_jax():
         "speech_anonymization_tpu_torch.losses.basic, speech_anonymization_tpu_torch.recipes.asr_train, "
         "speech_anonymization_tpu_torch.recipes.lm_train, speech_anonymization_tpu_torch.utils.sb_compat, "
         "speech_anonymization_tpu_torch.utils.reference_ckpts, speech_anonymization_tpu_torch.utils.port_weights, "
-        "speech_anonymization_tpu_torch.tools.sb_layout\n"
+        "speech_anonymization_tpu_torch.tools.sb_layout, speech_anonymization_tpu_torch.parallel, "
+        "speech_anonymization_tpu_torch.parallel.mesh, speech_anonymization_tpu_torch.parallel.sharding_rules\n"
         "from speech_anonymization_tpu_torch.recipes.anonymizer import main, dataio_prepare, make_loaders\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'speech_anonymization_tpu') "
         "if m in sys.modules]\n"
