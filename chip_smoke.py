@@ -132,8 +132,9 @@ failure raises and exits non-zero:
            30 s int8 serving shape (8 x 480,000 samples, 3,001 frames, 448
            steps, U 512: the chunked int8 kernels): paged with the LM (K6 for
            the ASR, one K7 launch a step for the LM), paged with the LM per
-           layer (K6 x 18), paged without it (K6 x 6) and physical (K4 + K2),
-           its timing 1 decode after the launch check; and B3,
+           layer (K6 x 18), paged without it (K6 x 6), physical (K4 + K2)
+           and physical with the LM (K4 x 18 + K2), its timing 1 decode
+           after the launch check; and B3,
            configs/convae.yaml's evaluation batch (3 utterances x beam 66:
            N 198) at D1's length with the LM and f32 caches, once with the
            default hparams (no decode_paged_kv override: the paging rule
@@ -143,7 +144,8 @@ failure raises and exits non-zero:
            decode checks the launches of a single decode; then
            ``_decode_test`` is timed (``run_s``: the whole run's wall).
            Paged and physical decodes on the card give identical tokens,
-           scores within 1e-4 (with the LM, and in int8, D3's too); for D2's
+           scores within 1e-4 (with the LM, and in int8, D3's too, with the
+           LM against the paged per-layer decode); for D2's
            and D3's K7 decode against its per-layer one, and for
            the bf16 and int8 decodes against the f32 (and bf16) ones, the
            share of identical hypotheses and the score gap are reported (bf16
@@ -1982,7 +1984,8 @@ DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, Tru
                       ("paged", False, True, "int8"), ("paged", True, True, "int8"),
                       ("physical", False, True, "int8")),
                "D3": (("paged", True, True, "int8"), ("paged", True, False, "int8"),
-                      ("paged", False, True, "int8"), ("physical", False, True, "int8")),
+                      ("paged", False, True, "int8"), ("physical", False, True, "int8"),
+                      ("physical", True, True, "int8")),
                "B3": (("default", True, True, "float32"), ("physical", True, True, "float32"))}
 # pairs of runs that must give identical tokens (scores within 1e-4), and
 # pairs that are only reported (K7 computes in bf16, the per-layer path in
@@ -1990,7 +1993,8 @@ DECODE_RUNS = {"D1": (("paged", False, True, "float32"), ("physical", False, Tru
 SAME_RUNS = {"D1": (("paged", "physical"), ("paged_lm", "physical_lm"),
                     ("paged_lm_int8", "physical_lm_int8")),
              "D2": (("paged", "physical"), ("paged_int8", "physical_int8")),
-             "D3": (("paged_int8", "physical_int8"),),
+             "D3": (("paged_int8", "physical_int8"),
+                    ("paged_lm_int8_per_layer", "physical_lm_int8")),
              "B3": (("default_lm", "physical_lm"),)}
 REPORTED_RUNS = {"D1": (("paged_lm", "paged_lm_int8"),),
                  "D2": (("paged_lm", "paged_lm_per_layer"), ("paged", "paged_bf16"),

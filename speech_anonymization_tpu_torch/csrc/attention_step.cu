@@ -55,9 +55,18 @@
 // (layer, row, position) in separate (L, N, U) arrays, indexed by the row's
 // own logical position in both layouts (paging moves only the code bytes). They follow the JAX
 // package's reference math (`attend_cached` + `finalize_jnp`), not the TPU
-// kernel's bf16 rounding of q and the dequantized keys: a cached element
-// reads as code * scale in f32 before any product, q and the fresh kh/vh stay
-// f32, and the rest is the f32 math. Each launch quantizes the fresh row of
+// kernel's bf16 rounding of q and the dequantized keys: q and the fresh
+// kh/vh stay f32 and every sum is f32. The whole-row kernels (K3, K5) read a
+// cached element as code * scale in f32 before any product. The chunked
+// ones (K4, K6 and K7's attention) factor the scales out of the products, as
+// the TPU kernel does on uniform pages (`_subtile_update_unif`,
+// ops/pallas/attention_step.py:852-866): s_p = k_scale[p] (q . codes_p) /
+// sqrt(d_head), and v_scale[p] folds into the softmax weight before the
+// value product; the products run on the tensor cores with q and the scaled
+// weights held as three f16 terms (33 significant bits, past f32's 24), so
+// they stay within rounding of the f32 math (attn_step_chunked_i8 in
+// csrc/attention_step.cuh; ops/attention_step.py `attend_int8_tiled` is its
+// plain form). Each launch quantizes the fresh row of
 // M values (every head) once: amax = max(max |x|, 1e-6), code =
 // clip(rint(x * (127 / amax)), -127, 127) (round half to even), scale =
 // amax / 127, both divisions IEEE (the build keeps --use_fast_math off);
@@ -133,16 +142,45 @@
 //     bytes come from, not the arithmetic. On the card the redesign is bound
 //     by instruction issue and latency in the passes (four FP32 operations
 //     an int8 element), not by the copies (PERF.md).
-//   attn_step_chunked (K4, K6) streams positions in chunks of 64 with a
-//     running max, denominator and accumulator (flash-decoding), so its
-//     shared memory does not depend on U. Its body
-//     (attn_step_chunked_item, csrc/attention_step.cuh, which K7 runs too)
+//   attn_step_chunked (K4, K6 on f32 and bf16 caches) streams positions in
+//     chunks of 64 with a running max, denominator and accumulator
+//     (flash-decoding), so its shared memory does not depend on U. Its body
+//     (attn_step_chunked_f, csrc/attention_step.cuh, which K7 runs too)
 //     maps the score lanes to (position, 16-byte vector) in groups of 8, 16
 //     or 32, keeps 2 positions' loads in flight a thread in both passes,
 //     takes two barriers a chunk, and copies the parent's active page to
 //     the merged page in the passes that read it, so the page crosses L2
 //     once; its sums keep the order of the one-warp-a-position design
 //     before it, so K4 and K6 give that design's bits, and each other's.
+//   attn_step_chunked_int8 (K4, K6 on int8 caches; K7's attention runs the
+//     same body, attn_step_chunked_i8) was that loop with a dequantization
+//     per element, at 25% (K4) and 7% (K6) of its bound at D3 on an H100:
+//     every block re-read the row's kh and vh for the amax, each element
+//     took an integer-to-float conversion, a multiply by its scale and the
+//     FMA, and 96 registers a thread held 5 blocks an SM. Now:
+//     - the row's head-0 block quantizes every head's fresh k/v and writes
+//       the two scales (as K3's head-0 item); no block reads position
+//       `step` of the cache or its scale, so none waits for them;
+//     - the products are tensor-core mma.sync m16n8k16 on the raw codes,
+//       the scales factored out (numerics above): scores are codes (16
+//       positions x d) times q's three f16 terms (columns 0-2), values the
+//       codes transposed (ldmatrix .trans: d x 16 positions) times the
+//       scaled weights' terms; a code becomes an f16 by a byte permute and
+//       one f16x2 subtraction, two at a time;
+//     - each of the block's 4 warps takes every 4th tile of 16 positions
+//       with its own online softmax and stages its tiles (codes and
+//       scales, zero-filled where not read) in a ring of its own by
+//       cp.async, the next tile's copies in flight while it computes one
+//       (2 slots: 30 KB a block and 7 blocks an SM at d_head 96, 22 KB and
+//       8 at 64; K7's phase 3 slots); no barrier in the position loop, the
+//       warps' partials and the fresh position merged at the end; the
+//       row's mask is staged in shared memory once, and a tile's addresses
+//       come from its first position's (a tile lies within a page);
+//     - paged, each warp copies the parent's active positions of its tiles
+//       from its ring to the merged page.
+//     K4 and K6 take the same tiles in the same order, so they give the
+//     same bits on the same content; K7 int8 runs the body with its
+//     shared memory inside K7's 50.2 KB.
 //   attn_step_paged_rows (K5) is the whole-row kernel with its position
 //     loops rebuilt, because K3's are bound by load latency, not bytes: a
 //     warp scores one position with d_head / vec of its lanes loading (12
@@ -156,18 +194,18 @@
 //     block per page with a merge, and whole pages held in registers lost:
 //     each cut the blocks resident per SM or lengthened a block's chain of
 //     dependent loads.
-//   int8 (K3-K6): a 16-byte vector is 16 codes (d_head 96: 6 vectors, 64:
+//   int8 in K5: a 16-byte vector is 16 codes (d_head 96: 6 vectors, 64:
 //     4), each lane dequantizing with its position's scale as it loads. The
 //     quantizer's amax spans the whole row while a block holds one head, so
-//     in every K4-K6 block warp 0 reads the row's M values of kh and warp 1
-//     those of vh (3 KB each, from L2) and reduce max |x| themselves (K3: its
-//     head-0 item, above): a max is exact, so every head gets the same scale
-//     bit for bit, with no second launch. Each block writes its head's codes;
-//     the row's head-0 block writes the two scales. K5's and K4/K6's score groups are 8 lanes with 6
-//     or 4 live, and K4/K6's value pass takes 21 or 32 groups of nvec
-//     threads (their partials in shared memory: 8 KB a block).
+//     in every K5 block warp 0 reads the row's M values of kh and warp 1
+//     those of vh (3 KB each, from L2) and reduce max |x| themselves (K3,
+//     K4 and K6: the row's head-0 item, above): a max is exact, so every
+//     head gets the same scale bit for bit, with no second launch. Each
+//     block writes its head's codes; the row's head-0 block writes the two
+//     scales. K5's score groups are 8 lanes with 6 or 4 live.
 // Limits checked by the Python wrappers: d_head a multiple of the vector
-// width (4 f32, 8 bf16 or 16 int8 elements) and at most 32 vectors, 16-byte aligned
+// width (4 f32, 8 bf16 or 16 int8 elements) and at most 32 vectors (int8
+// K4/K6: 32, 64, 96 or 128), 16-byte aligned
 // operands, 0 <= step < U, 0 <= layer < L, a power-of-two page dividing U.
 // table and act_src must hold rows in [0, N) (the beam reorder builds them
 // from in-range parents).
@@ -326,32 +364,10 @@ __global__ void __launch_bounds__(kThreads, kK3Blocks)
     T* kdst = a.ck + (lrow * a.u + step) * a.m + static_cast<size_t>(head) * a.d_head;
     T* vdst = a.cv + (lrow * a.u + step) * a.m + static_cast<size_t>(head) * a.d_head;
     if constexpr (kQuant) {
-      if (head == 0) {
-        // the row's quantizer, once a row (by its head-0 item): amax over its
-        // M values of kh and vh, then every head's codes and the two scales
-        const float* krow = a.kh + static_cast<size_t>(row) * a.m;
-        const float* vrow = a.vh + static_cast<size_t>(row) * a.m;
-        float mk = 0.f, mv = 0.f;
-        for (int i = 4 * threadIdx.x; i < a.m; i += 4 * kThreads) {
-          const float4 k4 = *reinterpret_cast<const float4*>(krow + i);
-          const float4 v4 = *reinterpret_cast<const float4*>(vrow + i);
-          mk = fmaxf(mk, fmaxf(fmaxf(fabsf(k4.x), fabsf(k4.y)), fmaxf(fabsf(k4.z), fabsf(k4.w))));
-          mv = fmaxf(mv, fmaxf(fmaxf(fabsf(v4.x), fabsf(v4.y)), fmaxf(fabsf(v4.z), fabsf(v4.w))));
-        }
-        mk = fmaxf(block_max(mk, red), 1e-6f);
-        mv = fmaxf(block_max(mv, red), 1e-6f);
-        const int vecs = a.m / V;
-        for (int i = threadIdx.x; i < 2 * vecs; i += kThreads) {
-          const bool is_v = i >= vecs;
-          const int e = (is_v ? i - vecs : i) * V;  // from head 0's offset: the row's element e
-          float x[V];
-          load_fresh<T>((is_v ? vrow : krow) + e, x);
-          store_codes((is_v ? vdst : kdst) + e, x, 127.f / (is_v ? mv : mk));  // IEEE division
-        }
-        if (threadIdx.x == 0) {
-          a.ks[lrow * a.u + step] = mk / 127.f;
-          a.vs[lrow * a.u + step] = mv / 127.f;
-        }
+      if (head == 0) {  // the row's quantizer, once a row (by its head-0 item)
+        quantize_fresh_row(a.kh + static_cast<size_t>(row) * a.m,
+                           a.vh + static_cast<size_t>(row) * a.m, kdst, vdst,
+                           a.ks + lrow * a.u + step, a.vs + lrow * a.u + step, a.m, red);
       }
     }
     const bool fresh_ok = mrow[step] != 0;
@@ -623,17 +639,47 @@ int launch_k5(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 / K6: one block per (row, head); see attn_step_chunked_item. At least
-// 10 blocks an SM for f32 caches, 8 for bf16 (registers capped at 48 and
-// 64): the fastest of the counts tried on an H100 at D2's shapes. int8: 5
-// (96 registers), where nvcc's report shows no spill (PERF.md).
+// K4 / K6 on f32 and bf16 caches: one block per (row, head); see
+// attn_step_chunked_f. At least 10 blocks an SM for f32 caches, 8 for bf16
+// (registers capped at 48 and 64): the fastest of the counts tried on an
+// H100 at D2's shapes.
 template <typename T>
-constexpr int kChunkedBlocks = sizeof(T) == 4 ? 10 : (sizeof(T) == 2 ? 8 : 5);
+constexpr int kChunkedBlocks = sizeof(T) == 4 ? 10 : 8;
 
 template <typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads, kChunkedBlocks<T>) attn_step_chunked(const Args<T> a) {
   extern __shared__ float smem[];
   attn_step_chunked_item<T, kPaged>(a, blockIdx.x, smem, a.out);
+}
+
+// K4 / K6 on int8 caches: one block per (row, head); see attn_step_chunked_i8.
+// Each warp has kI8Stages ring slots (30 KB of shared memory a block at
+// d_head 96, 22 KB at 64), and an SM holds at least i8_blocks(d_head / 16)
+// blocks (registers capped at 65536 / (128 x blocks)): the fastest of 4-8
+// blocks with 2 or 3 slots on an H100 at D3 (PERF.md); at 128, shared
+// memory allows 5.
+constexpr int kI8Stages = 2;
+__host__ __device__ constexpr int i8_blocks(int dtiles) {
+  return dtiles <= 4 ? 8 : (dtiles <= 6 ? 7 : 5);
+}
+
+template <bool kPaged, int kDT>
+__global__ void __launch_bounds__(kThreads, i8_blocks(kDT))
+    attn_step_chunked_int8(const Args<int8_t> a) {
+  extern __shared__ __align__(16) unsigned char smem_i8[];
+  attn_step_chunked_i8<kPaged, kDT, kI8Stages>(a, blockIdx.x, smem_i8, a.out);
+}
+
+template <bool kPaged, int kDT>
+int launch_i8_as(const Args<int8_t>& a, int nhead, int device, cudaStream_t stream) {
+  const auto kernel = attn_step_chunked_int8<kPaged, kDT>;
+  const size_t smem =
+      chunked_i8_smem(16 * kDT, kI8Stages, a.u, kPaged ? (a.u >> a.page_shift) : 0);
+  static int smem_set[kMaxDevices] = {};
+  const int err = allow_smem(kernel, smem, device, smem_set);
+  if (err != 0) return err;
+  if (a.n > 0) kernel<<<a.n * nhead, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K3's TMA map of one (layers, n, u, m) cache as 32-bit words (any element
@@ -735,18 +781,29 @@ int launch_k3(const Args<T>& a, int layers, int nhead, int chunk, int slots, int
   return launch_k3_as<T, 32>(a, tmk, tmv, nhead, chunk, slots, smem, device, stream);
 }
 
-// K4 (kPaged = false) and K6 (kPaged = true), f32, bf16 and int8
+// K4 (kPaged = false) and K6 (kPaged = true), f32, bf16 and int8 (d_head
+// 32, 64, 96 or 128)
 template <typename T, bool kPaged>
 int launch_streamed(const Args<T>& a, int nhead, int device, cudaStream_t stream) {
-  const int groups = kThreads / (a.d_head / Vec<T>::kN);
-  const int owners = kPaged ? (a.u >> a.page_shift) : 0;
-  const size_t smem = chunked_smem_floats(groups, a.d_head) * sizeof(float) +
-                      static_cast<size_t>(owners) * sizeof(int);
-  static int smem_set[kMaxDevices] = {};
-  const int err = allow_smem(attn_step_chunked<T, kPaged>, smem, device, smem_set);
-  if (err != 0) return err;
-  if (a.n > 0) attn_step_chunked<T, kPaged><<<a.n * nhead, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (Vec<T>::kQuant) {
+    switch (a.d_head) {
+      case 32: return launch_i8_as<kPaged, 2>(a, nhead, device, stream);
+      case 64: return launch_i8_as<kPaged, 4>(a, nhead, device, stream);
+      case 96: return launch_i8_as<kPaged, 6>(a, nhead, device, stream);
+      case 128: return launch_i8_as<kPaged, 8>(a, nhead, device, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    const int groups = kThreads / (a.d_head / Vec<T>::kN);
+    const int owners = kPaged ? (a.u >> a.page_shift) : 0;
+    const size_t smem = chunked_smem_floats(groups, a.d_head) * sizeof(float) +
+                        static_cast<size_t>(owners) * sizeof(int);
+    static int smem_set[kMaxDevices] = {};
+    const int err = allow_smem(attn_step_chunked<T, kPaged>, smem, device, smem_set);
+    if (err != 0) return err;
+    if (a.n > 0) attn_step_chunked<T, kPaged><<<a.n * nhead, kThreads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 int use_device(int device) {
@@ -796,7 +853,11 @@ int launch_paged(const void* q, const void* kh, const void* vh, const void* mask
   a.page_pos = fused ? 2 * page : page;
   a.slot_pos = fused ? 2 * page : page;
   a.v_off = fused ? page : 0;
-  if (chunked) return launch_streamed<T, true>(a, nhead, device, stream);
+  if (chunked) {
+    // int8: a tile of kI8Tile positions lies within one page
+    if (Vec<T>::kQuant && page < kI8Tile) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_streamed<T, true>(a, nhead, device, stream);
+  }
   const int nvec = a.d_head / Vec<T>::kN;  // lanes per position: nvec rounded up to 8, 16 or 32
   if (nvec <= 8) return launch_k5<T, 8>(a, nhead, device, stream);
   if (nvec <= 16) return launch_k5<T, 16>(a, nhead, device, stream);

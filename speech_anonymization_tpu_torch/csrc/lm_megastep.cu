@@ -36,12 +36,14 @@
 // per-element q.k products is a concession to its matrix unit, and is not
 // kept). f32, bf16 and int8 caches. int8 (the JAX package's quantized
 // serving mode, ops/attention_step.py's contract): codes, with (L, N, U) f32
-// k and v scales by own row and logical position; each layer's attention
-// items quantize the row's fresh k/v (the bf16-valued f32 q/k/v scratch,
-// complete for every head after the q/k/v phase's grid barrier) on writeback
-// into the merged page and write the scales at (layer, row, step) in place,
-// and dequantize each cached code as code * scale in f32 before any product
-// (K6's int8 body). The weights and the products are as for f32 caches.
+// k and v scales by own row and logical position; each row's head-0
+// attention item quantizes the row's fresh k/v (the bf16-valued f32 q/k/v
+// scratch, complete for every head after the q/k/v phase's grid barrier)
+// into the merged page and writes the scales at (layer, row, step) in place;
+// the attention is K4/K6's int8 body (attn_step_chunked_i8: the scales
+// factored out of tensor-core products on the raw codes, d_head 32, 64, 96
+// or 128, its shared memory inside this kernel's 50.2 KB). The weights and
+// the projections are as for f32 caches.
 //
 // Bound: at the D2 decode shape (N 528, U 256, M 768, 12 layers, d_ffn 3072)
 // a step must read 12 layers' live cache (the positions its rows hold valid,
@@ -496,9 +498,19 @@ template <typename T, bool kExact>
 int launch(const Mega<T>& p, int device, cudaStream_t stream) {
   const auto kernel = lm_mega<T, kExact>;
   const int d_head = p.m / p.nhead;
-  const int groups = kThreads / (d_head / Vec<T>::kN);
-  const size_t attn = static_cast<size_t>(chunked_smem_floats(groups, d_head)) * sizeof(float) +
-                      static_cast<size_t>(p.u >> kPageShift) * sizeof(int);
+  size_t attn;  // the attention phase's shared memory, from the block's start
+  if constexpr (Vec<T>::kQuant) {
+    // int8: d_head 32, 64, 96 or 128, and below the ring's mbarriers
+    attn = static_cast<size_t>(
+        chunked_i8_smem(d_head, i8_stages(d_head / 16), p.u, p.u >> kPageShift));
+    if (d_head % 32 != 0 || d_head > 128 || attn > kStages * kStageBytes) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    const int groups = kThreads / (d_head / Vec<T>::kN);
+    attn = static_cast<size_t>(chunked_smem_floats(groups, d_head)) * sizeof(float) +
+           static_cast<size_t>(p.u >> kPageShift) * sizeof(int);
+  }
   const size_t smem = attn > kGemmSmem ? attn : kGemmSmem;
   static int smem_set[kMaxDevices] = {};
   const int opt_in = allow_smem(kernel, smem, device, smem_set);  // above 48 KB

@@ -32,11 +32,18 @@ K5-K7 on the paged caches) are the reference math of
   127)`` can differ in the last bit, and so does ``finalize_jnp`` under
   ``jax.jit``, where XLA rewrites the division by the constant 127 as that
   product; the contract is the division;
-* a cached element reads as ``code * scale`` in f32 before any product; q and
-  the fresh kh/vh stay f32 (the fresh token is not quantized in the step
-  that writes it), and the rest is the f32 math. The TPU kernel rounds q and
-  the dequantized keys to bf16 for its matrix unit; the port does not copy
-  that, as its f32 contract does not;
+* q and the fresh kh/vh stay f32 (the fresh token is not quantized in the
+  step that writes it), and every sum is f32. K3 and K5 (and the plain
+  twins) read a cached element as ``code * scale`` in f32 before any
+  product. K4, K6 and K7 factor the scales out, as the TPU kernel does on
+  uniform pages (``_subtile_update_unif``, ``attention_step.py:852-866``):
+  ``s_p = k_scale[p] * (q . codes_p) / sqrt(d)``, and ``v_scale[p]`` folds
+  into the softmax weight before the value product; they take the products
+  on the tensor cores, q and the scaled weights held as three f16 terms
+  (33 significant bits, past f32's 24), within 1e-5 of the twins.
+  :func:`attend_int8_tiled` is that arithmetic in plain PyTorch. The TPU
+  kernel rounds q and the dequantized keys to bf16 for its matrix unit; the
+  port does not copy that, as its f32 contract does not;
 * scales at positions > step, or masked, may be stale or NaN: they are
   replaced before any product, like the codes they belong to.
 """
@@ -56,6 +63,9 @@ import torch
 _VMEM_BUDGET = 10 * 2**20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_VECS = 32  # 16-byte vectors of one head: one warp lane each
+# Head widths the int8 chunked body (K4, K6 and K7's attention on int8 caches:
+# ``attn_step_chunked_i8``, d_head / 16 tensor-core tiles, an even count) takes.
+I8_CHUNKED_HEADS = (32, 64, 96, 128)
 # K3 (``attn_step_whole_row``) stages each (row, head)'s cached k and v in
 # a ring of shared-memory slots of `chunk` positions: the longest of
 # K3_CHUNKS (64 only from step 64 on) with room for two slots in K3_SMEM
@@ -153,6 +163,139 @@ def attend_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torc
     return torch.einsum("nhp,nphd->nhd", weights, vb).reshape(n, m)
 
 
+I8_TILE, I8_WARPS = 16, 4  # attn_step_chunked_i8's positions a tile, warps a block
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf: a * b + c rounded once to f32 (through f64, where a * b is exact)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2^e as f32, e an int tensor in [-126, 127], exactly."""
+    return ((e.int() + 127) << 23).view(torch.float32)
+
+
+def _f16_shift(amax: torch.Tensor) -> torch.Tensor:
+    """The power-of-two shift that puts amax (>= 0) in [2^13, 2^14); 0 for 0,
+    clamped to +-100 (the kernel's ``f16_shift``)."""
+    e = ((amax.view(torch.int32) >> 23) & 0xFF) - 126
+    return torch.where(amax > 0, (14 - e).clamp(-100, 100), torch.zeros_like(e))
+
+
+def _f16_terms(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x = t0 + t1 + t2 + rest, each term an f16 value (as f32): t0 = f16(x),
+    t1 = f16(x - t0), t2 = f16(x - t0 - t1)."""
+    t0 = x.half().float()
+    r1 = x - t0
+    t1 = r1.half().float()
+    return t0, t1, (r1 - t1).half().float()
+
+
+def _mma_sum(codes: torch.Tensor, terms: torch.Tensor, dim: int) -> torch.Tensor:
+    """One tensor-core k-step: the exact sum of code x term products over
+    ``dim``, rounded once to f32."""
+    return (codes.double() * terms.double()).sum(dim).float()
+
+
+def attend_int8_tiled(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
+                      k_buf: torch.Tensor, v_buf: torch.Tensor, step: int, nhead: int,
+                      k_scale: torch.Tensor, v_scale: torch.Tensor) -> torch.Tensor:
+    """The int8 chunked kernels' arithmetic (``csrc/attention_step.cuh``
+    ``attn_step_chunked_i8``: K4, K6 and K7's attention on int8 caches) in
+    plain PyTorch, with :func:`attend_plain`'s arguments: the scales factored
+    out of the products (score = k_scale[p] (q . codes_p) / sqrt(d), v_scale[p]
+    folded into the weight), q and the weights split into three f16 terms
+    after a power-of-two shift (per (row, head) for q, per tile for the
+    weights), tiles of 16 positions taken by 4 warps in turn (warp w: tiles
+    w, w + 4, ...), each warp's online softmax, then the warps' partials and
+    the fresh position (f32 q . kh, weight times vh) merged in that order.
+    Each tensor-core k-step is an exact sum rounded once to f32; the kernel's
+    own rounding inside a product can differ in the last bits."""
+    n, m = q.shape
+    d = m // nhead
+    f32 = torch.float32
+    qh, khh, vhh = (x.view(n, nhead, d) for x in (q, kh, vh))
+    scale = torch.tensor(float(d), dtype=f32, device=q.device).sqrt()
+    neg_inf = torch.tensor(-math.inf, dtype=f32, device=q.device)
+    zero = torch.zeros((), dtype=f32, device=q.device)
+    # q's terms and the fresh position's q . kh: four quarters (d = 16 t + 4
+    # tq + i, fmaf chains over t, i), then (p0 + p1) + (p2 + p3)
+    qsh = _f16_shift(qh.abs().amax(-1))
+    qterms = _f16_terms(qh * _pow2(qsh)[..., None])
+    quarters = [torch.zeros(n, nhead, dtype=f32, device=q.device) for _ in range(4)]
+    for t in range(d // 16):
+        for tq in range(4):
+            for i in range(4):
+                e = 16 * t + 4 * tq + i
+                quarters[tq] = _fma(qh[..., e], khh[..., e], quarters[tq])
+    fdot = (quarters[0] + quarters[1]) + (quarters[2] + quarters[3])
+    s_fresh = torch.where(mask[:, step:step + 1] != 0, fdot / scale, neg_inf)
+
+    ntiles = -(-step // I8_TILE)
+    pad = ntiles * I8_TILE
+    valid = torch.zeros(n, pad, dtype=torch.bool, device=q.device)
+    valid[:, :step] = mask[:, :step] != 0
+
+    def padded(x, fill):  # positions 0 .. step - 1 padded to whole tiles
+        out = x.new_full((n, pad, *x.shape[2:]), fill)
+        out[:, :step] = x[:, :step]
+        return out
+
+    kc = padded(k_buf, 0).view(n, pad, nhead, d).float()
+    vc = padded(v_buf, 0).view(n, pad, nhead, d).float()
+    ks = torch.where(valid, padded(k_scale, 0.0), zero)  # zero-filled where not read
+    vs = torch.where(valid, padded(v_scale, 0.0), zero)
+    parts = []
+    for w in range(I8_WARPS):
+        m_run = torch.full((n, nhead), -math.inf, dtype=f32, device=q.device)
+        l_run = torch.zeros(n, nhead, dtype=f32, device=q.device)
+        acc = [torch.zeros(n, nhead, d, dtype=f32, device=q.device) for _ in range(3)]
+        for j in range(w, ntiles, I8_WARPS):
+            sl = slice(I8_TILE * j, I8_TILE * (j + 1))
+            codes = kc[:, sl].permute(0, 2, 1, 3)  # (n, H, 16, d)
+            cols = []
+            for term in qterms:  # column i: k-step by k-step
+                c = torch.zeros(n, nhead, I8_TILE, dtype=f32, device=q.device)
+                for t in range(d // 16):
+                    ds = slice(16 * t, 16 * (t + 1))
+                    c = (c.double() + (codes[..., ds].double() * term[:, :, None, ds].double())
+                         .sum(-1)).float()
+                cols.append(c)
+            dot = ((cols[2] + cols[1]) + cols[0]) * _pow2(-qsh)[..., None]
+            s = torch.where(valid[:, None, sl], dot * ks[:, None, sl] / scale, neg_inf)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            alpha = torch.where(m_run == -math.inf, zero, torch.exp(m_run - m_new))
+            wt = torch.where(s == -math.inf, zero, torch.exp(s - m_new[..., None]))
+            u = wt[..., :8] + wt[..., 8:]  # lane g: positions g and g + 8, then the butterfly
+            u = u[..., :4] + u[..., 4:]
+            u = u[..., :2] + u[..., 2:]
+            l_run = _fma(l_run, alpha, u[..., 0] + u[..., 1])
+            m_run = m_new
+            va = wt * vs[:, None, sl]
+            vsh = _f16_shift(va.amax(-1))
+            vterms = _f16_terms(va * _pow2(vsh)[..., None])
+            vcodes = vc[:, sl].permute(0, 2, 1, 3)  # (n, H, 16, d)
+            down = _pow2(-vsh)[..., None]
+            acc = [a * alpha[..., None] + _mma_sum(vcodes, term[..., None], 2) * down
+                   for a, term in zip(acc, vterms)]
+        parts.append((m_run, l_run, (acc[2] + acc[1]) + acc[0]))
+    mx = s_fresh
+    for m_w, _, _ in parts:
+        mx = torch.maximum(mx, m_w)
+    num = torch.zeros(n, nhead, d, dtype=f32, device=q.device)
+    den = torch.zeros(n, nhead, dtype=f32, device=q.device)
+    for m_w, l_w, part in parts:
+        f = torch.where(m_w == -math.inf, zero, torch.exp(m_w - mx))
+        num = _fma(f[..., None], part, num)
+        den = _fma(f, l_w, den)
+    ff = torch.where(s_fresh == -math.inf, zero, torch.exp(s_fresh - mx))
+    num = _fma(ff[..., None], vhh, num)
+    den = den + ff
+    out = torch.where(den[..., None] > 0, num / den[..., None], zero)
+    return out.reshape(n, m)
+
+
 def attention_step_plain(q: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, mask: torch.Tensor,
                          cache_k: torch.Tensor, cache_v: torch.Tensor, step: int, layer: int,
                          nhead: int, k_scale: torch.Tensor | None = None,
@@ -236,6 +379,13 @@ def _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_sca
 _fn = None  # the bound C entry point, set on first launch
 
 
+def check_int8_chunked_head(d_head: int) -> None:
+    """Raises unless the int8 chunked body takes heads of width ``d_head``."""
+    if d_head not in I8_CHUNKED_HEADS:
+        raise ValueError(f"the int8 chunked kernels take head widths {I8_CHUNKED_HEADS}, "
+                         f"not {d_head}")
+
+
 def _entry():
     """``sa_attention_step`` with its argument types, bound once."""
     global _fn
@@ -253,6 +403,8 @@ def _launch(chunked: bool, q, kh, vh, mask, cache_k, cache_v, step, layer, nhead
             v_scale) -> torch.Tensor:
     _check(q, kh, vh, mask, cache_k, cache_v, step, layer, nhead, k_scale, v_scale)
     layers, n, u, m = cache_k.shape
+    if chunked and cache_k.dtype == torch.int8:
+        check_int8_chunked_head(m // nhead)
     out = torch.empty(n, m, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ks, vs = (0, 0) if k_scale is None else (k_scale.data_ptr(), v_scale.data_ptr())

@@ -51,7 +51,9 @@ import torch
 
 from .attention_step import (
     _DTYPE_CODES,
+    I8_TILE,
     attend_plain,
+    check_int8_chunked_head,
     check_scales,
     check_step_operands,
     quantize_rows,
@@ -202,6 +204,11 @@ def _launch(chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.
     u, page, fused = _check(q, kh, vh, mask, cache, step, layer, nhead)
     main_k, main_v, act_k, act_v, _ = _operands(cache)
     n, m = q.shape
+    if chunked and main_k.dtype == torch.int8:
+        check_int8_chunked_head(m // nhead)
+        if page < I8_TILE:
+            raise ValueError(f"the int8 chunked kernel takes pages of {I8_TILE} positions or "
+                             f"more, not {page}")
     out = torch.empty(n, m, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ks, vs = ((cache["k_scale"].data_ptr(), cache["v_scale"].data_ptr())

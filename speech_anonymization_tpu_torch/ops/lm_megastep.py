@@ -11,8 +11,9 @@ LayerNorm, with bf16 weights and activations rounded to bf16 before each
 product, f32 accumulation and f32 residuals. int8 caches
 (``ops/attention_step.py``'s contract) take their (L, N, U) ``k_scale``/
 ``v_scale``: each layer quantizes its fresh k/v on writeback and writes their
-scales at ``(layer, :, step)`` in place; cached codes read as ``code *
-scale`` in f32.
+scales at ``(layer, :, step)`` in place; its attention is K4/K6's int8 body,
+scales factored out of the products (heads of 32, 64, 96 or 128 on the
+card).
 
 :func:`lm_megastep` launches the kernel for CUDA tensors (one cooperative
 launch, counted in ``lm_megastep.launches``; the exact-GELU build's, the
@@ -31,7 +32,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .attention_step import _DTYPE_CODES, check_scales, check_step_operands
+from .attention_step import (_DTYPE_CODES, check_int8_chunked_head, check_scales,
+                             check_step_operands)
 from .attention_step_paged import PAGE_LONG, _paged_plain
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default, inside the rsqrt
@@ -218,6 +220,8 @@ def lm_megastep(x0, mask, cache_kv, act_kv, table, act_src, step: int, wall, vec
     if device.type != "cuda":
         raise ValueError(f"lm_megastep runs on cuda or cpu, not {device}")
     layers, d_ffn = _check(*operands, k_scale, v_scale)
+    if cache_kv.dtype == torch.int8:
+        check_int8_chunked_head(x0.shape[1] // nhead)
     x = _launch(*operands, exact_gelu, k_scale, v_scale, layers, d_ffn)
     lm_megastep.launches += 1
     lm_megastep.exact_launches += bool(exact_gelu)

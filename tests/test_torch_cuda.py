@@ -27,6 +27,7 @@ import torch
 
 from speech_anonymization_tpu_torch.models import ASRModel, ConvAutoencoder, TransformerLM
 from speech_anonymization_tpu_torch.ops.attention_step import (
+    attend_int8_tiled,
     attention_step,
     attention_step_chunked,
     attention_step_plain,
@@ -1035,6 +1036,75 @@ def test_k4_k6_int8_bit_identical(cuda, step, nhead):
     assert torch.equal(cache["k_scale"], ks) and torch.equal(cache["v_scale"], vs)
 
 
+@pytest.mark.parametrize("step_at", [0, 15, 16, 63, 64, 223, 447])
+@pytest.mark.parametrize("nhead", [8, 12])
+def test_k4_int8_matches_emulation(cuda, step_at, nhead):
+    """K4 on int8 caches (U 512) against ``attend_int8_tiled``, the plain
+    form of its arithmetic (scales factored out of the products, q and the
+    weights as f16 terms, tiles of 16 in the warps' order), and against the
+    twin, both within 1e-5; code -128 and NaN scales at masked positions and
+    from the step on, pad keys, odd rows' fresh token masked; the fresh codes
+    and scales equal the twin's."""
+    n, u, m = 9, 512, 768
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(n, u, m, step_at, 3 * u + step_at,
+                                                             cuda)
+    p = step_at + 1
+    emulated = attend_int8_tiled(q, kh, vh, mask, ck[1, :, :p], cv[1, :, :p], step_at, nhead,
+                                 ks[1, :, :p], vs[1, :, :p])
+    twin = [x.clone() for x in (ck, cv, ks, vs)]
+    got = attention_step_chunked(q, kh, vh, mask, ck, cv, step_at, 1, nhead, ks, vs)
+    want = attention_step_plain(q, kh, vh, mask, *twin[:2], step_at, 1, nhead, *twin[2:])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, emulated, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for a, b in zip((ck, cv, ks, vs), twin):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [0, 63, 64, 127])
+def test_k4_k6_int8_split_bit_identical(cuda, step, nhead):
+    """int8 K4 (physical) and K6 on the split page-64 layout, on the same
+    logical content, give equal outputs bit for bit and write equal scales
+    (``test_k4_k6_int8_bit_identical`` holds the fused layout to K4)."""
+    rng = np.random.default_rng(step + nhead + 1)
+    g = torch.Generator(device=cuda).manual_seed(step + nhead + 1)
+    n, u, layer = 16, 449, 1
+    cache = make_kv_cache(n, u, 2, nhead, 768 // nhead, torch.int8, device=cuda, paged=True,
+                          fused=False)
+    assert "k" in cache and cache["table"].shape[1] * 64 == cache["k"].shape[2]
+    for t in range(step):
+        cache = beam_reorder_cache(cache, torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda), t)
+    _int8_fill(cache, g)
+    u = cache["k"].shape[2]
+    ck, cv = _physical_of(cache, step, stale=-128)
+    ks, vs = cache["k_scale"].clone(), cache["v_scale"].clone()
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    mask[::3, step] = False
+    q, kh, vh = (torch.from_numpy(rng.standard_normal((n, 768)).astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    paged = attention_step_paged_chunked(q, kh, vh, mask, cache, step, layer, nhead)
+    physical = attention_step_chunked(q, kh, vh, mask, ck, cv, step, layer, nhead, ks, vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(paged).all()
+    assert torch.equal(paged, physical), float((paged - physical).abs().max())
+    assert torch.equal(cache["k_scale"], ks) and torch.equal(cache["v_scale"], vs)
+
+
+def test_int8_chunked_kernels_refuse_other_head_widths(cuda):
+    """The int8 chunked body takes heads of 32, 64, 96 or 128: K4, K6 and K7
+    raise on others (here 48) on the card, where the twins take any width."""
+    n, u, m = 8, 512, 768
+    q, kh, vh, mask, ck, cv, ks, vs = _int8_attention_inputs(n, u, m, 5, 1, cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        attention_step_chunked(q, kh, vh, mask, ck, cv, 5, 0, 16, ks, vs)
+    cache = make_kv_cache(n, 449, 2, 16, 48, torch.int8, device=cuda, paged=True)
+    with pytest.raises(ValueError, match="head widths"):
+        attention_step_paged_chunked(q, kh, vh, mask, cache, 5, 0, 16)
+
+
 def _k7_args(x0, mask, cache, step, wall, vecs, nhead):
     return (x0, mask, cache["kv"], cache["kv_act"], cache["table"], cache["act_src"], step, wall,
             vecs, nhead, False, cache["k_scale"], cache["v_scale"])
@@ -1084,6 +1154,57 @@ def test_k7_int8_protocol_matches_plain_twin(cuda):
         _k7_int8_close(got, want, cache, twin, step)
         parent = torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda)
         cache = beam_reorder_cache(cache, parent, step)
+
+
+# K7 a layer at a time, both fed the kernel's x: chip_smoke.py's K7_LAYER_ATOL
+K7_LAYER_ATOL = 0.02
+
+
+@pytest.mark.parametrize("step", [63, 64, 200])
+def test_k7_int8_layer_at_a_time(cuda, step):
+    """K7 on a fused int8 cache (U 256, a beam history, seeded codes and
+    scales; code -128 and NaN scales where the step may not read) against its
+    twin a layer at a time, both fed the kernel's x: x within K7_LAYER_ATOL,
+    the written codes within one of the twin's, the step's scales within
+    K7_INT8_SCALE_RTOL, every other code and scale equal."""
+    lm = seeded_init_(TransformerLM(**LM_SMALL, device=cuda), 3)
+    wall, vecs = lm.prepare_megastep()
+    layers, m, nhead = LM_SMALL["num_layers"], LM_SMALL["d_model"], LM_SMALL["nhead"]
+    nb = wall.shape[0] // layers
+    rng = np.random.default_rng(step)
+    g = torch.Generator(device=cuda).manual_seed(step)
+    n, u = 16, 256
+    cache = _int8_fused_cache(layers, n, u, m, cuda, g)
+    for t in range(step):
+        cache = beam_reorder_cache(cache, torch.from_numpy(rng.integers(0, 4, (n // 4, 4))).to(cuda), t)
+    _int8_fill(cache, g)
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    hidden = ~mask
+    hidden[:, step:] = True
+    for key in ("k_scale", "v_scale"):
+        cache[key][:, hidden] = float("nan")
+    twin = {k: v.clone() for k, v in cache.items()}
+    x = torch.from_numpy(rng.standard_normal((n, m)).astype(np.float32)).to(cuda)
+    for layer in range(layers):
+        lw, lv = wall[layer * nb:(layer + 1) * nb], vecs[layer:layer + 1]
+
+        def layer_of(c):
+            return {key: c[key][layer:layer + 1] for key in ("kv", "kv_act", "k_scale", "v_scale")
+                    } | {"table": c["table"], "act_src": c["act_src"]}
+
+        got = lm_megastep(*_k7_args(x, mask, layer_of(cache), step, lw, lv, nhead))[0]
+        want = lm_megastep_plain(*_k7_args(x, mask, layer_of(twin), step, lw, lv, nhead))[0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), layer
+        torch.testing.assert_close(got, want, rtol=0, atol=K7_LAYER_ATOL)
+        for key in ("kv", "kv_act"):
+            assert int((cache[key][layer].int() - twin[key][layer].int()).abs().max()) <= 1, key
+        for key in ("k_scale", "v_scale"):
+            a, b = cache[key][layer], twin[key][layer]
+            torch.testing.assert_close(a[:, step], b[:, step], rtol=K7_INT8_SCALE_RTOL, atol=0)
+            assert _same(a[:, :step], b[:, :step]) and _same(a[:, step + 1:], b[:, step + 1:])
+        x = got
 
 
 TRAIN_ASR = dict(d_model=64, nhead=4, num_encoder_layers=2, num_decoder_layers=2, d_ffn=128,
