@@ -47,7 +47,10 @@ failure raises and exits non-zero:
            (``<kernel>_int8``): K2 on D1's and D2's physical int8 caches
            (bit-exact), K3 at D1 (U 72) and D2 (U 256), K5 at D1's paged
            cache (U 96) and D2's page-32 one (U 256), at 8 x 96 and 12 x
-           64; and the chunked int8 modes at D3 (the 30 s shape, U 512): K4
+           64, each timed case also against K3 on the same logical content
+           as a physical cache (outputs equal bit for bit, ``k3_ms``; the
+           entry carries K5's registers and shared memory); and the chunked
+           int8 modes at D3 (the 30 s shape, U 512): K4
            on the physical cache, K6 on the fused page-64 one (simulated
            beam history, ``page_sharing``) at 8 x 96 and 12 x 64, both at
            steps 0, 63, 64 and 447, timed at 223; every int8 cache holds
@@ -1079,6 +1082,28 @@ def _page_sharing(cache: dict, step: int) -> dict:
             "distinct_per_reader": distinct / readers if readers else None}
 
 
+def _k3_on_paged_content(q, kh, vh, mask, cache: dict, step: int, layer: int, nhead: int) -> dict:
+    """K3 on a one-layer physical int8 cache holding the paged cache's
+    logical content (code -128 from the step on; the own-row scales):
+    raises unless its output equals K5's bit for bit; K3's time."""
+    got = attention_step_paged(q, kh, vh, mask, cache, step, layer, nhead)
+    n, u = mask.shape
+    physical = []
+    for logical in _paged_logical(cache, step, layer, kh, vh):
+        c = torch.full((1, n, u, logical.shape[-1]), -128, dtype=torch.int8, device=DEVICE)
+        c[0, :, :step] = logical[:, :step]
+        physical.append(c)
+    scales = [cache[key][layer:layer + 1].clone() for key in ("k_scale", "v_scale")]
+    want = attention_step(q, kh, vh, mask, *physical, step, 0, nhead, *scales)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"int8 K5 and K3 differ on the same content at step {step}, "
+                             f"{nhead} heads: max abs {float((got - want).abs().max())}")
+    return {"k3_bit_identical": True,
+            "k3_ms": cuda_ms(lambda: attention_step(q, kh, vh, mask, *physical, step, 0, nhead,
+                                                    *scales))}
+
+
 def phase_paged_attention(kernel, checks_at, timed_at, gen: torch.Generator, nhead: int = 8) -> dict:
     """K5 (split layout) or K6 (fused) against its plain twin: out within
     rtol/atol 1e-5 and every page and slot (and int8 scale) equal, at each
@@ -1140,7 +1165,13 @@ def phase_paged_attention(kernel, checks_at, timed_at, gen: torch.Generator, nhe
                                                                          attn_mask=live_mask))
             del k_log, v_log
         entry = kernel_entry(name, max_err, ms, plain_ms, flops, nbytes, library_ms)
+        k3_twin = {}
+        if quant and not fused:  # int8 K5 against K3 on the same logical content
+            k3_twin = _k3_on_paged_content(q, kh, vh, mask, cache, step, layer, nhead)
+            entry["registers"] = _whole_row_registers().get("int8 group 8 paged")
+            entry["smem_bytes"] = whole_row_layout(step, d, 1)[2]
         timed[f"{case_shape} {str(dtype)[6:]}"] = {
+            **k3_twin,
             "cache": [list(v.shape) for k, v in cache.items() if k in ("k", "kv")][0],
             "table": list(cache["table"].shape), "step": step,
             "distinct_parents": int(torch.unique(cache["act_src"]).numel()),
@@ -1414,15 +1445,17 @@ def phase_k7_int8(lm: TransformerLM, gen: torch.Generator) -> dict:
     return entry
 
 
-def _k3_registers() -> dict:
-    """Registers of each K3 instantiation (cache type, score lanes a
-    position), from phase_build's -Xptxas -v report."""
+def _whole_row_registers() -> dict:
+    """Registers of each instantiation of the whole-row kernel (cache type,
+    score lanes a position; "paged": int8 K5's, else K3's), from
+    phase_build's -Xptxas -v report."""
     types = {"f": "float32", "13__nv_bfloat16": "bfloat16", "a": "int8"}
     regs, name = {}, None
     for line in BUILD_REPORT.get("attention_step", {}).get("ptxas", "").splitlines():
-        m = re.search(r"Compiling entry function '\S*attn_step_whole_rowI(f|13__nv_bfloat16|a)Li(\d+)E", line)
+        m = re.search(r"Compiling entry function '\S*attn_step_whole_rowI(f|13__nv_bfloat16|a)Li(\d+)ELb([01])E",
+                      line)
         if m:
-            name = f"{types[m[1]]} group {m[2]}"
+            name = f"{types[m[1]]} group {m[2]}" + (" paged" if m[3] == "1" else "")
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and name is not None:
@@ -1447,7 +1480,7 @@ def phase_k3() -> list[dict]:
     registers nvcc reports. Its own generator, so every earlier phase keeps
     its inputs."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
-    regs = _k3_registers()
+    regs = _whole_row_registers()
     rows = []
     for case, n_rows in [(c, K3_N) for c in K3_CASES] + [(c, B3_ROWS) for c in K3_B3_CASES]:
         dtype_name, shape_name, u, step, nhead = case

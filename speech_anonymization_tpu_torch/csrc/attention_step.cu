@@ -10,9 +10,10 @@
 //   K5 `_kernel_paged` and K6 `_kernel_chunked_paged` (launched by
 //     `_attn_step_paged_call` and `_attn_step_paged_fused_call`, paged caches:
 //     the lazy beam reorder).
-// Here they are `attn_step_whole_row` (K3), `attn_step_chunked` instantiated
-// with physical (kPaged = false: K4) or paged (kPaged = true: K6) addressing,
-// and K5's own `attn_step_paged_rows` (design below). Their
+// Here they are `attn_step_whole_row` with physical (kPaged = false: K3) or
+// paged addressing (kPaged = true: K5 on int8 caches), `attn_step_chunked`
+// instantiated with physical (K4) or paged (K6) addressing, and K5's own
+// `attn_step_paged_rows` on f32 and bf16 caches (designs below). Their
 // per-(row, head) device code lives in
 // csrc/attention_step.cuh, which K7 (csrc/lm_megastep.cu) includes too.
 // For row n, head h and layer `layer`:
@@ -181,28 +182,49 @@
 //     K4 and K6 take the same tiles in the same order, so they give the
 //     same bits on the same content; K7 int8 runs the body with its
 //     shared memory inside K7's 50.2 KB.
-//   attn_step_paged_rows (K5) is the whole-row kernel with its position
-//     loops rebuilt, because K3's are bound by load latency, not bytes: a
-//     warp scores one position with d_head / vec of its lanes loading (12
-//     of 32 for bf16 x 96), a few positions' loads in flight. K5's lanes
-//     map to (position, 16-byte vector) in groups of nvec rounded up to 8,
-//     16 or 32, so a warp scores 1-4 positions at once, each group's dot
-//     product summed by shuffles within the group; every thread issues the
-//     loads of 4 positions before using any, in the scores and in the
-//     values. On the card this beat K3's loops at every paged shape (PERF.md
-//     has the measurements), where staging the pages that rows share in shared memory, one
-//     block per page with a merge, and whole pages held in registers lost:
-//     each cut the blocks resident per SM or lengthened a block's chain of
-//     dependent loads.
-//   int8 in K5: a 16-byte vector is 16 codes (d_head 96: 6 vectors, 64:
-//     4), each lane dequantizing with its position's scale as it loads. The
-//     quantizer's amax spans the whole row while a block holds one head, so
-//     in every K5 block warp 0 reads the row's M values of kh and warp 1
-//     those of vh (3 KB each, from L2) and reduce max |x| themselves (K3,
-//     K4 and K6: the row's head-0 item, above): a max is exact, so every
-//     head gets the same scale bit for bit, with no second launch. Each
-//     block writes its head's codes; the row's head-0 block writes the two
-//     scales. K5's score groups are 8 lanes with 6 or 4 live.
+//   attn_step_paged_rows (K5 on f32 and bf16 caches) is the whole-row kernel
+//     with its position loops rebuilt, because K3's first loops were bound
+//     by load latency, not bytes: a warp scored one position with d_head /
+//     vec of its lanes loading (12 of 32 for bf16 x 96), a few positions'
+//     loads in flight. K5's lanes map to (position, 16-byte vector) in groups
+//     of nvec rounded up to 8, 16 or 32, so a warp scores 1-4 positions at
+//     once, each group's dot product summed by shuffles within the group;
+//     every thread issues the loads of 4 positions before using any, in the
+//     scores and in the values. On the card this beat K3's first loops at
+//     every paged shape (PERF.md has the measurements), where staging the
+//     pages that rows share in shared memory, one block per page with a
+//     merge, and whole pages held in registers lost: each cut the blocks
+//     resident per SM or lengthened a block's chain of dependent loads.
+//   K5 on int8 caches is K3's kernel with paged addresses,
+//     attn_step_whole_row<int8_t, 8, true>. Its first build, the loops above
+//     with a dequantization per element, ran at 8-16% of its bound on an
+//     H100: every block re-read the row's kh and vh for the amax, each
+//     element took an integer-to-float conversion and a multiply, 106
+//     registers a thread held 4 blocks an SM, and nothing was staged ahead.
+//     Now, as K3:
+//     - persistent blocks walk the (row, head) items, the cached slices
+//       staged by TMA in a shared-memory ring ahead of use, across items, in
+//       K3's chunks (whole_row_layout): a chunk comes in boxes of at most a
+//       page (two to K3's chunk of 64 at page 32), each from a completed page
+//       at its owner row table[n, p / page] (tmk, tmv: K3's maps over the
+//       main cache's (M bytes / 4, row_pos, L * N)) or from the parent's read
+//       slot, row act_src[n], parity (step + 1) % 2 (tak, tav: the slots as
+//       (M bytes / 4, 2 slot_pos, L * N)); no box reaches past the step;
+//     - the row's head-0 item quantizes every head's fresh k/v into the
+//       merged page and writes the two scales; the other items write nothing
+//       at `step`, and no item reads it;
+//     - codes become floats by K3's byte permute and subtraction, then code *
+//       scale in f32 before the product; every sum in K3's order, so K5 and
+//       K3 give the same bits on the same content;
+//     - each item copies its share of the merged page before its passes:
+//       whole rows (every head's m bytes, whole cache lines) head, head + H,
+//       ... of the parent's active positions, global to global. Copying each
+//       head's slice out of the ring instead (d_head-byte pieces, by threads
+//       or by bulk copies), though the page then crosses L2 once, was slower
+//       on an H100.
+//     It holds 64 registers (8 blocks an SM). On the card it runs at K3's
+//     pace plus the time of the merged page's bytes, which K3 does not move
+//     (PERF.md).
 // Limits checked by the Python wrappers: d_head a multiple of the vector
 // width (4 f32, 8 bf16 or 16 int8 elements) and at most 32 vectors (int8
 // K4/K6: 32, 64, 96 or 128), 16-byte aligned
@@ -243,15 +265,51 @@ struct WholeRowSmem {
   }
 };
 
-// K3: exact two-pass softmax over each (row, head) work item, the block's
-// items (blockIdx.x, + gridDim.x, ...) in turn, their cached slices staged in
-// one shared-memory ring by TMA ahead of use, across items (design in the
+// int8 K5, by thread 0: the TMA boxes of one chunk of an item's head (k,
+// or v with is_v; `row`, the head's first word `x`) from position p0 into
+// shared address dst, completing on the mbarrier at `bar`: `box` positions
+// a box, each within one page, from a completed page at its owner row
+// (tm_main) or from the parent's read slot (tm_slot); none past the step.
+template <typename T>
+__device__ __forceinline__ void paged_boxes(const Args<T>& a, const CUtensorMap* tm_main,
+                                            const CUtensorMap* tm_slot, uint32_t dst, uint32_t bar,
+                                            int row, int x, int p0, int chunk, int box,
+                                            int row_bytes, bool is_v) {
+  const int step = a.step;
+  const int act_start = step & ~((1 << a.page_shift) - 1);
+  const int vo = is_v ? a.v_off : 0;
+  const int boxes = (min(chunk, step - p0) + box - 1) / box;
+  mbar_expect(bar, boxes * box * row_bytes);
+  for (int b = 0; b < boxes; ++b) {
+    const int q = p0 + b * box;
+    if (q < act_start) {
+      const int pg = q >> a.page_shift;
+      const int owner = a.table[static_cast<size_t>(row) * (a.u >> a.page_shift) + pg];
+      tma_3d(dst + b * box * row_bytes, tm_main, bar, x,
+             pg * a.page_pos + vo + (q - (pg << a.page_shift)), a.layer * a.n + owner);
+    } else {
+      tma_3d(dst + b * box * row_bytes, tm_slot, bar, x,
+             ((step + 1) & 1) * a.slot_pos + vo + (q - act_start), a.layer * a.n + a.act_src[row]);
+    }
+  }
+}
+
+// K3 (kPaged = false) and K5 on int8 caches (kPaged = true): exact
+// two-pass softmax over each (row, head) work item, the block's items
+// (blockIdx.x, + gridDim.x, ...) in turn, their cached slices staged in one
+// shared-memory ring by TMA ahead of use, across items (design in the
 // header). kGroup: score lanes a position (nvec rounded up to 8, 16 or 32),
-// as K5's. At most 64 registers, so kK3Blocks blocks fit an SM.
-template <typename T, int kGroup>
+// as K5's. At most 64 registers, so kK3Blocks blocks fit an SM. Paged, the
+// chunks come from the owner rows' main pages (tmk, tmv) and the parent's
+// read slot (tak, tav) in boxes within one page (paged_boxes), and each item
+// copies its share of the merged page, whole rows of the parent's active
+// positions; physical, tak and tav are not read.
+template <typename T, int kGroup, bool kPaged>
 __global__ void __launch_bounds__(kThreads, kK3Blocks)
-    attn_step_whole_row(const Args<T> a, const __grid_constant__ CUtensorMap tmk,
-                        const __grid_constant__ CUtensorMap tmv, int chunk, int slots) {
+    attn_step_whole_row(const __grid_constant__ Args<T> a, const __grid_constant__ CUtensorMap tmk,
+                        const __grid_constant__ CUtensorMap tmv,
+                        const __grid_constant__ CUtensorMap tak,
+                        const __grid_constant__ CUtensorMap tav, int chunk, int slots) {
   constexpr int V = Vec<T>::kN;
   constexpr bool kQuant = Vec<T>::kQuant;
   constexpr int kPer = kThreads / kGroup;  // positions scored at once by the block
@@ -281,25 +339,40 @@ __global__ void __launch_bounds__(kThreads, kK3Blocks)
   const unsigned loads = 2 * nc;              // an item's: k's chunks, then v's
   const unsigned mine = items > blockIdx.x ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const unsigned total = mine * loads;        // the block's loads
+  // paged: the first position of the active page (the parent's positions
+  // act_start .. step - 1 are in its read slot)
+  const int act_start = kPaged ? step & ~((1 << a.page_shift) - 1) : step;
   // chunk c holds positions c * chunk .. in a slot whose first position is
-  // first_pos(c): the last chunk's box ends at step - 1 (it re-reads the
-  // chunk before, or, below `chunk`, arrives with zeros before position 0)
-  const auto first_pos = [&](int c) { return min(c * chunk, step - chunk); };
+  // first_pos(c). Physical, the last chunk's box ends at step - 1 (it
+  // re-reads the chunk before, or, below `chunk`, arrives with zeros before
+  // position 0). Paged, a chunk is aligned and comes in boxes of `box`
+  // positions (the chunk or the page, whichever is shorter), each within one
+  // page: a completed page at its owner row, or the parent's read slot;
+  // boxes past the step are not issued, and the positions at or past the
+  // step in the last one are stale and never used.
+  const auto first_pos = [&](int c) { return kPaged ? c * chunk : min(c * chunk, step - chunk); };
+  const int box = kPaged ? min(chunk, 1 << a.page_shift) : chunk;
 
   // The block's load L (item L / loads of its own; of that item k's chunk
   // j, or v's chunk j - nc, j = L % loads) into slot L % slots, issued by
-  // thread 0: one TMA box of `chunk` positions of the item's head, whatever
-  // the mask says (masked bytes never reach a product), nothing at or past
-  // `step`.
+  // thread 0: TMA boxes of the item's head, whatever the mask says (masked
+  // bytes never reach a product), nothing of the cache at or past `step`.
   const auto issue = [&](unsigned ld) {
     const unsigned item = blockIdx.x + (ld / loads) * gridDim.x;
     const int j = ld % loads;
     const bool is_v = j >= nc;
+    const int p0 = first_pos(is_v ? j - nc : j);
+    const int row = item / nhead;  // unsigned division: see Head
+    const int x = (item % nhead) * (row_bytes / 4);
     const uint32_t bar = bars + 8 * (ld % slots);
-    mbar_expect(bar, slot_bytes);
-    tma_3d(ring + (ld % slots) * slot_bytes, is_v ? &tmv : &tmk, bar,
-           (item % nhead) * (row_bytes / 4), first_pos(is_v ? j - nc : j),
-           a.layer * a.n + static_cast<int>(item / nhead));
+    const uint32_t dst = ring + (ld % slots) * slot_bytes;
+    if constexpr (kPaged) {
+      paged_boxes(a, is_v ? &tmv : &tmk, is_v ? &tav : &tak, dst, bar, row, x, p0, chunk, box,
+                  row_bytes, is_v);
+    } else {
+      mbar_expect(bar, slot_bytes);
+      tma_3d(dst, is_v ? &tmv : &tmk, bar, x, p0, a.layer * a.n + row);
+    }
   };
   // The fresh operands of the block's item n (q, kh, vh: its head's d_head
   // floats of each) into buffer n % 2, completing on its mbarrier, by
@@ -350,8 +423,26 @@ __global__ void __launch_bounds__(kThreads, kK3Blocks)
     const float* fk = fq + a.d_head;
     const float* fv = fk + a.d_head;
 
-    // While the copies fly: the scales, the fresh k/v's writeback, q and the
-    // fresh position's score.
+    // Where this item's head of position `step` goes (no item reads it):
+    // physical, the row's own position; paged, position step - act_start of
+    // the merged page: main page step / page of the row when the step
+    // completes it, else the row's parity slot step % 2.
+    const auto dst_at = [&](bool is_v) -> T* {
+      const size_t hoff = static_cast<size_t>(head) * a.d_head;
+      if constexpr (kPaged) {
+        const int page = 1 << a.page_shift;
+        const bool to_main = step - act_start == page - 1;
+        const size_t at =
+            (to_main ? lrow * a.row_pos + static_cast<size_t>(step >> a.page_shift) * a.page_pos
+                     : (lrow * 2 + (step & 1)) * a.slot_pos) +
+            (step - act_start) + (is_v ? a.v_off : 0);
+        return (to_main ? (is_v ? a.cv : a.ck) : (is_v ? a.av : a.ak)) + at * a.m + hoff;
+      } else {
+        return (is_v ? a.cv : a.ck) + (lrow * a.u + step) * a.m + hoff;
+      }
+    };
+    // While the copies fly: the scales, the fresh k/v's writeback (paged:
+    // and the merged page's copy), q and the fresh position's score.
     if constexpr (kQuant) {
       const float* ks = a.ks + lrow * a.u;
       const float* vs = a.vs + lrow * a.u;
@@ -359,15 +450,36 @@ __global__ void __launch_bounds__(kThreads, kK3Blocks)
         ksc[p] = ks[p];
         vsc[p] = vs[p];
       }
-    }
-    // no item reads position `step`
-    T* kdst = a.ck + (lrow * a.u + step) * a.m + static_cast<size_t>(head) * a.d_head;
-    T* vdst = a.cv + (lrow * a.u + step) * a.m + static_cast<size_t>(head) * a.d_head;
-    if constexpr (kQuant) {
       if (head == 0) {  // the row's quantizer, once a row (by its head-0 item)
         quantize_fresh_row(a.kh + static_cast<size_t>(row) * a.m,
-                           a.vh + static_cast<size_t>(row) * a.m, kdst, vdst,
+                           a.vh + static_cast<size_t>(row) * a.m, dst_at(false), dst_at(true),
                            a.ks + lrow * a.u + step, a.vs + lrow * a.u + step, a.m, red);
+      }
+    }
+    if constexpr (kPaged) {
+      // this item's share of the merged page: the parent's positions
+      // act_start .. step - 1 as whole rows of every head (m contiguous
+      // elements, whole cache lines), rows head, head + nhead, ... of k, then
+      // of v, from the parent's read slot, as bytes, masked ones too
+      const int o = step - act_start;
+      const int row_vecs = a.m * static_cast<int>(sizeof(T)) / 16;
+      const int rows = o > head ? (o - head - 1) / nhead + 1 : 0;
+      const size_t slot =  // the parent's read slot, in rows of m
+          ((static_cast<size_t>(a.layer) * a.n + (rows > 0 ? a.act_src[row] : 0)) * 2 +
+           ((step + 1) & 1)) * a.slot_pos;
+      const size_t back = static_cast<size_t>(o) * a.m + static_cast<size_t>(head) * a.d_head;
+      const auto bytes = [](const T* p) { return reinterpret_cast<const unsigned char*>(p); };
+      const unsigned char* ksrc = bytes(a.ak + slot * a.m);
+      const unsigned char* vsrc = bytes(a.av + (slot + a.v_off) * a.m);
+      unsigned char* kdst = reinterpret_cast<unsigned char*>(dst_at(false) - back);
+      unsigned char* vdst = reinterpret_cast<unsigned char*>(dst_at(true) - back);
+      for (int x = threadIdx.x; x < 2 * rows * row_vecs; x += kThreads) {
+        const bool is_v = x >= rows * row_vecs;
+        const int y = is_v ? x - rows * row_vecs : x;
+        const size_t off = static_cast<size_t>(head + nhead * (y / row_vecs)) * a.m * sizeof(T) +
+                           (y % row_vecs) * 16;
+        *reinterpret_cast<uint4*>((is_v ? vdst : kdst) + off) =
+            *reinterpret_cast<const uint4*>((is_v ? vsrc : ksrc) + off);
       }
     }
     const bool fresh_ok = mrow[step] != 0;
@@ -376,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, kK3Blocks)
       if (warp < 2 && lane < nvec) {
         float x[V];
         load_fresh<T>((warp == 0 ? fk : fv) + lane * V, x);
-        store_vec((warp == 0 ? kdst : vdst) + lane * V, x);
+        store_vec(dst_at(warp == 1) + lane * V, x);
       }
     }
     float qv[V];
@@ -501,11 +613,10 @@ __global__ void __launch_bounds__(kThreads, kK3Blocks)
       for (int i = 0; i < V; ++i) acc[i] = fmaf(s[step], x[i], acc[i]);
     }
     finish<V>(acc, sum, part, g, groups, jv, a.d_head, a.out + qoff);
-
   }
 }
 
-// K5: K3's whole-row exact softmax over the paged cache, with the
+// K5 on f32 and bf16 caches: K3's whole-row exact softmax over the paged cache, with the
 // score pass's lanes mapped to (position, 16-byte vector of d_head) in groups
 // of kGroup lanes (nvec rounded up to 8, 16 or 32), so a warp scores 32 /
 // kGroup positions at once where K3's scores one with d_head / vec lanes,
@@ -514,9 +625,10 @@ __global__ void __launch_bounds__(kThreads, kK3Blocks)
 // shuffles are K3's warp_sum less its additions of zeros), so K5 equals K3
 // bit for bit. Addressing and the merged-page write are Head<T, true>'s, as
 // K6's. Shared memory: u + kWarps + (kThreads / nvec) * d_head floats + u /
-// page owners.
+// page owners. int8 caches take attn_step_whole_row<int8_t, 8, true>.
 template <typename T, int kGroup>
 __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a) {
+  static_assert(!Vec<T>::kQuant, "int8 K5 is attn_step_whole_row<int8_t, kGroup, true>");
   constexpr int V = Vec<T>::kN;
   constexpr int kUnroll = 4;
   constexpr int kPerBlock = kWarps * (32 / kGroup);  // positions scored at once
@@ -536,7 +648,6 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
   const int first = hd.warp * (32 / kGroup) + hd.lane / kGroup;
   for (int p0 = 0; p0 <= step; p0 += kPerBlock * kUnroll) {
     uint4 kr[kUnroll];
-    float ksc[kUnroll];  // int8: the positions' scales
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -544,7 +655,6 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
       ok[u] = p <= step && hd.mrow[p];  // masked positions are never read
       if (live && ok[u] && p != step) {
         kr[u] = *reinterpret_cast<const uint4*>(hd.at(p, false) + j * V);
-        if constexpr (Vec<T>::kQuant) ksc[u] = hd.ksrow[p];
       }
     }
 #pragma unroll
@@ -555,8 +665,6 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
         float kx[V];
         if (p == step) {
           load_fresh<T>(a.kh + hd.qoff + j * V, kx);
-        } else if constexpr (Vec<T>::kQuant) {
-          unpack(kr[u], kx, ksc[u]);
         } else {
           unpack(kr[u], kx);
         }
@@ -594,7 +702,6 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
   if (g < groups) {
     for (int p0 = g; p0 <= step; p0 += groups * kUnroll) {
       uint4 vr[kUnroll];
-      float vsc[kUnroll];  // int8: the positions' scales
       float w[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
@@ -602,7 +709,6 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
         w[u] = p <= step ? s[p] : 0.f;  // 0 where masked: skipped, never read
         if (w[u] != 0.f && p != step) {
           vr[u] = *reinterpret_cast<const uint4*>(hd.at(p, true) + jv * V);
-          if constexpr (Vec<T>::kQuant) vsc[u] = hd.vsrow[p];
         }
       }
 #pragma unroll
@@ -612,8 +718,6 @@ __global__ void __launch_bounds__(kThreads) attn_step_paged_rows(const Args<T> a
           float vx[V];
           if (p == step) {
             load_fresh<T>(a.vh + hd.qoff + jv * V, vx);
-          } else if constexpr (Vec<T>::kQuant) {
-            unpack(vr[u], vx, vsc[u]);
           } else {
             unpack(vr[u], vx);
           }
@@ -727,14 +831,14 @@ int k3_map(CUtensorMap* map, const void* ptr, int layers, int n, int u, int m_by
   return 0;
 }
 
-// K3 (f32, bf16, int8) with the wrapper's ring (chunk, slots) and shared
-// memory `smem`, which must be WholeRowSmem's: as many blocks as fit the
-// card at once (the occupancy of the last `smem` seen is kept), each
-// walking its share of the N * H items.
-template <typename T, int kGroup>
-int launch_k3_as(const Args<T>& a, const CUtensorMap& tmk, const CUtensorMap& tmv, int nhead,
-                 int chunk, int slots, int smem, int device, cudaStream_t stream) {
-  const auto kernel = attn_step_whole_row<T, kGroup>;
+// K3 (f32, bf16, int8) and K5 on int8 caches (kPaged) with the wrapper's
+// ring (chunk, slots) and shared memory `smem`, which must be
+// WholeRowSmem's: as many blocks as fit the card at once (the occupancy of
+// the last `smem` seen is kept), each walking its share of the N * H items.
+template <typename T, int kGroup, bool kPaged>
+int launch_whole_row_as(const Args<T>& a, const CUtensorMap (&maps)[4], int nhead, int chunk,
+                        int slots, int smem, int device, cudaStream_t stream) {
+  const auto kernel = attn_step_whole_row<T, kGroup, kPaged>;
   static int smem_set[kMaxDevices] = {};
   int err = allow_smem(kernel, smem, device, smem_set);
   if (err != 0) return err;
@@ -758,27 +862,45 @@ int launch_k3_as(const Args<T>& a, const CUtensorMap& tmk, const CUtensorMap& tm
                                         ? items
                                         : static_cast<long>(sms[device]) * fit[device]);
   if (grid == 0) return 0;
-  kernel<<<grid, kThreads, smem, stream>>>(a, tmk, tmv, chunk, slots);
+  kernel<<<grid, kThreads, smem, stream>>>(a, maps[0], maps[1], maps[2], maps[3], chunk, slots);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_k3(const Args<T>& a, int layers, int nhead, int chunk, int slots, int smem, int device,
-              cudaStream_t stream) {
+// The maps of K3's caches (k, v; the last two unused) or of K5's paged
+// cache (main k and v: (L, N, row_pos, M); the parity slots of k and v:
+// (L, N, 2 slot_pos, M), for each layout; fused, k's map is v's), then the
+// launch. Paged, a chunk must lie within one page.
+template <typename T, bool kPaged>
+int launch_whole_row(const Args<T>& a, int layers, int nhead, int chunk, int slots, int smem,
+                     int device, cudaStream_t stream) {
   if (chunk <= 0 || slots < (a.step > 0) || device < 0 || device >= kMaxDevices ||
+      (kPaged && chunk % min(chunk, 1 << a.page_shift) != 0) ||
       WholeRowSmem(a.step, a.d_head, sizeof(T), Vec<T>::kQuant, chunk, slots).total != smem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int m_bytes = a.m * static_cast<int>(sizeof(T));
   const int row_bytes = a.d_head * static_cast<int>(sizeof(T));
-  CUtensorMap tmk, tmv;
-  int err = k3_map(&tmk, a.ck, layers, a.n, a.u, m_bytes, row_bytes, chunk);
-  if (err == 0) err = k3_map(&tmv, a.cv, layers, a.n, a.u, m_bytes, row_bytes, chunk);
+  CUtensorMap maps[4];
+  const int rows = kPaged ? a.row_pos : a.u;
+  const int box = kPaged ? min(chunk, 1 << a.page_shift) : chunk;  // positions a TMA box
+  int err = k3_map(&maps[0], a.ck, layers, a.n, rows, m_bytes, row_bytes, box);
+  if (err == 0) err = k3_map(&maps[1], a.cv, layers, a.n, rows, m_bytes, row_bytes, box);
+  if (kPaged) {
+    if (err == 0) err = k3_map(&maps[2], a.ak, layers, a.n, 2 * a.slot_pos, m_bytes, row_bytes, box);
+    if (err == 0) err = k3_map(&maps[3], a.av, layers, a.n, 2 * a.slot_pos, m_bytes, row_bytes, box);
+  } else {
+    maps[2] = maps[0];
+    maps[3] = maps[1];
+  }
   if (err != 0) return err;
   const int nvec = a.d_head / Vec<T>::kN;  // score lanes a position: nvec rounded up to 8, 16 or 32
-  if (nvec <= 8) return launch_k3_as<T, 8>(a, tmk, tmv, nhead, chunk, slots, smem, device, stream);
-  if (nvec <= 16) return launch_k3_as<T, 16>(a, tmk, tmv, nhead, chunk, slots, smem, device, stream);
-  return launch_k3_as<T, 32>(a, tmk, tmv, nhead, chunk, slots, smem, device, stream);
+  if (nvec <= 8) {
+    return launch_whole_row_as<T, 8, kPaged>(a, maps, nhead, chunk, slots, smem, device, stream);
+  }
+  if (nvec <= 16) {
+    return launch_whole_row_as<T, 16, kPaged>(a, maps, nhead, chunk, slots, smem, device, stream);
+  }
+  return launch_whole_row_as<T, 32, kPaged>(a, maps, nhead, chunk, slots, smem, device, stream);
 }
 
 // K4 (kPaged = false) and K6 (kPaged = true), f32, bf16 and int8 (d_head
@@ -841,8 +963,9 @@ Args<T> make_args(const void* q, const void* kh, const void* vh, const void* mas
 template <typename T>
 int launch_paged(const void* q, const void* kh, const void* vh, const void* mask, void* ck,
                  void* cv, void* ak, void* av, const void* table, const void* act_src, void* ks,
-                 void* vs, void* out, int n, int u, int m, int nhead, int step, int layer,
-                 int page, int fused, int chunked, int device, cudaStream_t stream) {
+                 void* vs, void* out, int layers, int n, int u, int m, int nhead, int step,
+                 int layer, int page, int fused, int chunked, int chunk, int slots, int smem,
+                 int device, cudaStream_t stream) {
   Args<T> a = make_args<T>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
   a.ak = static_cast<T*>(ak);
   a.av = static_cast<T*>(av);
@@ -858,10 +981,14 @@ int launch_paged(const void* q, const void* kh, const void* vh, const void* mask
     if (Vec<T>::kQuant && page < kI8Tile) return static_cast<int>(cudaErrorInvalidValue);
     return launch_streamed<T, true>(a, nhead, device, stream);
   }
-  const int nvec = a.d_head / Vec<T>::kN;  // lanes per position: nvec rounded up to 8, 16 or 32
-  if (nvec <= 8) return launch_k5<T, 8>(a, nhead, device, stream);
-  if (nvec <= 16) return launch_k5<T, 16>(a, nhead, device, stream);
-  return launch_k5<T, 32>(a, nhead, device, stream);
+  if constexpr (Vec<T>::kQuant) {
+    return launch_whole_row<T, true>(a, layers, nhead, chunk, slots, smem, device, stream);
+  } else {
+    const int nvec = a.d_head / Vec<T>::kN;  // lanes per position: nvec rounded up to 8, 16 or 32
+    if (nvec <= 8) return launch_k5<T, 8>(a, nhead, device, stream);
+    if (nvec <= 16) return launch_k5<T, 16>(a, nhead, device, stream);
+    return launch_k5<T, 32>(a, nhead, device, stream);
+  }
 }
 
 }  // namespace
@@ -890,54 +1017,61 @@ int sa_attention_step(const void* q, const void* kh, const void* vh, const void*
     const Args<float> a =
         make_args<float>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
     return chunked ? launch_streamed<float, false>(a, nhead, device, s)
-                   : launch_k3<float>(a, layers, nhead, chunk, slots, smem, device, s);
+                   : launch_whole_row<float, false>(a, layers, nhead, chunk, slots, smem, device, s);
   }
   if (dtype == 1) {
     const Args<__nv_bfloat16> a = make_args<__nv_bfloat16>(q, kh, vh, mask, ck, cv, ks, vs, out,
                                                            n, u, m, nhead, step, layer);
     return chunked ? launch_streamed<__nv_bfloat16, false>(a, nhead, device, s)
-                   : launch_k3<__nv_bfloat16>(a, layers, nhead, chunk, slots, smem, device, s);
+                   : launch_whole_row<__nv_bfloat16, false>(a, layers, nhead, chunk, slots, smem, device, s);
   }
   if (dtype == 2) {
     const Args<int8_t> a =
         make_args<int8_t>(q, kh, vh, mask, ck, cv, ks, vs, out, n, u, m, nhead, step, layer);
     return chunked ? launch_streamed<int8_t, false>(a, nhead, device, s)
-                   : launch_k3<int8_t>(a, layers, nhead, chunk, slots, smem, device, s);
+                   : launch_whole_row<int8_t, false>(a, layers, nhead, chunk, slots, smem, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The paged kernels, K5 (chunked = 0) and K6 (chunked = 1). q, kh, vh, out,
 // mask as above; u is the logical cache length and page (a power of two)
-// divides it. Split layout (fused = 0): ck, cv (L, n, u, m) and ak, av
-// (L, n, 2, page, m). Fused layout (fused = 1): ck = cv the (L, n, 2u, m)
-// cache and ak = av the (L, n, 2, 2 page, m) slots. table: (n, u / page)
-// int32; act_src: (n,) int32. Writes out and this layer's merged active page
-// of every row (its parity slot step % 2, or its main page step / page when
-// the page completes). int8 codes (dtype 2, either layout): ks, vs are the
-// (L, n, u) f32 scales by own row and logical position, and the launch
-// writes each row's fresh scales at (layer, row, step); null otherwise.
-// Returns cudaGetLastError(); does not synchronise.
+// divides it. Split layout (fused = 0): ck, cv (layers, n, u, m) and ak, av
+// (layers, n, 2, page, m). Fused layout (fused = 1): ck = cv the (layers, n,
+// 2u, m) cache and ak = av the (layers, n, 2, 2 page, m) slots. table: (n, u
+// / page) int32; act_src: (n,) int32. Writes out and this layer's merged
+// active page of every row (its parity slot step % 2, or its main page step
+// / page when the page completes). int8 codes (dtype 2, either layout): ks,
+// vs are the (L, n, u) f32 scales by own row and logical position, and the
+// launch writes each row's fresh scales at (layer, row, step); null
+// otherwise. int8 K5 is the whole-row kernel with its ring of `slots` slots
+// of `chunk` positions (dividing the page) and `smem` bytes of shared memory
+// (ops/attention_step.py `whole_row_layout`; refused unless they agree);
+// the other launches ignore those three. Returns cudaGetLastError(); does
+// not synchronise.
 int sa_attention_step_paged(const void* q, const void* kh, const void* vh, const void* mask,
                             void* ck, void* cv, void* ak, void* av, const void* table,
-                            const void* act_src, void* ks, void* vs, void* out, int n, int u,
-                            int m, int nhead, int step, int layer, int page, int fused, int dtype,
-                            int chunked, int device, void* stream) {
+                            const void* act_src, void* ks, void* vs, void* out, int layers, int n,
+                            int u, int m, int nhead, int step, int layer, int page, int fused,
+                            int dtype, int chunked, int chunk, int slots, int smem, int device,
+                            void* stream) {
   const int err = use_device(device);
   if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_paged<float>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs, out, n, u,
-                               m, nhead, step, layer, page, fused, chunked, device, s);
+    return launch_paged<float>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs, out,
+                               layers, n, u, m, nhead, step, layer, page, fused, chunked, chunk,
+                               slots, smem, device, s);
   }
   if (dtype == 1) {
     return launch_paged<__nv_bfloat16>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs,
-                                       out, n, u, m, nhead, step, layer, page, fused, chunked,
-                                       device, s);
+                                       out, layers, n, u, m, nhead, step, layer, page, fused,
+                                       chunked, chunk, slots, smem, device, s);
   }
   if (dtype == 2) {
-    return launch_paged<int8_t>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs, out, n,
-                                u, m, nhead, step, layer, page, fused, chunked, device, s);
+    return launch_paged<int8_t>(q, kh, vh, mask, ck, cv, ak, av, table, act_src, ks, vs, out,
+                                layers, n, u, m, nhead, step, layer, page, fused, chunked, chunk,
+                                slots, smem, device, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -49,39 +49,12 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// 16 bytes of cache elements -> floats
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
 // 16 int8 codes -> floats, each dequantized as code * scale in f32 (the
-// int8 contract: no product before the dequantization)
-__device__ __forceinline__ void unpack(const uint4& r, float (&x)[16], float scale) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    x[i] = static_cast<float>(static_cast<int8_t>((w[i / 4] >> (8 * (i % 4))) & 0xffu)) * scale;
-  }
-}
-// The same, K3's way: each code made a float exactly as (2^23 + code + 128)
-// - (2^23 + 128), its bits assembled by a byte permute, where unpack's
-// integer-to-float conversions run at an eighth of the FMA rate (3-8%
-// faster K3 on an H100). K5 keeps unpack; K4, K6 and K7 take the codes to
-// the tensor cores as f16 (attn_step_chunked_i8).
+// int8 contract: no product before the dequantization), by K3 and K5: each
+// code made a float exactly as (2^23 + code + 128) - (2^23 + 128), its bits
+// assembled by a byte permute, where an integer-to-float conversion runs at
+// an eighth of the FMA rate (3-8% faster K3 on an H100). K4, K6 and K7 take
+// the codes to the tensor cores as f16 (attn_step_chunked_i8).
 __device__ __forceinline__ void unpack_codes(const uint4& r, float (&x)[16], float scale) {
   const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u, r.z ^ 0x80808080u,
                          r.w ^ 0x80808080u};
@@ -90,9 +63,6 @@ __device__ __forceinline__ void unpack_codes(const uint4& r, float (&x)[16], flo
     x[i] = (__uint_as_float(__byte_perm(w[i / 4], 0x4B000000u, 0x7540u | (i % 4))) - 8388736.f) *
            scale;
   }
-}
-__device__ __forceinline__ void load_vec(const int8_t* p, float (&x)[16], float scale) {
-  unpack(*reinterpret_cast<const uint4*>(p), x, scale);
 }
 
 // floats -> 16 int8 codes: clip(round-half-even(x * inv), -127, 127), inv = 127 / amax
@@ -325,15 +295,13 @@ struct Head {
   int m, nvec, lane, warp;
   int act_start, page_shift, page_pos;  // paged
   bool live;          // lane < nvec: holds a vector of the head
-  float qv[V], kv[V];  // fresh q and k of this lane's vector
 
   // copy: the paged constructor copies the parent's active positions to the
   // merged page itself (K5); K6's body copies them as its passes read them.
-  // fresh: the constructor writes this head's fresh k/v (int8: quantized with
-  // the row's amax, which every block takes itself); the int8 chunked body
-  // quantizes the row once, in its head-0 block, instead.
-  __device__ Head(const Args<T>& a, const int* owners_, unsigned item, bool copy = true,
-                  bool fresh = true)
+  // f32 and bf16: the constructor writes this head's fresh k/v; on int8
+  // caches it writes nothing at `step`: the chunked body quantizes the row
+  // once, in its head-0 block.
+  __device__ Head(const Args<T>& a, const int* owners_, unsigned item, bool copy = true)
       : owners(owners_), m(a.m) {
     const int nhead = m / a.d_head;
     const int row = item / nhead;
@@ -344,10 +312,8 @@ struct Head {
     live = lane < nvec;
     qoff = static_cast<size_t>(row) * m + hoff;
     mrow = a.mask + static_cast<size_t>(row) * a.u;
-    if (live) {
-      load_fresh<T>(a.q + qoff + lane * V, qv);
-      load_fresh<T>(a.kh + qoff + lane * V, kv);
-    }
+    float kv[V];  // this lane's vector of the fresh k
+    if (!Vec<T>::kQuant && live) load_fresh<T>(a.kh + qoff + lane * V, kv);
     T* kdst;  // where the fresh k/v land
     T* vdst;
     const size_t layer_row0 = static_cast<size_t>(a.layer) * a.n;
@@ -403,48 +369,13 @@ struct Head {
       ksrow = a.ks + (layer_row0 + row) * a.u;
       vsrow = a.vs + (layer_row0 + row) * a.u;
     }
-    if (!fresh) return;
-    if constexpr (Vec<T>::kQuant) {
-      // the quantizer's amax spans the row's M values (every head): warp 0
-      // reduces kh's, warp 1 vh's, each reading the whole row itself, so no
-      // second launch and no cross-block exchange. A max is exact in any
-      // order, so every head's block gets the same scale, bit for bit; the
-      // row's head-0 block writes the scales at (layer, row, step).
-      if (warp < 2) {
-        const float* fresh = warp == 0 ? a.kh : a.vh;
-        const float* src = fresh + static_cast<size_t>(row) * m;
-        float amax = 0.f;
-        for (int i = 4 * lane; i < m; i += 128) {
-          const float4 v = *reinterpret_cast<const float4*>(src + i);
-          amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
-        }
-        amax = fmaxf(warp_max(amax), 1e-6f);
-        if (live) {
-          float x[V];
-          load_fresh<T>(fresh + qoff + lane * V, x);
-          store_codes((warp == 0 ? kdst : vdst) + lane * V, x, 127.f / amax);  // IEEE division
-        }
-        if (lane == 0 && item % nhead == 0) {
-          (warp == 0 ? ksrow : vsrow)[a.step] = amax / 127.f;
-        }
-      }
-    } else {
+    if constexpr (!Vec<T>::kQuant) {
       if (warp == 0 && live) store_vec(kdst + lane * V, kv);
       if (warp == 1 && live) {
         float vv[V];
         load_fresh<T>(a.vh + qoff + lane * V, vv);
         store_vec(vdst + lane * V, vv);
       }
-    }
-  }
-
-  // 16 bytes of position p < step of this row and head, lane vector j, as
-  // floats (int8: dequantized with the position's scale)
-  __device__ __forceinline__ void load_at(int p, bool is_v, int j, float (&x)[V]) const {
-    if constexpr (Vec<T>::kQuant) {
-      load_vec(at(p, is_v) + j * V, x, (is_v ? vsrow : ksrow)[p]);
-    } else {
-      load_vec(at(p, is_v) + j * V, x);
     }
   }
 
@@ -458,37 +389,6 @@ struct Head {
     } else {
       return (is_v ? vmain : kmain) + static_cast<size_t>(p) * m;
     }
-  }
-
-  // Scaled score of position p (called by a whole warp), -inf where masked.
-  __device__ __forceinline__ float score(int p, int step, float scale) const {
-    if (!mrow[p]) return -INFINITY;  // warp-uniform: the cache is not read
-    float dot = 0.f;
-    if (live) {
-      if (p == step) {
-#pragma unroll
-        for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kv[i], dot);
-      } else {
-        float kx[V];
-        load_at(p, false, lane, kx);
-#pragma unroll
-        for (int i = 0; i < V; ++i) dot = fmaf(qv[i], kx[i], dot);
-      }
-    }
-    return warp_sum(dot) / scale;
-  }
-
-  // acc += w * v[p] for this thread's vector j of the head
-  __device__ __forceinline__ void add_value(float (&acc)[V], float w, int p, int step, int j,
-                                            const float* vh) const {
-    float vx[V];
-    if (p == step) {
-      load_fresh<T>(vh + qoff + j * V, vx);
-    } else {
-      load_at(p, true, j, vx);
-    }
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] = fmaf(w, vx[i], acc[i]);
   }
 };
 
@@ -706,7 +606,7 @@ __device__ __forceinline__ void attn_step_chunked_i8(const Args<int8_t>& a, unsi
     if constexpr (!kPaged) __syncthreads();
   }
   load_owners<int8_t, kPaged>(a, owners, item);
-  const Head<int8_t, kPaged> hd(a, owners, item, false, false);
+  const Head<int8_t, kPaged> hd(a, owners, item, false);
   const int act_start = kPaged ? hd.act_start : step;
   const int lane = hd.lane, warp = hd.warp;
   const int g = lane >> 2, tq = lane & 3;  // the mma fragments' group and thread in group

@@ -66,8 +66,9 @@ _MAX_VECS = 32  # 16-byte vectors of one head: one warp lane each
 # Head widths the int8 chunked body (K4, K6 and K7's attention on int8 caches:
 # ``attn_step_chunked_i8``, d_head / 16 tensor-core tiles, an even count) takes.
 I8_CHUNKED_HEADS = (32, 64, 96, 128)
-# K3 (``attn_step_whole_row``) stages each (row, head)'s cached k and v in
-# a ring of shared-memory slots of `chunk` positions: the longest of
+# K3 (``attn_step_whole_row``; int8 K5 is its paged build) stages each (row,
+# head)'s cached k and v in a ring of shared-memory slots of `chunk`
+# positions: the longest of
 # K3_CHUNKS (64 only from step 64 on) with room for two slots in K3_SMEM
 # beside the rest of its shared memory, and as many slots as fit there (none
 # past the launch's loads: none at step 0). K3_SMEM lets eight blocks share an
@@ -83,7 +84,7 @@ def _round16(x: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def whole_row_layout(step: int, d_head: int, itemsize: int) -> tuple[int, int, int]:
-    """(chunk, slots, shared-memory bytes) of K3's launch at ``step``: 128
+    """(chunk, slots, shared-memory bytes) of K3's (and int8 K5's) launch at ``step``: 128
     bytes of slack to align the ring for TMA, its slots, their mbarriers and
     the fresh operands' two, those (two items' q, kh and vh head slices), the
     value groups' partials, the step + 1 scores, int8 the two scale runs of

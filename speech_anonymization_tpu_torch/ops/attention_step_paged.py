@@ -7,9 +7,13 @@ Counterpart of the paged part of
 U streamed, page 64), and ``cached_attention_step_paged_fused`` ->
 ``_attn_step_paged_fused_call`` -> ``_kernel_chunked_paged`` (K6 on the
 fused-KV layout). The CUDA kernels are in ``csrc/attention_step.cu``: K6 is
-K4's ``__global__`` function instantiated with paged addressing, K5 its own
-(``attn_step_paged_rows``, K3's whole-row softmax with lanes mapped to
-positions); its header states the numerics, the bound and the designs.
+K4's ``__global__`` function instantiated with paged addressing; K5 on f32
+and bf16 caches its own (``attn_step_paged_rows``, K3's whole-row softmax
+with lanes mapped to positions), on int8 caches K3's kernel with paged
+addressing (``attn_step_whole_row<int8_t, 8, true>``: the TMA ring, the
+persistent blocks and the layout of :func:`whole_row_layout`, which the
+launch hands over as K3's does); its header states the numerics, the bound
+and the designs.
 
 The paged cache is the lazy beam reorder (``models.transformer``): k/v never
 move between rows. Completed page ``p`` of row ``n`` lives in the main cache
@@ -58,6 +62,7 @@ from .attention_step import (
     check_step_operands,
     quantize_rows,
     uses_chunked,
+    whole_row_layout,
 )
 
 # Page sizes (``attention_step.py:403,407``): whole-row caches page by 32
@@ -194,7 +199,7 @@ def _entry():
         from ..utils import cuda_build
 
         fn = cuda_build.load("attention_step").sa_attention_step_paged
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -209,6 +214,9 @@ def _launch(chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.
         if page < I8_TILE:
             raise ValueError(f"the int8 chunked kernel takes pages of {I8_TILE} positions or "
                              f"more, not {page}")
+    # int8 K5's ring (chunk, slots, shared memory) is K3's; the other launches take none
+    int8_k5 = main_k.dtype == torch.int8 and not chunked
+    ring = whole_row_layout(step, m // nhead, 1) if int8_k5 else (0, 0, 0)
     out = torch.empty(n, m, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ks, vs = ((cache["k_scale"].data_ptr(), cache["v_scale"].data_ptr())
@@ -216,9 +224,8 @@ def _launch(chunked: bool, q, kh, vh, mask, cache, step, layer, nhead) -> torch.
     err = _entry()(q.data_ptr(), kh.data_ptr(), vh.data_ptr(), mask.data_ptr(), main_k.data_ptr(),
                    main_v.data_ptr(), act_k.data_ptr(), act_v.data_ptr(),
                    cache["table"].data_ptr(), cache["act_src"].data_ptr(), ks, vs,
-                   out.data_ptr(), n, u, m,
-                   nhead, step, layer, page, int(fused), _DTYPE_CODES[main_k.dtype], int(chunked),
-                   q.device.index or 0, stream)
+                   out.data_ptr(), main_k.shape[0], n, u, m, nhead, step, layer, page, int(fused),
+                   _DTYPE_CODES[main_k.dtype], int(chunked), *ring, q.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"paged attention_step kernel launch failed: CUDA error {err}")
     return out

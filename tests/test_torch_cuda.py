@@ -32,6 +32,7 @@ from speech_anonymization_tpu_torch.ops.attention_step import (
     attention_step_chunked,
     attention_step_plain,
     cached_attention_step,
+    quantize_rows,
 )
 from speech_anonymization_tpu_torch.models.transformer import beam_reorder_cache, make_kv_cache
 from speech_anonymization_tpu_torch.ops.attention_step_paged import (
@@ -633,19 +634,13 @@ def _split_history(n, u, step, dtype, device, rng, g, nhead, layers=2, m=768):
     return cache
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("nhead", [8, 12])
-@pytest.mark.parametrize("step", [0, 31, 32, 95])
-def test_k3_k5_bit_identical(cuda, step, nhead, dtype):
-    """K3 (physical) and K5 (split page 32) on the same logical content (a
-    beam history's pages and the parent's active slot, as a physical cache;
-    int8 the same own-row scales), U 96, pad keys and every third row's fresh
-    token masked: outputs equal bit for bit at the ASR's 8 x 96 heads and the
-    LM's 12 x 64, before, on and after a page completion, and the fresh k/v
-    (int8: codes and scales) written alike."""
-    rng = np.random.default_rng(step + nhead + dtype.itemsize)
-    g = torch.Generator(device=cuda).manual_seed(step + nhead)
-    n, u, layer = 16, 96, 1
+def _k3_k5_same_bits(cuda, step, nhead, dtype, n, u, seed):
+    """K5 on a split page-32 cache after a beam history and K3 on its
+    logical content: outputs and the written fresh k/v (int8: codes and
+    scales) alike, one launch of each counted."""
+    rng = np.random.default_rng(seed + dtype.itemsize)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    layer = 1
     int8 = dtype == torch.int8
     cache = _split_history(n, u, step, dtype, cuda, rng, g, nhead)
     ck, cv = _physical_of(cache, step, stale=-128 if int8 else float("nan"))
@@ -669,6 +664,110 @@ def test_k3_k5_bit_identical(cuda, step, nhead, dtype):
         assert torch.equal(written[layer, :, step], merged[:, o])
     if int8:
         assert _same(scales[0], cache["k_scale"]) and _same(scales[1], cache["v_scale"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [0, 31, 32, 95])
+def test_k3_k5_bit_identical(cuda, step, nhead, dtype):
+    """K3 (physical) and K5 (split page 32) on the same logical content (a
+    beam history's pages and the parent's active slot, as a physical cache;
+    int8 the same own-row scales), U 96, pad keys and every third row's fresh
+    token masked: outputs equal bit for bit at the ASR's 8 x 96 heads and the
+    LM's 12 x 64, before, on and after a page completion, and the fresh k/v
+    (int8: codes and scales) written alike."""
+    _k3_k5_same_bits(cuda, step, nhead, dtype, 16, 96, step + nhead)
+
+
+@pytest.mark.parametrize("n", [16, 528])
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [0, 31, 32, 95, 125, 255])
+def test_k3_k5_int8_bit_identical_at_d2(cuda, step, nhead, n):
+    """int8 K5 and K3 as above on D2's caches (U 256), from its first step
+    to its last, at 16 rows and at the decode's 528 (8 utterances x beam
+    66: more items than blocks, so each block walks several rows' pages)."""
+    _k3_k5_same_bits(cuda, step, nhead, torch.int8, n, 256, step + nhead + n)
+
+
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [31, 63, 32, 50])
+def test_k5_int8_writes_the_fresh_codes_once(cuda, step, nhead):
+    """int8 K5 at N 528 (U 96), on a merged page whose every byte starts as
+    code -128 and scales NaN: the merged page (main page step // 32 when the
+    step completes it: 31, 63; else slot step % 2: 32, 50) holds the
+    parent's codes below the step, the plain quantizer's codes of kh/vh at
+    the step (bit for bit), and -128 after it; the scales at the step are the
+    quantizer's, every other scale as it was; every other page and slot, of
+    both layers, is untouched."""
+    n, u, layer = 528, 96, 1
+    g = torch.Generator(device=cuda).manual_seed(step + nhead)
+    rng = np.random.default_rng(step + nhead)
+    cache = _split_history(n, u, step, torch.int8, cuda, rng, g, nhead)
+    k_pages, v_pages, k_act, v_act = page_views(cache)
+    p_act, o = divmod(step, 32)
+    for pages, act in ((k_pages, k_act), (v_pages, v_act)):
+        (pages[:, :, p_act] if o == 31 else act[:, :, step % 2]).fill_(-128)
+    for key in ("k_scale", "v_scale"):
+        cache[key][:, :, step] = float("nan")
+    before = {k: v.clone() for k, v in cache.items()}
+    mask = torch.ones(n, u, dtype=torch.bool, device=cuda)
+    q, kh, vh = (torch.randn(n, 768, generator=g, device=cuda) for _ in range(3))
+    attention_step_paged(q, kh, vh, mask, cache, step, layer, nhead)
+    torch.cuda.synchronize()
+    parent = before["act_src"].long()
+    old = page_views(before)
+    for i, (key, fresh) in enumerate((("k", kh), ("v", vh))):
+        codes, scale = quantize_rows(fresh)
+        pages, act = old[i].clone(), old[2 + i].clone()  # what the launch should leave
+        merged = pages[layer, :, p_act] if o == 31 else act[layer, :, step % 2]
+        merged[:, :o] = old[2 + i][layer, parent, (step + 1) % 2, :o]
+        merged[:, o] = codes
+        assert torch.equal(page_views(cache)[i], pages) and torch.equal(page_views(cache)[2 + i], act)
+        want = before[f"{key}_scale"].clone()
+        want[layer, :, step] = scale
+        assert torch.equal(cache[f"{key}_scale"][layer], want[layer])
+        assert _same(cache[f"{key}_scale"], want)
+
+
+@pytest.mark.parametrize("nhead", [8, 12])
+@pytest.mark.parametrize("step", [31, 32, 125])
+def test_k5_int8_bos_only_rows_and_foreign_parents(cuda, step, nhead):
+    """int8 K5 at U 256 on mixed owner tables where every row's active page
+    comes from another row (act_src = row + 1 mod N), rows 1 and 6 with bos
+    as their only valid key (the fresh token masked too), NaN scales at
+    every masked position and from the step on: out within 1e-5 of the
+    twin's (bos-only rows: the bos value exactly weighted 1), every page,
+    slot and scale equal, and K3 on the same logical content equal bit for
+    bit."""
+    n, u, layer = 16, 256, 1
+    g = torch.Generator(device=cuda).manual_seed(step + 3 * nhead)
+    rng = np.random.default_rng(step + 3 * nhead)
+    cache = make_kv_cache(n, u, 2, nhead, 768 // nhead, torch.int8, device=cuda, paged=True)
+    _int8_fill(cache, g)
+    cache["table"] = torch.from_numpy(rng.integers(0, n, (n, u // 32)).astype(np.int32)).to(cuda)
+    cache["act_src"] = ((torch.arange(n, device=cuda) + 1) % n).to(torch.int32)
+    mask = torch.from_numpy(rng.random((n, u)) > 0.2).to(cuda)
+    mask[:, 0] = True
+    mask[[1, 6], 1:] = False
+    hidden = ~mask
+    hidden[:, step:] = True
+    for key in ("k_scale", "v_scale"):
+        cache[key][:, hidden] = float("nan")
+    ck, cv = _physical_of(cache, step, stale=-128)
+    scales = (cache["k_scale"].clone(), cache["v_scale"].clone())
+    twin_cache = {k: v.clone() for k, v in cache.items()}
+    q, kh, vh = (torch.randn(n, 768, generator=g, device=cuda) for _ in range(3))
+    got = attention_step_paged(q, kh, vh, mask, cache, step, layer, nhead)
+    want = attention_step_paged_plain(q, kh, vh, mask, twin_cache, step, layer, nhead)
+    physical = attention_step(q, kh, vh, mask, ck, cv, step, layer, nhead, *scales)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for row in (1, 6):  # the bos value, code times scale, weighted 1
+        assert torch.equal(got[row], cv[layer, row, 0].float() * scales[1][layer, row, 0])
+    for key in cache:
+        assert _same(cache[key], twin_cache[key]), key
+    assert torch.equal(got, physical), float((got - physical).abs().max())
 
 
 # K5's four configurations: (cache dtype, heads, U) of the f32 decodes (D1's U

@@ -518,3 +518,26 @@ def test_int8_chunked_kernel_refuses():
         with pytest.raises(TypeError, match="k_scale"):
             port._check(q, kh, vh, mask, unscaled, 70, 1, H)
     assert port.attention_step_paged_chunked.launches == launches
+
+
+@pytest.mark.parametrize("dtype,chunked", [(torch.int8, False), (torch.float32, False),
+                                           (torch.bfloat16, False), (torch.int8, True)])
+def test_k5_launch_takes_the_layout_rule(monkeypatch, dtype, chunked):
+    """The paged launch hands the C entry the cache's layers and, for int8
+    K5 only, K3's ``whole_row_layout`` ring (which the kernel refuses unless
+    its own layout agrees); f32/bf16 K5 and K6 get none."""
+    rng = np.random.default_rng(8)
+    state = _int8_state(rng, 96, 40) if dtype == torch.int8 else _zero_cache(PAGE32, False, 96)
+    cache = {k: torch.from_numpy(v) if v.dtype != np.float32 or k.endswith("scale")
+             else torch.from_numpy(v).to(dtype) for k, v in state.items()}
+    q = torch.zeros(N, M)
+    mask = torch.ones(N, 96, dtype=torch.bool)
+    calls = []
+    monkeypatch.setattr(port, "_entry", lambda: lambda *args: calls.append(args) or 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("S", (), {"cuda_stream": 0}))
+    port._launch(chunked, q, q, q, mask, cache, 40, 1, H)
+    ring = (0, 0, 0)
+    if dtype == torch.int8 and not chunked:
+        ring = port.whole_row_layout(40, M // H, 1)
+    code = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[dtype]
+    assert calls[0][13:-2] == (L, N, 96, M, H, 40, 1, PAGE32, 0, code, int(chunked), *ring)
