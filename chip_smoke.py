@@ -271,7 +271,34 @@ failure raises and exits non-zero:
            per-layer path; gender_classifier's recon variant through main()
            (configs/gender_classifier_recon.yaml, 1 epoch, the gender phase's
            corpus) on the seeded reference save/ directory: K1 once a batch,
-           its frozen FC-AE's reconstruction 0.0 from load_reference_fcae's.
+           its frozen FC-AE's reconstruction 0.0 from load_reference_fcae's;
+  experiments  the research pipeline through its entry points
+           (speech_anonymization_tpu_torch/scripts/, the counterparts of the JAX
+           package's scripts/) in a temporary work dir at a cut depth
+           (EXP_STAGES: build_corpus at 2 + 1 speakers of each sex, 3
+           utterances each; 1 epoch a stage): round4_sweep ``conf`` for 2
+           epochs (building stage 1, the x-vector evaluator at
+           gender_classifier.yaml's width, and stage 1.5, the tiny utility ASR:
+           d_model 64, 4 heads of 16, physical caches, beam 4), reeval_frontier
+           ``conf``, round4_sweep ``e2e_warm`` at 1 warm epoch + 1 (the second
+           run resuming the first in place), attack_retrain ``conf 0
+           frontier`` for 1 epoch and write_experiments; the launch counts set
+           to 0 right before and read right after: K1, K2 and K3 must launch
+           (K4 is reported), K5-K7 not. Then the sweep's failure exit: a
+           variant whose run raises must end round4_sweep.main with a
+           non-zero SystemExit and no row. Checks: every row finite, the
+           frontier row's ``selected_epoch``, the warm run's checkpoints at
+           epochs 1 and 2 with Noam's steps going on, the rendered table;
+           ``conf``'s checkpoints evaluated again with ``--eval_only`` on the
+           CPU: ACC_external, ACC_external_orig, WER and WER_orig equal to the
+           card's row, Utility_Retention within EXP_UTILITY_ATOL, and utterance
+           by utterance the external classifier's predicted class on both
+           feature sets and both test decodes' tokens equal to the card's conf
+           run's, their scores within EXP_SCORE_ATOL; K1 against its plain
+           version on the pipeline's first fbank frames, K2 and K3 on the
+           inputs of its first decode's step EXP_CAPTURE_STEP and of that
+           decode's last step. Reports each step's wall and the stages'
+           walls.
 
 Then the whole run's wall time (``{"phase": "wall", ...}``), the card's name
 and power limit (nvidia-smi), the kernel table as one JSON object, and last
@@ -293,7 +320,6 @@ import os
 import shutil
 import socket
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -313,6 +339,7 @@ from speech_anonymization_tpu_torch.data.synth import build_corpus  # noqa: E402
 from speech_anonymization_tpu_torch.data.tokenizer import UnigramTokenizer  # noqa: E402
 from speech_anonymization_tpu_torch.decoding import hyps_to_lists  # noqa: E402
 from speech_anonymization_tpu_torch.eval.evaluator import FeatureClassifier  # noqa: E402
+from speech_anonymization_tpu_torch.eval.metrics import AccuracyStats  # noqa: E402
 from speech_anonymization_tpu_torch.models import (  # noqa: E402
     ASRModel,
     ConvAutoencoder,
@@ -362,6 +389,10 @@ from speech_anonymization_tpu_torch.models.transformer import (  # noqa: E402
     make_kv_cache,
 )
 from speech_anonymization_tpu_torch.recipes.asr_bundle import ASRBundle, load_asr_bundle, load_lm  # noqa: E402
+from speech_anonymization_tpu_torch.ops import fbank as fbank_ops  # noqa: E402
+from speech_anonymization_tpu_torch.scripts import attack_retrain, reeval_frontier, round4_sweep  # noqa: E402
+from speech_anonymization_tpu_torch.scripts import repro_gender_row as repro  # noqa: E402
+from speech_anonymization_tpu_torch.scripts import write_experiments  # noqa: E402
 from speech_anonymization_tpu_torch.tools import profile_lm_megastep, sb_layout  # noqa: E402
 from speech_anonymization_tpu_torch.tools.profile_k3 import K3_CASES, N as K3_N, k3_inputs  # noqa: E402
 from speech_anonymization_tpu_torch.parallel import (  # noqa: E402
@@ -3052,18 +3083,27 @@ class Capture:
         setattr(self.module, self.name, self.fn)
 
 
+def _keep_attention(q, kh, vh, mask, k, v, step, layer, nhead, *_):
+    """Copies of a ``cached_attention_step`` call's inputs: layer ``layer``'s cache slice."""
+    return (q.clone(), kh.clone(), vh.clone(), mask.clone(), k[layer:layer + 1].clone(),
+            v[layer:layer + 1].clone(), step, nhead)
+
+
+def _keep_gather(a, src, step, out):
+    """Copies of a ``beam_gather`` call's inputs: layer 0's cache slice."""
+    return a[:1].clone(), src.clone(), step
+
+
 def _asr_decode_captures(rows: int):
     """Captures of the decode's K4 (or K3) and K2 inputs at ASR_CAPTURE_STEP of
     a decode of ``rows`` rows: one layer's cache slice each."""
     attn = Capture(transformer, "cached_attention_step",
                    lambda q, kh, vh, mask, k, v, step, layer, nhead, *_: (
                        q.shape[0] == rows and step == ASR_CAPTURE_STEP and layer == 0),
-                   lambda q, kh, vh, mask, k, v, step, layer, nhead, *_: (
-                       q.clone(), kh.clone(), vh.clone(), mask.clone(), k[layer:layer + 1].clone(),
-                       v[layer:layer + 1].clone(), step, nhead))
+                   _keep_attention)
     gather = Capture(transformer, "beam_gather",
                      lambda a, src, step, out: a.shape[1] == rows and step == ASR_CAPTURE_STEP,
-                     lambda a, src, step, out: (a[:1].clone(), src.clone(), step))
+                     _keep_gather)
     return attn, gather
 
 
@@ -3658,6 +3698,245 @@ def phase_reference(fbank: Fbank, card: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+EXP_STAGES = dict(utts=3, n_train_spk=2, n_test_spk=1, gender_batch=4, gender_epochs=1, asr_epochs=1)
+EXP_CONF_EPOCHS = 2
+EXP_ATTACK = dict(epochs=1, batch_size=4)
+EXP_CAPTURE_STEP = 1  # the first decode's early step whose K2 and K3 inputs are checked, beside its last
+EXP_UTILITY_ATOL = 1e-3  # Utility_Retention, card against the CPU (PERF.md's decode rule)
+EXP_SCORE_ATOL = 1e-3  # the decodes' scores, card against the CPU (tokens identical)
+
+
+class FirstDecodeCapture(Capture):
+    """A :class:`Capture` over the first decode that calls ``module.name``
+    with arguments ``want`` accepts: ``keep``'s copies of the inputs at step
+    ``first`` and at the decode's last step, in ``at["first"]`` and
+    ``at["last"]``. A step below the last one seen begins another decode and
+    ends the capture."""
+
+    def __init__(self, module, name: str, want, keep, step_of, first: int):
+        super().__init__(module, name, want, keep)
+        self.step_of, self.first = step_of, first
+        self.at: dict[str, tuple] = {}
+        self.last_step, self.done = -1, False
+
+    def __enter__(self):
+        def wrapped(*args):
+            if not self.done and self.want(*args):
+                step = self.step_of(*args)
+                if step < self.last_step:
+                    self.done = True
+                else:
+                    self.last_step = step
+                    self.at["first" if step == self.first else "last"] = self.keep(*args)
+            return self.fn(*args)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+
+class _Predicted(AccuracyStats):
+    """AccuracyStats that also keeps each utterance's predicted class."""
+
+    def __init__(self):
+        super().__init__()
+        self.predicted: list[int] = []
+
+    def append(self, log_probs, targets, lengths=None):
+        self.predicted += np.asarray(log_probs).argmax(-1).reshape(-1).tolist()
+        super().append(log_probs, targets, lengths)
+
+
+class EvalRecord:
+    """Wraps the anonymizer recipe's ``main`` and ``EvalMetrics`` and
+    ``ASRBundle._decode_test``: ``runs`` holds, for every ``main`` in call
+    order, its test stage's per-utterance results: the external classifier's
+    predicted class on the clean and on the anonymized features, and each
+    test decode's tokens and scores."""
+
+    def __enter__(self):
+        self.runs, self.decodes = [], []
+        self.main, self.metrics, self.decode = recipe.main, recipe.EvalMetrics, ASRBundle._decode_test
+        record = self
+
+        class Metrics(record.metrics):
+            def __init__(self):
+                super().__init__()
+                self.sex_acc_extern, self.sex_acc_extern_orig = _Predicted(), _Predicted()
+
+        def decode(bundle, feats, lens):
+            out = record.decode(bundle, feats, lens)
+            record.decodes.append({"tokens": hyps_to_lists(out[0], out[1]),
+                                   "scores": torch.as_tensor(out[2]).float().cpu().numpy().ravel()})
+            return out
+
+        def main(argv):
+            record.decodes = []
+            brain = record.main(argv)
+            record.runs.append({"predicted_orig": brain.metrics.sex_acc_extern_orig.predicted,
+                                "predicted_anon": brain.metrics.sex_acc_extern.predicted,
+                                "decodes": record.decodes})
+            return brain
+
+        recipe.main, recipe.EvalMetrics, ASRBundle._decode_test = main, Metrics, decode
+        return self
+
+    def __exit__(self, *exc):
+        recipe.main, recipe.EvalMetrics, ASRBundle._decode_test = self.main, self.metrics, self.decode
+
+
+def _same_test_stage(card: dict, cpu: dict) -> dict:
+    """Two runs' per-utterance test results: the predicted classes and the
+    decodes' tokens equal, the scores within EXP_SCORE_ATOL."""
+    tokens = [d["tokens"] for d in card["decodes"]]
+    report = {"utterances": len(card["predicted_anon"]), "decodes": len(tokens),
+              "decoded_tokens": sum(len(h) for hyps in tokens for h in hyps),
+              "predictions_equal": all(card[k] == cpu[k] for k in ("predicted_orig", "predicted_anon")),
+              "tokens_equal": tokens == [d["tokens"] for d in cpu["decodes"]],
+              "max_score_gap": max((float(np.abs(a["scores"] - b["scores"]).max())
+                                    for a, b in zip(card["decodes"], cpu["decodes"])), default=float("nan")),
+              "score_atol": EXP_SCORE_ATOL}
+    if not (report["utterances"] and report["decoded_tokens"] and report["predictions_equal"]
+            and report["tokens_equal"] and report["max_score_gap"] <= EXP_SCORE_ATOL):
+        raise AssertionError(f"experiments: the CPU's per-utterance test results differ from the card's: {report}")
+    return report
+
+
+def _exp_rows(work: Path, name: str) -> list[dict]:
+    return [json.loads(line) for line in (work / name).read_text().splitlines()]
+
+
+def _exp_checks(work: Path, archive: Path) -> dict:
+    """The pipeline's rows, the warm run's resume and the rendered table."""
+    rows, attacks = _exp_rows(work, "sweep_results.jsonl"), _exp_rows(work, "attack_results.jsonl")
+    got = [(r["variant"], r["epochs"], r["warm_epochs"]) for r in rows]
+    if got != [("conf", EXP_CONF_EPOCHS, 0), ("conf_frontier", EXP_CONF_EPOCHS, 0), ("e2e_warm", 1, 1)]:
+        raise AssertionError(f"experiments: sweep rows {got}")
+    for r in rows + attacks:
+        bad = [k for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)]
+        if bad or r["device"] != DEVICE:
+            raise AssertionError(f"experiments: row {r['variant']} not finite in {bad} or not on {DEVICE}")
+    if "selected_epoch" not in rows[1] or attacks[0]["variant"] != "conf_frontier":
+        raise AssertionError(f"experiments: frontier row {rows[1]}, attack rows {attacks}")
+    ckpts = sorted(Checkpointer(str(work / "anon_e2e_warm_s0" / "save" / "ckpts")).list_checkpoints(),
+                   key=lambda c: c.meta["epoch"])
+    steps = [json.loads((Path(c.path) / "noam_scheduler.ckpt").read_text())["n_steps"] for c in ckpts]
+    if [c.meta["epoch"] for c in ckpts] != [1, 2] or not steps[1] == 2 * steps[0] > 0:
+        raise AssertionError(f"experiments: e2e_warm's checkpoints {[c.meta for c in ckpts]}, Noam steps {steps}")
+    doc = (archive / "EXPERIMENTS.md").read_text()
+    if f"| Ran on (card, power limit; device) | — | {rows[0]['card'] or 'no card'} ({DEVICE}) |" not in doc:
+        raise AssertionError("experiments: the rendered table does not name the card")
+    return {"rows": rows, "attack_rows": attacks, "e2e_warm_noam_steps": steps}
+
+
+def _exp_eval_only_cpu(work: Path, row: dict, card_run: dict) -> dict:
+    """``conf``'s checkpoints evaluated again, ``--eval_only`` on the CPU,
+    against the card's row and its test stage (``card_run``, an
+    :class:`EvalRecord` run): the accuracies and WERs equal, the utility
+    within EXP_UTILITY_ATOL, and utterance by utterance the predicted classes
+    and the decodes' tokens equal, the scores within EXP_SCORE_ATOL."""
+    t0 = time.perf_counter()
+    with EvalRecord() as record:
+        cpu = repro.run_stage2(str(work), "anon_conf_s0", round4_sweep.VARIANTS["conf"]["schedule"],
+                               epochs=EXP_CONF_EPOCHS, eval_only=True, device="cpu")
+    wall = time.perf_counter() - t0
+    equal = {k: cpu[k] == row[k] for k in ("acc_ext_anon", "acc_ext_orig", "wer_anon", "wer_orig")}
+    gap = abs(cpu["utility"] - row["utility"])
+    if not all(equal.values()) or not gap <= EXP_UTILITY_ATOL:
+        raise AssertionError(f"experiments: the CPU's eval-only {cpu} against the card's row {row}")
+    return {"cpu": cpu, "equal": equal, "utility_gap": gap, "utility_atol": EXP_UTILITY_ATOL,
+            "per_utterance": _same_test_stage(card_run, record.runs[0]), "wall_s": wall}
+
+
+def _exp_failure_exit(work: Path, archive: Path) -> dict:
+    """round4_sweep.main with a variant whose run raises: a non-zero exit
+    after the loop, and no row recorded for it."""
+    def fault(*args, **kwargs):
+        raise RuntimeError("injected fault")
+
+    saved = repro.run_stage2
+    repro.run_stage2 = fault
+    try:
+        round4_sweep.main(["baseline", "--device", DEVICE], work=str(work), archive_dir=str(archive),
+                          stages=EXP_STAGES)
+    except SystemExit as e:
+        code = e.code
+    else:
+        code = 0
+    finally:
+        repro.run_stage2 = saved
+    if code in (0, None) or any(r["variant"] == "baseline" for r in _exp_rows(work, "sweep_results.jsonl")):
+        raise AssertionError(f"experiments: a failing variant ended the sweep with {code!r}")
+    return {"exit": str(code).splitlines()[0]}
+
+
+def phase_experiments(card: str) -> dict:
+    """The research pipeline through its entry points on the card (the
+    docstring at the top: ``experiments``). Returns its launches by kernel."""
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="experiments_"))
+    work, archive = tmp / "work", tmp / "archive"
+    kw = dict(work=str(work), archive_dir=str(archive))
+    dev = ["--device", DEVICE]
+    counters = {c.__name__: c for c in (fused_fbank, beam_gather, attention_step, attention_step_chunked,
+                                        attention_step_paged, attention_step_paged_chunked, lm_megastep)}
+    k1_cap = Capture(fbank_ops, "fused_fbank", lambda *a: True,
+                     lambda frames, dft, mel, frag: (frames.clone(), dft, mel, frag))
+    attn_cap = FirstDecodeCapture(transformer, "cached_attention_step", lambda *a: a[7] == 0, _keep_attention,
+                                  lambda *a: a[6], EXP_CAPTURE_STEP)
+    gather_cap = FirstDecodeCapture(transformer, "beam_gather", lambda *a: True, _keep_gather,
+                                    lambda *a: a[2], EXP_CAPTURE_STEP)
+    try:
+        steps = {}
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        with k1_cap, attn_cap, gather_cap, EvalRecord() as record:
+            for name, fn in (
+                    ("conf", lambda: round4_sweep.main(["conf", *dev], stages=EXP_STAGES, epochs=EXP_CONF_EPOCHS,
+                                                       **kw)),
+                    ("reeval_frontier", lambda: reeval_frontier.main(["conf", *dev], **kw)),
+                    ("e2e_warm", lambda: round4_sweep.main(["e2e_warm", *dev], stages=EXP_STAGES, epochs=1,
+                                                           warm_epochs=1, **kw)),
+                    ("attack", lambda: attack_retrain.main(["conf", "0", "frontier", *dev], **EXP_ATTACK, **kw)),
+                    ("write_experiments", lambda: write_experiments.main([], **kw))):
+                t0 = time.perf_counter()
+                if fn() != 0:
+                    raise AssertionError(f"experiments: {name} did not return 0")
+                torch.cuda.synchronize()
+                steps[name] = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        attn = "attention_step_chunked" if launches["attention_step_chunked"] else "attention_step"
+        off = [k for k in ("attention_step_paged", "attention_step_paged_chunked", "lm_megastep") if launches[k]]
+        if off or not (launches["fused_fbank"] and launches["beam_gather"] and launches["attention_step"]):
+            raise AssertionError(f"experiments: the pipeline launched {launches}")
+        if k1_cap.args is None or len(attn_cap.at) != 2 or len(gather_cap.at) != 2:
+            raise AssertionError("experiments: the pipeline's kernel inputs were not captured")
+        stage_walls = {stage: json.loads((work / stage / "repro_stats.json").read_text())["wall_s"]
+                       for stage in ("gender", "asr")}
+        checks = _exp_checks(work, archive)
+        checks["failure_exit"] = _exp_failure_exit(work, archive)
+        checks["eval_only_cpu"] = _exp_eval_only_cpu(work, checks["rows"][0], record.runs[0])
+        frames, dft, mel, frag = k1_cap.args
+        got, want = fused_fbank(frames, dft, mel, frag), mel_power_plain(frames, dft, mel)
+        k1_err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=K1_RTOL, atol=K1_ATOL):
+            raise AssertionError(f"experiments: K1 disagrees with its plain twin: max abs {k1_err}")
+        checks["k1_check"] = {"rows": frames.numel() // frames.shape[-1], "max_abs_err": k1_err,
+                              "rtol": K1_RTOL, "atol": K1_ATOL}
+        checks["attention_checks"] = [_check_captured_attention(attn_cap.at[k]) for k in ("first", "last")]
+        k2_checks: list = []
+        k2_err = max(_check_k2(a, src, (step,), "experiments decode", k2_checks)
+                     for a, src, step in (gather_cap.at[k] for k in ("first", "last")))
+        checks["k2_check"] = {"cache": list(gather_cap.at["last"][0].shape), "max_abs_err": k2_err,
+                              "checks": k2_checks}
+        emit({"phase": "experiments", "card": card, "stages": EXP_STAGES, "step_walls_s": steps,
+              "stage_walls_s": stage_walls, "attention_kernel": attn, **checks, "launches": launches,
+              "seconds": time.perf_counter() - t_phase})
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU", file=sys.stderr)
@@ -3666,9 +3945,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip()
+    card = cuda_build.card_name()
 
     phase_build()
     rng = np.random.default_rng(SEED)
@@ -3700,6 +3977,7 @@ def main() -> int:
     gender_launches = phase_gender(card)
     asr_launches = phase_asr_lm(card)
     ref_launches = phase_reference(fbank, card)
+    exp_launches = phase_experiments(card)
     k1["launches"] += (recipe_launches["fused_fbank"] + main_launches["fused_fbank"]
                        + gender_launches["fused_fbank"])
     k1["launches_by_path"]["recipe"] = recipe_launches["fused_fbank"]
@@ -3718,11 +3996,11 @@ def main() -> int:
             entry.setdefault("launches_by_path", {"decode": entry["launches"]})["asr_train"] = \
                 asr_launches[entry["name"]]
             entry["launches"] += asr_launches[entry["name"]]
-    for entry in (k1, *decode_kernels):  # the reference checkpoints' decode and recon run
-        if ref_launches.get(entry["name"]):
-            entry.setdefault("launches_by_path", {"decode": entry["launches"]})["reference"] = \
-                ref_launches[entry["name"]]
-            entry["launches"] += ref_launches[entry["name"]]
+    for entry in (k1, *decode_kernels):  # the reference checkpoints' decode and recon run; the pipeline
+        for path, counts in (("reference", ref_launches), ("experiments", exp_launches)):
+            if counts.get(entry["name"]):
+                entry.setdefault("launches_by_path", {"decode": entry["launches"]})[path] = counts[entry["name"]]
+                entry["launches"] += counts[entry["name"]]
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -12,7 +12,8 @@ under CHECKOUT (default: the checkout that holds this file) on inputs this
 script makes, so that two commits compare on the same inputs in one call:
 unpack the other one with ``git archive <commit> | tar -x -C build/parent``
 and run, in turns, ``--root build/parent``, then without ``--root``, and so
-on. Shape D3 (8 utterances of 30 s at beam 66: N 528, U 512, 6 layers, M
+on (CHECKOUT's ``utils/cuda_build.py`` must have ``card_name``). Shape D3
+(8 utterances of 30 s at beam 66: N 528, U 512, 6 layers, M
 768, layer 3), at the ASR's 8 x 96 heads and the LM's 12 x 64, int8, f32 and
 bf16 caches, at steps 63, 223 and 447 (the first page's last step, the mean
 live step of a 448-step decode, the last step). Two histories:
@@ -42,7 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -318,9 +318,7 @@ def main(argv: list[str]) -> int:
     pkg = {"transformer": transformer, "paged": attention_step_paged,
            "attention_step": attention_step, "ASRModel": ASRModel, "ASRBundle": ASRBundle,
            "seeded_init_": seeded_init_}
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
+    card = cuda_build.card_name()
     report = cuda_build.build(["attention_step"])["attention_step"]["ptxas"]
     kernels = parse_ptxas(report)
     design_int8 = "chunked_i8_smem" in (root / "speech_anonymization_tpu_torch" / "csrc" /

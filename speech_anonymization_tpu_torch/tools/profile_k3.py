@@ -9,7 +9,8 @@ package under CHECKOUT (default: the checkout that holds this file) on inputs
 this script makes, so that two commits compare on the same inputs in one
 call: unpack the other one with ``git archive <commit> | tar -x -C
 build/parent`` and run, in turns, ``--root build/parent``, then without
-``--root``, and so on. The cases (``K3_CASES``) are the decode's whole-row
+``--root``, and so on (CHECKOUT's ``utils/cuda_build.py`` must have
+``card_name``). The cases (``K3_CASES``) are the decode's whole-row
 physical shapes, N 528 (8 utterances x beam 66), 6 layers, M 768, layer 3:
 f32 at D1's U 72, step 31; bf16 and int8 at D1's U 72, step 31, and D2's U
 256, step 125 (the mean live steps of a 64- and a 252-step decode); each at
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -102,12 +102,11 @@ def main(argv: list[str]) -> int:
         print("profile_k3: CUDA is not available", file=sys.stderr)
         return 1
     from speech_anonymization_tpu_torch.ops import attention_step as k3
+    from speech_anonymization_tpu_torch.utils import cuda_build
 
     if not str(Path(k3.__file__).resolve()).startswith(str(root)):
         raise RuntimeError(f"imported {k3.__file__}, not the package under {root}")
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
+    card = cuda_build.card_name()
     gen = torch.Generator(device="cuda").manual_seed(0)
     for case in K3_CASES:
         q, kh, vh, mask, ck, cv, ks, vs = k3_inputs(case, gen)

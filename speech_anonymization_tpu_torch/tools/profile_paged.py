@@ -11,7 +11,8 @@ Times ``attention_step_paged`` (K5) of the package under CHECKOUT (default:
 the checkout that holds this file) on inputs this script makes, so that two
 commits compare on the same inputs in one call: unpack the other one with
 ``git archive <commit> | tar -x -C build/parent`` and run, in turns,
-``--root build/parent``, then without ``--root``, and so on. The cases are
+``--root build/parent``, then without ``--root``, and so on (CHECKOUT's
+``utils/cuda_build.py`` must have ``card_name``). The cases are
 the split page-32 caches K5 serves: N 528 (8 utterances x beam 66), 6
 layers, M 768, layer 3, D1 (U 96, step 31) and D2 (U 256, step 125: the mean
 live steps of a 64- and a 252-step decode), at the ASR's 8 x 96 heads and
@@ -46,7 +47,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -233,9 +233,7 @@ def main(argv: list[str]) -> int:
     pkg = {"transformer": transformer, "paged": attention_step_paged,
            "attention_step": attention_step, "ASRModel": ASRModel, "ASRBundle": ASRBundle,
            "seeded_init_": seeded_init_}
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
+    card = cuda_build.card_name()
     kernels = pc.parse_ptxas(cuda_build.build(["attention_step"])["attention_step"]["ptxas"])
     k3_int8 = "paged_boxes" in (root / "speech_anonymization_tpu_torch" / "csrc" /
                                 "attention_step.cu").read_text()

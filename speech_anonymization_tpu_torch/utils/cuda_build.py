@@ -48,6 +48,18 @@ def nvcc() -> str:
     return found
 
 
+def card_name(device: str = "cuda") -> str | None:
+    """The card's ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, for the
+    card of ``device`` (``cuda`` or ``cuda:<index>``); None for a CPU device.
+    Every time or rate the port reports is written beside this line."""
+    if not str(device).startswith("cuda"):
+        return None
+    index = str(device).partition(":")[2] or "0"
+    return subprocess.run(["nvidia-smi", "-i", index, "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
 def _flags(defines: tuple[str, ...]) -> list[str]:
     return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
 

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX, PyYAML nor the JAX package."""
+"""The port stands alone: it imports neither JAX, PyYAML, the JAX package nor the
+JAX package's ``scripts/``."""
 
 import re
 import subprocess
@@ -53,10 +54,15 @@ def test_import_pulls_in_no_jax():
         "speech_anonymization_tpu_torch.recipes.lm_train, speech_anonymization_tpu_torch.utils.sb_compat, "
         "speech_anonymization_tpu_torch.utils.reference_ckpts, speech_anonymization_tpu_torch.utils.port_weights, "
         "speech_anonymization_tpu_torch.tools.sb_layout, speech_anonymization_tpu_torch.parallel, "
-        "speech_anonymization_tpu_torch.parallel.mesh, speech_anonymization_tpu_torch.parallel.sharding_rules\n"
+        "speech_anonymization_tpu_torch.parallel.mesh, speech_anonymization_tpu_torch.parallel.sharding_rules, "
+        "speech_anonymization_tpu_torch.scripts, speech_anonymization_tpu_torch.scripts.archive_repro, "
+        "speech_anonymization_tpu_torch.scripts.repro_gender_row, speech_anonymization_tpu_torch.scripts.round4_sweep, "
+        "speech_anonymization_tpu_torch.scripts.reeval_frontier, speech_anonymization_tpu_torch.scripts.attack_retrain, "
+        "speech_anonymization_tpu_torch.scripts.vocoder_ab, speech_anonymization_tpu_torch.scripts.write_experiments\n"
         "from speech_anonymization_tpu_torch.recipes.anonymizer import main, dataio_prepare, make_loaders\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'speech_anonymization_tpu') "
-        "if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'msgpack', 'yaml', 'speech_anonymization_tpu', 'scripts', "
+        "'archive_repro', 'repro_gender_row', 'round4_sweep', 'reeval_frontier', 'attack_retrain', 'vocoder_ab', "
+        "'write_experiments') if m in sys.modules]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
