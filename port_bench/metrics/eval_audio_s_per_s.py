@@ -1,0 +1,4 @@
+"""Audio seconds scored by the test-stage evaluation per wall second: the
+audio of every batch over the window's start to the last completion."""
+
+from port_bench.readers import audio_rate as read  # noqa: F401
