@@ -14,6 +14,11 @@ a device value back, so the host only enqueues work.
     expansion;
   * after the loop, the best finished hypothesis is returned, or the best
     alive one (its full total, normalized by max_steps + 1) if none finished.
+
+Spans (``utils/profiler.py``) mark each step and its five parts:
+``decode.decoder``, ``decode.lm``, ``decode.ctc`` (with device events: the
+scoring, and inside ``decode.reorder`` the advance of the chosen prefixes'
+state), ``decode.topk`` and ``decode.reorder``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .ctc_prefix import (
     mask_ctc_log_probs,
     pad_ctc_frames,
 )
+from ..utils.profiler import reserve, span
 from .topk import fast_top_k_counted
 
 NEG_INF = -1e30
@@ -96,54 +102,63 @@ def beam_search(att_cached: tuple, enc_out: torch.Tensor, enc_lens: torch.Tensor
     att_w = 1.0 - cfg.ctc_weight if use_ctc else 1.0
     att_state = att_cached[0](b * k, u_max)
     lm_state = lm_cached[0](b * k, u_max) if use_lm else None
+    if use_ctc:
+        reserve(2 * max_steps)  # the CTC spans' events, made ready outside the steps
 
     for step in range(max_steps):
-        prev_token = tokens.view(b * k, u_max)[:, step]  # last committed
-        att_logits, att_state = att_cached[1](att_state, prev_token, step)
-        scores_step = att_w * torch.log_softmax(att_logits / cfg.temperature, dim=-1)
-        if use_lm:
-            lm_logits, lm_state = lm_cached[1](lm_state, prev_token, step)
-            scores_step = scores_step + cfg.lm_weight * torch.log_softmax(
-                lm_logits / cfg.temperature_lm, dim=-1)
-        v = scores_step.shape[-1]
-        additive = scores_step.view(b, k, v)
-        total = acc[:, :, None] + additive
-        if use_ctc:
-            psi = ctc_score_candidates_prepared(prep, ctc_state, cfg.eos_index, cfg.blank_index)
-            total = total + cfg.ctc_weight * psi.view(b, k, v)
+        with span("decode.step"):
+            prev_token = tokens.view(b * k, u_max)[:, step]  # last committed
+            with span("decode.decoder"):
+                att_logits, att_state = att_cached[1](att_state, prev_token, step)
+                scores_step = att_w * torch.log_softmax(att_logits / cfg.temperature, dim=-1)
+            if use_lm:
+                with span("decode.lm"):
+                    lm_logits, lm_state = lm_cached[1](lm_state, prev_token, step)
+                    scores_step = scores_step + cfg.lm_weight * torch.log_softmax(
+                        lm_logits / cfg.temperature_lm, dim=-1)
+            v = scores_step.shape[-1]
+            additive = scores_step.view(b, k, v)
+            total = acc[:, :, None] + additive
+            if use_ctc:
+                with span("decode.ctc", device=True):
+                    psi = ctc_score_candidates_prepared(prep, ctc_state, cfg.eos_index, cfg.blank_index)
+                    total = total + cfg.ctc_weight * psi.view(b, k, v)
 
-        # finished pool from the eos column; the reference normalizes by the
-        # token count including the eos step, step + 1
-        norm = float(step + 1) if cfg.length_normalization else 1.0
-        eos_scores = total[:, :, cfg.eos_index] / norm
-        if step < cfg.min_decode_steps:
-            eos_scores = torch.full_like(eos_scores, NEG_INF)
-        best_eos = torch.argmax(eos_scores, dim=1)
-        best_eos_score = eos_scores[items, best_eos]
-        improved = best_eos_score > fin_score
-        fin_tokens = torch.where(improved[:, None], tokens[items, best_eos], fin_tokens)
-        fin_len = torch.where(improved, step, fin_len)
-        fin_score = torch.where(improved, best_eos_score, fin_score)
+            with span("decode.topk"):
+                # finished pool from the eos column; the reference normalizes by
+                # the token count including the eos step, step + 1
+                norm = float(step + 1) if cfg.length_normalization else 1.0
+                eos_scores = total[:, :, cfg.eos_index] / norm
+                if step < cfg.min_decode_steps:
+                    eos_scores = torch.full_like(eos_scores, NEG_INF)
+                best_eos = torch.argmax(eos_scores, dim=1)
+                best_eos_score = eos_scores[items, best_eos]
+                improved = best_eos_score > fin_score
+                fin_tokens = torch.where(improved[:, None], tokens[items, best_eos], fin_tokens)
+                fin_len = torch.where(improved, step, fin_len)
+                fin_score = torch.where(improved, best_eos_score, fin_score)
 
-        # alive expansion: eos masked, exact top-k over K*V
-        alive = total.clone()
-        alive[:, :, cfg.eos_index] = NEG_INF
-        top_val, top_idx, fell_back = fast_top_k_counted(alive.view(b, k * v), k)
-        n_fallback = n_fallback + fell_back
-        parent = torch.div(top_idx, v, rounding_mode="floor")
-        token = top_idx % v
-        best_total = top_val[:, 0]  # full score of the best alive beam, for the fallback
+                # alive expansion: eos masked, exact top-k over K*V
+                alive = total.clone()
+                alive[:, :, cfg.eos_index] = NEG_INF
+                top_val, top_idx, fell_back = fast_top_k_counted(alive.view(b, k * v), k)
+                n_fallback = n_fallback + fell_back
+                parent = torch.div(top_idx, v, rounding_mode="floor")
+                token = top_idx % v
+                best_total = top_val[:, 0]  # full score of the best alive beam, for the fallback
 
-        tokens = torch.gather(tokens, 1, parent[:, :, None].expand(b, k, u_max))
-        tokens[:, :, step + 1] = token
-        acc = torch.gather(acc, 1, parent) + torch.gather(additive.reshape(b, k * v), 1, top_idx)
-        if use_ctc:
-            flat_parent = (parent + items[:, None] * k).view(-1)
-            gathered = CTCPrefixState(*(s[flat_parent] for s in ctc_state))
-            ctc_state = ctc_advance_state_prepared(prep, gathered, token.view(-1), cfg.blank_index)
-        att_state = att_cached[2](att_state, parent, step)
-        if use_lm:
-            lm_state = lm_cached[2](lm_state, parent, step)
+            with span("decode.reorder"):
+                tokens = torch.gather(tokens, 1, parent[:, :, None].expand(b, k, u_max))
+                tokens[:, :, step + 1] = token
+                acc = torch.gather(acc, 1, parent) + torch.gather(additive.reshape(b, k * v), 1, top_idx)
+                if use_ctc:
+                    flat_parent = (parent + items[:, None] * k).view(-1)
+                    gathered = CTCPrefixState(*(s[flat_parent] for s in ctc_state))
+                    with span("decode.ctc", device=True):
+                        ctc_state = ctc_advance_state_prepared(prep, gathered, token.view(-1), cfg.blank_index)
+                att_state = att_cached[2](att_state, parent, step)
+                if use_lm:
+                    lm_state = lm_cached[2](lm_state, parent, step)
 
     norm = float(max_steps + 1) if cfg.length_normalization else 1.0
     none_finished = fin_score <= NEG_INF / 2

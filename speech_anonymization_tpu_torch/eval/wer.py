@@ -1,4 +1,4 @@
-"""Word-error-rate metric with full alignment reports (numpy only).
+"""Word-error-rate metric with full alignment reports (numpy; ``append`` is a span).
 
 The port's own copy of ``speech_anonymization_tpu/eval/wer.py``.
 
@@ -14,6 +14,8 @@ ref/ops/hyp triples with ``<eps>`` gaps.
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.profiler import span
 
 EPS_TOKEN = "<eps>"
 
@@ -60,14 +62,15 @@ class ErrorRateStats:
 
     def append(self, ids, predicted, targets):
         """ids: list[str]; predicted/targets: list[list[str]] word lists."""
-        for utt_id, hyp, ref in zip(ids, predicted, targets):
-            hyp = [w for w in hyp if w]
-            ref = [w for w in ref if w]
-            ni, nd, ns, ali = edit_distance_details(ref, hyp)
-            self.utts.append(
-                {"id": utt_id, "ref": ref, "hyp": hyp, "ins": ni, "del": nd,
-                 "sub": ns, "alignment": ali}
-            )
+        with span("eval.wer"):
+            for utt_id, hyp, ref in zip(ids, predicted, targets):
+                hyp = [w for w in hyp if w]
+                ref = [w for w in ref if w]
+                ni, nd, ns, ali = edit_distance_details(ref, hyp)
+                self.utts.append(
+                    {"id": utt_id, "ref": ref, "hyp": hyp, "ins": ni, "del": nd,
+                     "sub": ns, "alignment": ali}
+                )
 
     def summarize(self, field: str | None = None):
         total_ref = sum(len(u["ref"]) for u in self.utts)

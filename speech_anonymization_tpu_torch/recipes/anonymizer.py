@@ -95,6 +95,7 @@ from ..train.schedulers import NoamScheduler
 from ..train.state import TrainState, adam_like_reference, kept_step
 from ..utils.convert import (anonymizer_batch_stats, anonymizer_state_dict, anonymizer_variables,
                              normalizer_state, normalizer_tree)
+from ..utils.profiler import span
 from .asr_bundle import ASRBundle, load_asr_bundle
 
 # (recon, sex, utility, confusion): the recipe's defaults for evaluation
@@ -180,10 +181,11 @@ def score_batch(metrics: EvalMetrics, sex_lp: torch.Tensor, recon: torch.Tensor,
     labels_np = rows(labels)
     metrics.sex_acc.append(rows(sex_lp), labels_np)
     if external_classifier is not None:
-        lp_orig, _, _ = external_classifier.classify_feats(clean)
-        metrics.sex_acc_extern_orig.append(rows(lp_orig), labels_np)
-        lp_recon, _, _ = external_classifier.classify_feats(recon)
-        metrics.sex_acc_extern.append(rows(lp_recon), labels_np)
+        with span("eval.xvector"):
+            lp_orig, _, _ = external_classifier.classify_feats(clean)
+            metrics.sex_acc_extern_orig.append(rows(lp_orig), labels_np)
+            lp_recon, _, _ = external_classifier.classify_feats(recon)
+            metrics.sex_acc_extern.append(rows(lp_recon), labels_np)
     if asr_bundle is not None:
         asr_bundle.eval_batch(metrics, ids, words, recon, clean, lens, stage, mesh)
     else:
@@ -205,10 +207,12 @@ def evaluate_batch(model: ConvAutoencoder, fbank: Fbank, normalizer: InputNormal
     ``stage == "test"`` the WER of both decodes against ``words`` (one
     reference string per utterance, keyed by ``ids``).
     """
-    loss, sex_lp, recon, clean = eval_step(model, fbank, normalizer, norm_state, wavs, lens,
-                                           labels, weights, epoch)
-    score_batch(metrics, sex_lp, recon, clean, labels, lens, external_classifier, asr_bundle,
-                ids, words, stage)
+    with span("eval.batch"):
+        with span("eval.anonymize"):
+            loss, sex_lp, recon, clean = eval_step(model, fbank, normalizer, norm_state, wavs, lens,
+                                                   labels, weights, epoch)
+        score_batch(metrics, sex_lp, recon, clean, labels, lens, external_classifier, asr_bundle,
+                    ids, words, stage)
     return loss
 
 
@@ -390,17 +394,22 @@ class AnonymizerTrainer:
         """One micro-batch: gradients into the accumulation buffer; at the
         count, the ``train_mode`` update (``generator``, ``sex_classifier`` or
         ``all``) at ``lr``. -> the loss terms, ``loss`` and ``stepped``."""
-        batch = tuple(x.to(self.device) for x in batch)
-        self.model.train()
-        recon_loss, sex_loss, utility, confusion, _, _, _, new_norm = self._loss_terms(
-            batch, epoch, True, draws)
-        loss = self._total(recon_loss, sex_loss, utility, confusion, weights)
-        grads, terms = data_parallel_grads(loss, (recon_loss, sex_loss, utility, confusion, loss), self.params,
-                                           self.mesh)
-        self.state.norm_state = new_norm
-        stepped = self.state.accumulate(grads, self.grad_accum)
-        if stepped:
-            self._apply(terms[4], lr, train_mode)
+        with span("train.micro_batch"):
+            batch = tuple(x.to(self.device) for x in batch)
+            self.model.train()
+            with span("train.forward"):
+                recon_loss, sex_loss, utility, confusion, _, _, _, new_norm = self._loss_terms(
+                    batch, epoch, True, draws)
+                loss = self._total(recon_loss, sex_loss, utility, confusion, weights)
+            with span("train.backward"):
+                grads, terms = data_parallel_grads(loss, (recon_loss, sex_loss, utility, confusion, loss),
+                                                   self.params, self.mesh)
+            self.state.norm_state = new_norm
+            with span("train.accumulate"):
+                stepped = self.state.accumulate(grads, self.grad_accum)
+            if stepped:
+                with span("train.optimizer"):
+                    self._apply(terms[4], lr, train_mode)
         metrics = dict(zip(("recon_loss", "sex_loss", "utility_loss", "confusion_loss", "loss"), terms))
         return {**metrics, "stepped": stepped}
 

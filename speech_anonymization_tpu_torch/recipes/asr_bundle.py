@@ -55,6 +55,7 @@ from ..models.transformer import TransformerLM, beam_reorder_cache, make_kv_cach
 from ..parallel.mesh import Mesh, all_gather_concat
 from ..train.checkpoint import recover_trees
 from ..utils.convert import asr_state_dict, load_numpy_state, lm_state_dict
+from ..utils.profiler import span
 
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 
@@ -168,9 +169,10 @@ class ASRBundle:
                 beam_reorder_cache,
             )
         max_steps = self.hparams.get("max_decode_steps")
-        return beam_decode(self.model, feats, lens, self.cfg, self.cache_dtype, self.paged_kv,
-                           int(max_steps) if max_steps else None, lm_cached,
-                           bool(self.hparams.get("decode_return_stats")))
+        with span("decode"):
+            return beam_decode(self.model, feats, lens, self.cfg, self.cache_dtype, self.paged_kv,
+                               int(max_steps) if max_steps else None, lm_cached,
+                               bool(self.hparams.get("decode_return_stats")))
 
     # -- anonymizer evaluation hooks ----------------------------------------
 
@@ -184,15 +186,18 @@ class ASRBundle:
         (``wer_metric2``) features against ``words`` (one string per utterance).
         Under a ``mesh`` the rows are this rank's shard: the similarities,
         hypotheses, ids and words are gathered over the ranks."""
-        r = self._encode(recon, lens).cpu().numpy().reshape(len(recon), -1)
-        o = self._encode(clean, lens).cpu().numpy().reshape(len(clean), -1)
-        den = np.linalg.norm(r, axis=1) * np.linalg.norm(o, axis=1)
-        metrics.utility_similarity.append(all_gather_concat((r * o).sum(axis=1) / np.maximum(den, 1e-8), mesh))
+        with span("eval.similarity"):
+            r = self._encode(recon, lens).cpu().numpy().reshape(len(recon), -1)
+            o = self._encode(clean, lens).cpu().numpy().reshape(len(clean), -1)
+            den = np.linalg.norm(r, axis=1) * np.linalg.norm(o, axis=1)
+            sims = (r * o).sum(axis=1) / np.maximum(den, 1e-8)
+        metrics.utility_similarity.append(all_gather_concat(sims, mesh))
         if stage == "test":
             ids, target = all_gather_concat(list(ids), mesh), all_gather_concat([w.split(" ") for w in words], mesh)
             for feats, agg in ((recon, metrics.wer_metric), (clean, metrics.wer_metric2)):
                 toks, lengths = self._decode_test(feats, lens)[:2]
-                pred = [self.tokenizer.decode_ids(h).split(" ") for h in hyps_to_lists(toks, lengths)]
+                with span("eval.hyps"):
+                    pred = [self.tokenizer.decode_ids(h).split(" ") for h in hyps_to_lists(toks, lengths)]
                 agg.append(ids, all_gather_concat(pred, mesh), target)
 
     def finish_test(self, metrics, wer_file: str | None = None) -> float:

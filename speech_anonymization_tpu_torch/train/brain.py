@@ -23,7 +23,7 @@ import torch
 
 from ..parallel.mesh import is_main_process
 from .checkpoint import Checkpointer
-from .profiler import StepTimer, TraceProfiler
+from ..utils.profiler import TraceProfiler
 
 
 class Stage(enum.Enum):
@@ -49,7 +49,6 @@ class Brain:
         self.ckpt_interval_minutes = ckpt_interval_minutes
         self.step = 0
         self.train_stats: dict = {}
-        self.step_timer = StepTimer()
         profile_dir = self.hparams.get("profile_dir")
         self.profiler = (
             TraceProfiler(profile_dir, int(self.hparams.get("profile_start_step", 10)),
@@ -93,9 +92,7 @@ class Brain:
                 self.step += 1
                 if self.profiler is not None:
                     self.profiler.maybe_start(self.step)
-                self.step_timer.start()
                 total = _add(total, self.fit_batch(batch, epoch))
-                self.step_timer.stop()
                 if self.profiler is not None:
                     self.profiler.maybe_stop(self.step)
                 count += 1

@@ -39,7 +39,7 @@ def test_import_pulls_in_no_jax():
         "speech_anonymization_tpu_torch.utils.convert, speech_anonymization_tpu_torch.train.checkpoint, "
         "speech_anonymization_tpu_torch.train.brain, speech_anonymization_tpu_torch.train.epoch_loop, "
         "speech_anonymization_tpu_torch.train.logger, speech_anonymization_tpu_torch.train.experiment, "
-        "speech_anonymization_tpu_torch.train.profiler, speech_anonymization_tpu_torch.losses.mi, "
+        "speech_anonymization_tpu_torch.utils.profiler, speech_anonymization_tpu_torch.losses.mi, "
         "speech_anonymization_tpu_torch.eval.evaluator, speech_anonymization_tpu_torch.models.init, "
         "speech_anonymization_tpu_torch.data, speech_anonymization_tpu_torch.data.audio, "
         "speech_anonymization_tpu_torch.data.dataset, speech_anonymization_tpu_torch.data.encoder, "
