@@ -71,12 +71,20 @@ failure raises and exits non-zero:
            then f32 at B3's N 198, steps 1, 31 and 63: the recipe's test
            decode), each held to its twin and timed beside its twin, the library
            yardstick and its bound, with its ring, shared memory and
-           registers (``"case": "k3"`` lines);
+           registers (``"case": "k3"`` lines); and K8 (norm_silu, no TPU
+           counterpart) at the ConvAutoencoder's block epilogues of the
+           slice's shape (enc_conv0's (32, 32, 80,640) without the norm;
+           (32, 64, 40,320), (32, 128, 20,160) and (32, 32, 80,640) with
+           it) and past one cluster (4 x 80.6 s, dec_in2's (4, 32, 645,120):
+           the two streaming launches), against its twin in float64 within
+           K8_RTOL and K8_ATOL, timed beside the twin in fp32 (the PyTorch
+           passes it replaces), its bound the bytes read and written once;
   slice    the anonymization path at bench.py's shape (32 utterances of
            161,120 samples = 10.07 s, T = 1008 frames), seeded random weights:
            anonymize, then evaluate_batch (full forward, x-vector scoring of
            clean and reconstructed features). Launch counts are reset right
-           before and read right after; then the path is timed;
+           before and read right after (K8: exactly 7 for the anonymize
+           call); then the path is timed;
   train    the anonymizer's training step at convae.yaml's configuration
            (ConvAutoencoder + TDNN head, 533,123 seeded parameters, the frozen
            full-width ASRModel()'s utility term, SpecAugment from a seeded
@@ -377,6 +385,7 @@ from speech_anonymization_tpu_torch.ops.lm_megastep import (  # noqa: E402
     lm_megastep_plain,
 )
 from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_power_plain  # noqa: E402
+from speech_anonymization_tpu_torch.ops import norm_silu as k8  # noqa: E402
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import anonymizer as recipe  # noqa: E402
 from speech_anonymization_tpu_torch.recipes import asr_train, lm_train  # noqa: E402
@@ -508,6 +517,15 @@ K7_LOGP_RTOL, K7_LOGP_ATOL = 0.1, 0.12
 # summed in other orders, so an element, and with it the row's amax, can
 # differ by one bf16 ulp: codes within one, scales within 2^-7 relative
 K7_INT8_SCALE_RTOL = 2.0 ** -7
+# K8 against its twin in float64 (tests/test_torch_cuda.py's): fp32 moments
+# and __expf; atol for outputs near 0, where the SiLU's relative error
+# follows the absolute error of its argument
+K8_RTOL = K8_ATOL = 1e-5
+# (block, shape, with the norm): the slice's epilogues, one of each kind, then
+# a row past one cluster (k8.MAX_LENGTH), which takes the streaming launches
+K8_SHAPES = (("enc_conv0", (BATCH, 32, 80_640), False), ("enc_in1", (BATCH, 64, 40_320), True),
+             ("enc_in3", (BATCH, 128, 20_160), True), ("dec_in2", (BATCH, 32, 80_640), True),
+             ("dec_in2_80s", (4, 32, 645_120), True))
 KERNEL_SOURCES = {
     "fused_fbank": ("speech_anonymization_tpu_torch/csrc/fbank.cu",
                     "speech_anonymization_tpu/ops/pallas/fbank_kernel.py:61"),
@@ -523,6 +541,8 @@ KERNEL_SOURCES = {
                                      "speech_anonymization_tpu/ops/pallas/attention_step.py:618"),
     "lm_megastep": ("speech_anonymization_tpu_torch/csrc/lm_megastep.cu",
                     "speech_anonymization_tpu/ops/pallas/lm_megastep.py:111"),
+    # no TPU counterpart: the JAX package leaves the block epilogue to XLA
+    "norm_silu": ("speech_anonymization_tpu_torch/csrc/norm_silu.cu", None),
 }
 # the int8 modes of every kernel but K1: the same kernels' int8
 # instantiations, each its own row of the table (launches counted over the
@@ -649,6 +669,58 @@ def k1_measure(frames: torch.Tensor, fbank: Fbank) -> tuple[dict, dict]:
                    "fp32_bound_ms": fp32_bound_ms, "gflop_tf32": split["tf32_flops"] / 1e9,
                    "gflop_fp32": split["flops"] / 1e9, "mbytes": nbytes / 1e6,
                    "share_of_bound": entry["bound_ms"] / kernel_ms}
+
+
+def _k8_operands(shape, norm: bool, gen: torch.Generator):
+    """Rows of one standard normal each scaled and shifted by its own amount
+    (shifts to +-3, so the mean matters), a bias, the norm's weight and shift."""
+    b, c, _ = shape
+    x = torch.randn(shape, device=DEVICE, generator=gen)
+    x.mul_(0.2 + 2.8 * torch.rand(b, c, 1, device=DEVICE, generator=gen))
+    x.add_(6.0 * torch.rand(b, c, 1, device=DEVICE, generator=gen) - 3.0)
+    vecs = tuple(s * torch.randn(c, device=DEVICE, generator=gen) + m for s, m in ((0.5, 0.0), (0.1, 1.0), (0.1, 0.0)))
+    return (x, *vecs) if norm else (x, vecs[0])
+
+
+def phase_k8() -> dict:
+    """K8 at K8_SHAPES against its twin in float64 (K8_RTOL, K8_ATOL), timed
+    beside the twin in fp32; its bound: the input read and the output written
+    once, each vector read once. -> the kernel-table entry at dec_in2's shape
+    (the cluster path), every shape's figures in its phase line."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    rows, entry = [], None
+    for block, shape, norm in K8_SHAPES:
+        ops = _k8_operands(shape, norm, gen)
+        before = k8.norm_silu.launches
+        got = k8.norm_silu(*ops)
+        torch.cuda.synchronize()
+        launched = k8.norm_silu.launches - before
+        want = k8.norm_silu_plain(*(a.double() for a in ops))
+        err = (got.double() - want).abs()
+        max_abs = float(err.max())
+        ok = bool(torch.allclose(got.double(), want, rtol=K8_RTOL, atol=K8_ATOL))
+        del want, err, got
+        ms = cuda_ms(lambda: k8.norm_silu(*ops))
+        plain_ms = cuda_ms(lambda: k8.norm_silu_plain(*ops), iters=10)
+        nbytes = 4 * (2 * ops[0].numel() + (len(ops) - 1) * shape[1])
+        e = kernel_entry("norm_silu", max_abs, ms, plain_ms, 0, nbytes, None)
+        rows.append({"block": block, "shape": list(shape), "norm": norm, "launches_a_call": launched,
+                     "max_abs_err": max_abs, "allclose": ok, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": e["bound_ms"], "share_of_bound": e["bound_ms"] / ms})
+        if block == "dec_in2":
+            entry = e
+        del ops
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "norm_silu", "rtol": K8_RTOL, "atol": K8_ATOL,
+          "max_length": k8.MAX_LENGTH, "shapes": rows})
+    bad = [r["block"] for r in rows if not r["allclose"]]
+    if bad:
+        raise AssertionError(f"K8 disagrees with its plain twin at {bad}")
+    wrong = [r["block"] for r in rows
+             if r["launches_a_call"] != (2 if r["norm"] and r["shape"][-1] > k8.MAX_LENGTH else 1)]
+    if wrong:
+        raise AssertionError(f"K8 launched an unexpected number of kernels at {wrong}")
+    return entry
 
 
 def _decode_steps(name: str) -> int:
@@ -1651,10 +1723,13 @@ def phase_slice(wavs, lens, labels, fbank, normalizer, models, card: str) -> dic
     torch.cuda.synchronize()
 
     fused_fbank.launches = 0
+    k8.norm_silu.launches = 0
     recon = recipe.anonymize(model, fbank, normalizer, norm_state, wavs, lens)
+    if k8.norm_silu.launches != 7:
+        raise AssertionError(f"anonymize launched K8 {k8.norm_silu.launches} times, not once a block (7)")
     loss = recipe.evaluate_batch(model, fbank, normalizer, norm_state, wavs, lens, labels, metrics, ext)
     torch.cuda.synchronize()
-    launches = {"fused_fbank": fused_fbank.launches}
+    launches = {"fused_fbank": fused_fbank.launches, "norm_silu": k8.norm_silu.launches}
     if launches["fused_fbank"] == 0:
         raise AssertionError("the main path never launched the fbank kernel")
 
@@ -3959,7 +4034,10 @@ def main() -> int:
     lm = seeded_init_(TransformerLM(device=DEVICE), SEED + 4)
     k1 = phase_kernels(wavs, fbank)
     decode_kernels = phase_decode_kernels(lm)
+    k8_entry = phase_k8()
     launches = phase_slice(wavs, lens, labels, fbank, normalizer, models, card)
+    k8_entry["launches"] = launches["norm_silu"]
+    k8_entry["launches_by_path"] = {"slice": launches["norm_silu"]}
     asr = seeded_init_(ASRModel(device=DEVICE), SEED + 3)
     train_launches = phase_train(asr, card)
     phase_train_parity()
@@ -4004,7 +4082,7 @@ def main() -> int:
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
-    emit({"kernels": [k1, *decode_kernels]})
+    emit({"kernels": [k1, *decode_kernels, k8_entry]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

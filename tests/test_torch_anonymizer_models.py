@@ -1,9 +1,11 @@
 """Every anonymizer family and sex head of the port against the JAX package
 (CPU): the train-mode forward (BatchNorm on batch statistics), the gradients
 of every parameter and of the input, and the BatchNorm running statistics
-after the forward; the GRL's reversed gradient at the bottleneck; flax's
-BatchNorm; and one update of each family through the recipe (fcae with pad
-multiple 1, cyclegan, endtoend with and without the external evaluator).
+after the forward; the ConvAutoencoder's inference path without autograd
+(K8's plain twin on each block, ``anonymize``, which path runs when, at any
+length); the GRL's reversed gradient at the bottleneck; flax's BatchNorm;
+and one update of each family through the recipe (fcae with pad multiple 1,
+cyclegan, endtoend with and without the external evaluator).
 
 Inputs: per-utterance scaled and shifted features, so the heads' batch
 statistics of pooled features are well conditioned. Tolerances: outputs
@@ -13,6 +15,7 @@ of the tensor's largest element (3e-2 where the loss reads a sex head),
 BatchNorm statistics within 1e-4 of it.
 """
 
+import copy
 import warnings
 
 import jax
@@ -50,7 +53,8 @@ from speech_anonymization_tpu_torch.models import (
     SexClassifier1D,
     TDNNSexClassifier,
 )
-from speech_anonymization_tpu_torch.models.components import BatchNorm, PixelShuffle1D
+from speech_anonymization_tpu_torch.models.components import BatchNorm, PixelShuffle1D, glu
+from speech_anonymization_tpu_torch.ops import norm_silu as k8
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer
 from speech_anonymization_tpu_torch.recipes.anonymizer import AnonymizerTrainer
 from speech_anonymization_tpu_torch.tools.train_parity import SEX_GRAD_RTOL, STATS_RTOL, speechlike
@@ -234,6 +238,96 @@ def test_convae_train_mode_matches_jax():
     x = _inputs((4, 36, 80), 16)
     _compare(JaxConvAE(), ConvAutoencoder(device="cpu"), x, [(4, 36, 80), (4, 2)],
              anonymizer_state_dict, 17, head_outputs=(1,))
+
+
+@pytest.fixture(scope="module")
+def convae_perturbed():
+    """A ConvAutoencoder with flax's init perturbed (every bias, norm scale and
+    shift nonzero) -> (flax variables, the port model with the same weights)."""
+    jm = JaxConvAE()
+    v = perturbed(jax.jit(lambda x: jm.init(jax.random.PRNGKey(19), x, train=False))(
+        jnp.zeros((1, 36, 80))), 19)
+    return v, load_numpy_state(ConvAutoencoder(device="cpu"), anonymizer_state_dict(v))
+
+
+# the seven blocks K8 takes: (conv, norm or None); the lengths the conv gives
+# from inputs of 9, 10 and 16 samples: odd, not a multiple of 4, a multiple
+_K8_BLOCKS = [("enc_conv0", None), ("enc_conv1", "enc_in1"), ("enc_conv2", "enc_in2"), ("enc_conv3", "enc_in3"),
+              ("enc_conv4", "enc_in4"), ("dec_up1", "dec_in1"), ("dec_up2", "dec_in2")]
+
+
+@pytest.mark.parametrize("conv,norm", _K8_BLOCKS)
+@pytest.mark.parametrize("length", [9, 10, 16])
+def test_norm_silu_plain_matches_the_block(convae_perturbed, conv, norm, length):
+    """``norm_silu_plain`` on the bias-free convolution is ``glu(norm(conv(x)))``
+    (``glu(conv(x))`` for enc_conv0), and ``norm_silu`` takes it on the CPU."""
+    from speech_anonymization_tpu_torch.models.autoencoders import _without_bias
+
+    model = convae_perturbed[1]
+    c, n = getattr(model, conv), None if norm is None else getattr(model, norm)
+    x = t(_inputs((3, c.in_channels, length), 20 + length))
+    with torch.no_grad():
+        want = glu(c(x) if n is None else n(c(x)))
+        y = _without_bias(c, x)
+        args = (y, c.bias) if n is None else (y, c.bias, n.weight, n.bias, n.eps)
+        got = k8.norm_silu_plain(*args)
+        launches = k8.norm_silu.launches
+        torch.testing.assert_close(k8.norm_silu(*args), got, rtol=0, atol=0)
+    assert k8.norm_silu.launches == launches  # CPU tensors launch nothing
+    assert c.bias.abs().min() > 0 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=OUT_ATOL)
+
+
+def test_convae_anonymize_without_grad_matches_jax(convae_perturbed):
+    """The inference path (bias-free convolutions, the blocks' epilogue in
+    ``norm_silu``) against the JAX package's ``anonymize``."""
+    v, model = convae_perturbed
+    x = _inputs((3, 36, 80), 21)
+    want = np.asarray(JaxConvAE().apply(v, jnp.asarray(x), method=JaxConvAE.anonymize))
+    with torch.no_grad():
+        got = model.eval().anonymize(t(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=OUT_ATOL, rtol=1e-5)
+
+
+def _count_norm_silu(monkeypatch):
+    calls = []
+    real = k8.norm_silu
+    monkeypatch.setattr(k8, "norm_silu", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_k8_path_only_without_autograd(convae_perturbed, monkeypatch, grad):
+    """Without autograd each ``anonymize`` calls ``norm_silu`` once a block
+    (7); with autograd never, and every norm's weight gets its gradient."""
+    model = copy.deepcopy(convae_perturbed[1]).train()
+    real = k8.norm_silu
+    launches = real.launches
+    calls = _count_norm_silu(monkeypatch)
+    x = t(_inputs((2, 36, 80), 22))
+    with torch.set_grad_enabled(grad):
+        recon, sex_lp = model(x)
+    assert real.launches == launches
+    if not grad:
+        assert len(calls) == 7 and not recon.requires_grad
+        return
+    assert calls == []
+    (recon.square().sum() + sex_lp.sum()).backward()
+    for name in ("enc_in1", "enc_in2", "enc_in3", "enc_in4", "dec_in1", "dec_in2"):
+        g = getattr(model, name).weight.grad
+        assert g is not None and g.abs().max() > 0, name
+    assert all(getattr(model, c).bias.grad is not None for c, _ in _K8_BLOCKS)
+
+
+def test_k8_path_at_any_length(convae_perturbed, monkeypatch):
+    """Without autograd every block calls ``norm_silu`` whatever the length:
+    dec_in2's rows of T * 80 floats past ``MAX_LENGTH`` too (on the card,
+    K8's streaming launches; the model makes no choice by length)."""
+    frames = k8.MAX_LENGTH // 80 + 1
+    calls = _count_norm_silu(monkeypatch)
+    with torch.no_grad():
+        recon = convae_perturbed[1].eval().anonymize(t(_inputs((1, frames, 80), 23)))
+    assert len(calls) == 7 and recon.shape == (1, frames, 80) and bool(torch.isfinite(recon).all())
 
 
 @pytest.mark.parametrize("scale", [1.0, 0.5])

@@ -1,7 +1,10 @@
-"""The port on an NVIDIA card: K1 to K7 against their plain twins (K5 in its
+"""The port on an NVIDIA card: K1 to K8 against their plain twins (K5 in its
 four configurations with identity, single-owner and mixed tables; every
 kernel on int8 caches too: K2, K3 and K5 whole-row, K4, K6 and K7 above the
-whole-row bound), the anonymization and decode slices (physical and
+whole-row bound; K8 on rows held by one block, split over clusters, and past
+one cluster), the anonymization path on the card against the CPU (K8 seven
+times a call, eight past one cluster, never in a training step), the
+anonymization and decode slices (physical and
 paged caches, f32, bf16 and int8, with and without the LM) on the card
 against the CPU, the anonymizer's training step (one convae
 accumulation cycle on the card against the CPU; K1 once a micro-batch), the
@@ -48,6 +51,7 @@ from speech_anonymization_tpu_torch.ops.beam_gather import (
     beam_gather_plain,
 )
 from speech_anonymization_tpu_torch.ops.fbank import Fbank, frame_signal
+from speech_anonymization_tpu_torch.ops import norm_silu as k8
 from speech_anonymization_tpu_torch.ops.lm_megastep import lm_megastep, lm_megastep_plain
 from speech_anonymization_tpu_torch.ops.fbank_kernel import fused_fbank, mel_power_plain
 from speech_anonymization_tpu_torch.ops.normalization import InputNormalizer, NormalizerState
@@ -132,6 +136,101 @@ def test_eval_step_on_card_matches_cpu(cuda):
     on_cpu = run("cpu", model)
     for got, want in zip(on_card, on_cpu):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-3)
+
+
+# K8 against its plain twin in float64 on the card: rtol 1e-5, and atol 1e-5
+# for outputs near 0, where the SiLU's relative error follows the absolute
+# error of its argument (fp32 mean and variance, __expf)
+K8_RTOL = K8_ATOL = 1e-5
+
+
+def _k8_operands(b, c, length, seed, device, norm=True):
+    """Rows of one standard normal each scaled and shifted by its own amount
+    (shifts to +-3, so the mean matters), a bias, and the norm's weight and shift."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, c, length)) * rng.uniform(0.2, 3.0, (b, c, 1)) + rng.uniform(-3, 3, (b, c, 1))
+    vecs = [rng.standard_normal(c) * 0.5, 1.0 + 0.1 * rng.standard_normal(c), 0.1 * rng.standard_normal(c)]
+    x, bias, weight, beta = (torch.from_numpy(np.asarray(a, np.float32)).to(device) for a in (x, *vecs))
+    return (x, bias, weight, beta) if norm else (x, bias)
+
+
+@pytest.mark.parametrize("norm", [True, False], ids=["norm", "bias_only"])
+@pytest.mark.parametrize("length", [20160, 40320, 80640, 20161, 3, k8.CHUNK, k8.CHUNK + 1, 8 * k8.CHUNK + 4,
+                                    k8.MAX_LENGTH, k8.MAX_LENGTH + 1, 2 * k8.MAX_LENGTH + 4])
+def test_k8_matches_plain_twin(cuda, length, norm):
+    """The anonymizer's rows (20,160 and 40,320 floats: one and two blocks;
+    80,640: a cluster of three), odd rows (off 16-byte alignment from the
+    second row on), the rows either side of one block's most (``CHUNK``), one
+    past eight blocks' (the share widened to eight), the longest one cluster
+    holds, and past it (the norm's two streaming launches; odd, and spanning
+    many tiles)."""
+    ops = _k8_operands(2, 8, length, length, cuda, norm)
+    before = k8.norm_silu.launches
+    got = k8.norm_silu(*ops)
+    torch.cuda.synchronize()
+    assert k8.norm_silu.launches == before + (2 if norm and length > k8.MAX_LENGTH else 1)
+    want = k8.norm_silu_plain(*(a.double() for a in ops)).float()
+    torch.testing.assert_close(got, want, rtol=K8_RTOL, atol=K8_ATOL)
+
+
+def test_k8_rejects_bad_operands(cuda):
+    x, bias, weight, beta = _k8_operands(2, 4, 64, 0, cuda)
+    with pytest.raises(TypeError):
+        k8.norm_silu(x.double(), bias, weight, beta)
+    with pytest.raises(ValueError):  # not contiguous
+        k8.norm_silu(x.transpose(1, 2).contiguous().transpose(1, 2), bias, weight, beta)
+    with pytest.raises(ValueError):  # another channel count
+        k8.norm_silu(x, bias[:3].contiguous(), weight, beta)
+    with pytest.raises(ValueError):  # the weight without the shift
+        k8.norm_silu(x, bias, weight)
+    with pytest.raises(ValueError):
+        k8.norm_silu(x, bias.cpu(), weight, beta)
+    with pytest.raises(ValueError):  # off 16-byte alignment
+        k8.norm_silu(torch.zeros(2 * 4 * 64 + 1, device=cuda)[1:].view(2, 4, 64), bias, weight, beta)
+
+
+def test_anonymize_on_card_matches_cpu(cuda):
+    """``anonymize`` (K1, the normalizer, the ConvAutoencoder with K8 in its
+    seven blocks) on the card against the CPU, at the eval step's atol; each
+    call launches K8 seven times."""
+    model = seeded_init_(ConvAutoencoder(device="cpu"), 0)
+    wavs, lens = _wavs(3, 24000, seed=2), torch.ones(3)
+    normalizer = InputNormalizer(80)
+    _, state = normalizer(normalizer.init_state("cpu"), Fbank(device="cpu")(wavs), lens, 0, training=True)
+
+    def run(device, m):
+        st = NormalizerState(*(x.to(device) for x in state))
+        return recipe.anonymize(m, Fbank(device=device), normalizer, st, wavs.to(device), lens.to(device))
+
+    on_card = copy.deepcopy(model).to(cuda)
+    for _ in range(2):
+        before = k8.norm_silu.launches
+        got = run(cuda, on_card)
+        torch.cuda.synchronize()
+        assert k8.norm_silu.launches == before + 7
+    torch.testing.assert_close(got.cpu(), run("cpu", model), rtol=0, atol=1e-3)
+
+
+def test_anonymize_past_one_cluster_on_card_matches_cpu(cuda):
+    """One 57.3 s utterance (T = 5,735 frames): dec_in2's rows of T * 80 =
+    458,800 floats exceed ``MAX_LENGTH`` and take K8's two streaming launches,
+    the other blocks one launch each (8 a call); on the card against the CPU."""
+    n = 5734 * 160
+    assert (1 + n // 160) * 80 > k8.MAX_LENGTH >= (1 + n // 160) * 40
+    model = seeded_init_(ConvAutoencoder(device="cpu"), 1)
+    wavs, lens = _wavs(1, n, seed=5), torch.ones(1)
+    normalizer = InputNormalizer(80)
+    _, state = normalizer(normalizer.init_state("cpu"), Fbank(device="cpu")(wavs), lens, 0, training=True)
+
+    def run(device, m):
+        st = NormalizerState(*(x.to(device) for x in state))
+        return recipe.anonymize(m, Fbank(device=device), normalizer, st, wavs.to(device), lens.to(device))
+
+    before = k8.norm_silu.launches
+    got = run(cuda, copy.deepcopy(model).to(cuda))
+    torch.cuda.synchronize()
+    assert k8.norm_silu.launches == before + 8
+    torch.testing.assert_close(got.cpu(), run("cpu", model), rtol=0, atol=1e-3)
 
 
 def _cache(shape, dtype, seed, device, nan_from=None):
@@ -1367,6 +1466,16 @@ def test_train_step_launches_k1_once_per_micro_batch(cuda):
     assert fused_fbank.launches == len(batches)
     assert all(bool(torch.isfinite(x)) for x in losses)
     assert tr.state.opt_state["gen"].count == 1 and tr.state.accum_count == 1
+
+
+def test_train_step_launches_no_k8(cuda):
+    """The training step runs the ConvAutoencoder under autograd: no K8."""
+    tr = _trainer_factory(recipe.DEFAULT_SCHEDULE)("cuda")
+    before = k8.norm_silu.launches
+    for b in _train_batches(2, seed=3):
+        tr.fit_batch(b, 0)
+        assert k8.norm_silu.launches == before
+    torch.cuda.synchronize()
 
 
 # -- the ASR and LM recipes -----------------------------------------------------
